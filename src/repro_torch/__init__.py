@@ -1,0 +1,47 @@
+"""PyTorch/CUDA port of the n-gram MapReduce system (``repro``), for the H100.
+
+The port mirrors ``repro``'s module names so each counterpart is easy to
+find, and imports only torch, numpy and the standard library -- never JAX and
+never a ``repro`` module.  Its first slice is the main path: token stream ->
+SUFFIX-sigma job -> ``NGramStats`` in canonical order -> flat ``NGramIndex``
+-> batched ``lookup`` and top-k ``continuations``.
+
+Lane representation.  ``repro`` keeps packed term lanes, record weights,
+hash values and index counts as ``uint32``.  torch has no ``>>``, ``<``,
+``%`` or ``index_add_`` on ``uint32``, so the port keeps every such value as
+``torch.int64`` holding the uint32 value in ``[0, 2**32)``: every op the
+path needs works on CPU and CUDA, signed int64 comparison is the unsigned
+order, and uint32 wraparound is reproduced by masking with ``U32`` after each
+shift or multiply.  Consequences the code handles explicitly:
+
+  * the index pad row ``SENTINEL = 0xFFFFFFFF`` is a large positive int64 and
+    sorts after every real row, as the uint32 all-ones row does;
+  * the continuation view's count key is ``U32 - cf`` (``~cf`` in uint32);
+  * ``shuffle_bytes`` still counts 4 bytes per lane: it is the paper's
+    MAP_OUTPUT_BYTES, not the port's storage width.
+
+Devices.  Entry points (``core.run_job``, ``index.build_index``) run on the
+card unless the caller passes ``device="cpu"``; with no card and no device
+given they raise.  Each kernel wrapper in ``kernels.ops`` launches its CUDA
+kernel on a CUDA tensor and runs the plain PyTorch version on a CPU tensor.
+"""
+from __future__ import annotations
+
+import torch
+
+U32 = 0xFFFFFFFF
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` if given, else the card.
+
+    Refuses to fall back to the CPU: with no ``device`` argument and no CUDA
+    card, the caller gets an error, not a silent CPU run.
+    """
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: repro_torch entry points run on the GPU by "
+            "default; pass device='cpu' to run on the host")
+    return torch.device("cuda")

@@ -1,0 +1,169 @@
+"""Span tracer: nested wall-clock spans -> Chrome/Perfetto ``trace_event`` JSON.
+
+The main-path part of ``repro.obs.trace``.  Instrumented code never checks
+whether tracing is on:
+
+    with trace.span("round.stages") as sp:
+        if sp:                   # a real span: attach args / device sync
+            sp.set(round=k)
+            sp.sync(tensors)     # torch.cuda.synchronize() at span close
+        ...
+
+``span`` returns the shared :data:`NULL_SPAN` while tracing is disabled -- no
+allocation, no clock read, no device sync.  Enabled, a span records a host
+``perf_counter_ns`` interval; a span given CUDA tensors through ``sp.sync``
+synchronizes the device at its close, so its duration covers the device work
+it launched instead of the asynchronous launch alone.
+"""
+from __future__ import annotations
+
+import json
+import threading
+import time
+
+import torch
+
+__all__ = ["NULL_SPAN", "Span", "Tracer", "enable_tracing", "disable_tracing",
+           "get_tracer", "span"]
+
+
+class _NullSpan:
+    """Shared do-nothing span: the disabled path's zero-cost stand-in."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def __bool__(self) -> bool:
+        return False
+
+    def set(self, **args) -> None:
+        pass
+
+    def sync(self, _x) -> None:
+        pass
+
+
+NULL_SPAN = _NullSpan()
+
+
+def _on_cuda(x) -> bool:
+    if isinstance(x, torch.Tensor):
+        return x.is_cuda
+    if isinstance(x, (tuple, list)):
+        return any(_on_cuda(v) for v in x)
+    return False
+
+
+class Span:
+    """One live span; closes (and optionally device-syncs) on ``__exit__``."""
+
+    __slots__ = ("_tracer", "name", "args", "t0", "t1", "tid", "_sync")
+
+    def __init__(self, tracer: "Tracer", name: str, args: dict | None):
+        self._tracer = tracer
+        self.name = name
+        self.args = args
+        self.t0 = 0
+        self.t1 = 0
+        self.tid = threading.get_ident() & 0xFFFF
+        self._sync = False
+
+    def __bool__(self) -> bool:
+        return True
+
+    def set(self, **args) -> None:
+        """Attach key/value args (rendered in the Perfetto detail pane)."""
+        if self.args is None:
+            self.args = {}
+        self.args.update(args)
+
+    def sync(self, x) -> None:
+        """Synchronize the device at span close if ``x`` holds CUDA tensors."""
+        self._sync = self._sync or _on_cuda(x)
+
+    def __enter__(self) -> "Span":
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self._sync:
+            torch.cuda.synchronize()
+        self.t1 = time.perf_counter_ns()
+        self._tracer._finish(self)
+        return False
+
+
+class Tracer:
+    """Collects finished spans; exports Chrome ``trace_event`` JSON."""
+
+    def __init__(self):
+        self.events: list[dict] = []
+        self._t_origin = time.perf_counter_ns()
+
+    def span(self, name: str, **args) -> Span:
+        return Span(self, name, args or None)
+
+    def _finish(self, sp: Span) -> None:
+        ev = {
+            "name": sp.name,
+            "ph": "X",
+            "cat": "repro_torch",
+            "ts": (sp.t0 - self._t_origin) / 1e3,    # us, Chrome's unit
+            "dur": (sp.t1 - sp.t0) / 1e3,
+            "pid": 0,
+            "tid": sp.tid,
+        }
+        if sp.args:
+            ev["args"] = {k: _jsonable(v) for k, v in sp.args.items()}
+        self.events.append(ev)
+
+    def export(self) -> dict:
+        """The Perfetto-loadable trace object (sorted by start time)."""
+        return {
+            "traceEvents": sorted(self.events, key=lambda e: e["ts"]),
+            "displayTimeUnit": "ms",
+        }
+
+    def save(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(self.export(), f, indent=1)
+
+
+def _jsonable(v):
+    if isinstance(v, (str, int, float, bool)) or v is None:
+        return v
+    try:
+        return int(v)          # numpy / tensor scalars
+    except (TypeError, ValueError):
+        return str(v)
+
+
+_TRACER: Tracer | None = None
+
+
+def enable_tracing(tracer: Tracer | None = None) -> Tracer:
+    """Install (and return) the active tracer."""
+    global _TRACER
+    _TRACER = tracer if tracer is not None else Tracer()
+    return _TRACER
+
+
+def disable_tracing() -> None:
+    global _TRACER
+    _TRACER = None
+
+
+def get_tracer() -> Tracer | None:
+    return _TRACER
+
+
+def span(name: str):
+    """A span under the active tracer, or :data:`NULL_SPAN` when disabled."""
+    if _TRACER is None:
+        return NULL_SPAN
+    return _TRACER.span(name)

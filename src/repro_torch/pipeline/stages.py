@@ -1,0 +1,107 @@
+"""Shared stage implementations of the map/combine/shuffle/sort/reduce pipeline
+(port of the main-path parts of ``repro.pipeline.stages``).
+
+  combine -- map-side pre-aggregation (the Hadoop combiner), ``"sort"`` route:
+             sort + run-merge, exact within the buffer.  The ``"hash"`` route
+             waits for the ``hash_combine`` kernel's slice.
+  shuffle -- partition-key computation (``mapreduce.shuffle.record_key``).
+  sort    -- multi-key lexicographic sort of the packed lanes.
+  reduce  -- ``reduce_suffix``: LCP runs, every prefix of every suffix
+             (Algorithm 4), through the ``lcp_boundary`` kernel.
+
+Records are ``[N, W]`` int64 (packed lanes | weight); shapes stay static, and
+token id 0 reads as "no token" throughout, as in ``repro``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ops as kops
+from repro_torch.mapreduce import pack as packing
+from repro_torch.mapreduce import segment, shuffle, sort
+
+
+# ------------------------------------------------------------------- combine
+def combine_sort(records: torch.Tensor, n_lanes: int) -> torch.Tensor:
+    """Sort-based map-side combiner: merge records with identical lanes.
+
+    Non-first rows of each run get weight 0 (dropped by the shuffle's
+    validity mask); shapes stay static.
+    """
+    rec = sort.sort_records(records, n_keys=n_lanes)
+    keys = rec[:, :n_lanes]
+    first = (keys != torch.roll(keys, 1, dims=0)).any(dim=1)
+    first[:1] = True
+    seg = torch.cumsum(first, dim=0) - 1
+    wsum = torch.zeros_like(rec[:, -1]).index_add_(0, seg, rec[:, -1])
+    rec[:, -1] = torch.where(first, wsum[seg], 0)
+    return rec
+
+
+def combine(records: torch.Tensor, n_lanes: int, *,
+            route: str = "sort") -> torch.Tensor:
+    if route == "sort":
+        return combine_sort(records, n_lanes)
+    if route == "hash":
+        raise NotImplementedError("combine_route='hash' waits for the port of "
+                                  "the hash_combine kernel")
+    raise ValueError(f"unknown combine route {route!r}")
+
+
+# ------------------------------------------------------------------- shuffle
+def partition_keys(records: torch.Tensor, n_lanes: int, *, kind: str,
+                   vocab_size: int) -> torch.Tensor:
+    """Per-record shuffle key (uint32 values) from the packed gram lanes."""
+    return shuffle.record_key(records[:, :n_lanes], kind=kind,
+                              vocab_size=vocab_size)
+
+
+# -------------------------------------------------------------- sort + reduce
+def sort_stage(records: torch.Tensor, *, n_keys: int) -> torch.Tensor:
+    """The MapReduce sort phase: lexicographic on the first ``n_keys`` lanes."""
+    return sort.sort_records(records, n_keys=n_keys)
+
+
+def reduce_suffix(rec: torch.Tensor, *, sigma: int, vocab_size: int,
+                  n_buckets: int = 0):
+    """LCP-run reducer over a *sorted* record block (SUFFIX-sigma).
+
+    rec: [N, W] sorted = lanes | weight.  Returns (terms [N, sigma] int32,
+    flags [N, sigma] bool, counts [N, sigma] int32).
+    """
+    if n_buckets:
+        raise NotImplementedError("n_buckets > 0 (time series) is not ported "
+                                  "to repro_torch yet")
+    n_l = packing.n_lanes(sigma, vocab_size)
+    terms = packing.unpack_terms(rec[:, :n_l], vocab_size=vocab_size,
+                                 sigma=sigma)
+    _, flags = kops.lcp_boundary(terms)
+    counts = segment.run_counts(flags, terms != 0, rec[:, n_l],
+                                max_segments=rec.shape[0])
+    return terms, flags, counts
+
+
+# ----------------------------------------------------------- canonical output
+def canonical_stats(stats):
+    """Canonical row order + dedup of a job output: sort by (length, terms
+    lexicographic) and sum counts of identical grams -- the order an
+    ``IndexSegment`` stores.  Host-side numpy, as in ``repro``."""
+    from repro_torch.core.stats import NGramStats
+    grams = np.asarray(stats.grams, np.int32)
+    lengths = np.asarray(stats.lengths, np.int32)
+    counts = np.asarray(stats.counts)
+    r, sigma = grams.shape
+    if r == 0:
+        return NGramStats(grams, lengths,
+                          counts.astype(np.int64), dict(stats.counters))
+    # np.lexsort: last key is primary -> (length, g[:,0], ..., g[:,sigma-1])
+    order = np.lexsort(tuple(grams[:, i] for i in range(sigma - 1, -1, -1))
+                       + (lengths,))
+    g_s, l_s, c_s = grams[order], lengths[order], counts[order]
+    prev_diff = np.any(g_s != np.roll(g_s, 1, axis=0), axis=1) | \
+        (l_s != np.roll(l_s, 1))
+    prev_diff[0] = True
+    starts = np.flatnonzero(prev_diff)
+    summed = np.add.reduceat(c_s.astype(np.int64), starts, axis=0)
+    return NGramStats(g_s[starts], l_s[starts], summed, dict(stats.counters))

@@ -1,0 +1,67 @@
+"""The port stands alone: no JAX, no ``repro``, no silent CPU fallback.
+
+Each import check runs in a fresh interpreter where ``import jax`` fails
+(``sys.modules["jax"] = None``), so a stray import anywhere in the port or in
+``chip_smoke.py`` breaks it.
+"""
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+NO_JAX = "import sys\nsys.modules['jax'] = None\n"
+NO_REPRO = textwrap.dedent("""
+    bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+                 and (m in ('repro', 'jax') or m.startswith(('repro.', 'jax.'))))
+    assert not bad, bad
+""")
+
+
+def _run(code: str) -> str:
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    return proc.stdout
+
+
+def test_every_port_module_imports_without_jax_or_repro():
+    out = _run(NO_JAX + textwrap.dedent("""
+        import importlib, pkgutil
+        import repro_torch
+        names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                       'repro_torch.')]
+        for name in names:
+            importlib.import_module(name)
+        print(len(names))
+    """) + NO_REPRO)
+    assert int(out) >= 20
+
+
+def test_chip_smoke_imports_without_jax_or_repro():
+    _run(NO_JAX + f"sys.path.insert(0, {str(ROOT)!r})\nimport chip_smoke\n"
+         + "assert callable(chip_smoke.main)\n" + NO_REPRO)
+
+
+def test_entry_points_refuse_cpu_without_a_device(monkeypatch):
+    """Without a card and without ``device``, the entry points raise instead
+    of running on the CPU."""
+    from repro_torch.core import NGramConfig, run_job
+    from repro_torch.index import build_index, index_from_arrays
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    toks = np.asarray([1, 2, 0, 2, 1], np.int32)
+    cfg = NGramConfig(sigma=2, tau=1, vocab_size=3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_job(toks, cfg)
+    stats = run_job(toks, cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_index(stats, vocab_size=3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        index_from_arrays({}, sigma=2, vocab_size=3, fanout_shift=0, n_fanout=5)

@@ -1,0 +1,102 @@
+"""The port's SUFFIX-sigma job against ``repro.core.run_job`` on CPU.
+
+Grams, lengths, counts and the full counter dict must be equal, compared at
+``canonical_stats`` output (``repro``'s sort is unstable, so the dense
+reducer arrays may order equal rows differently).  The corpora are the
+paper's running example and the ``test_random_corpora_match_oracle`` corpora
+of ``tests/test_core_methods.py``, with the combiner and packing on and off,
+and ``repro`` run both through its jnp path and its Pallas kernels.
+"""
+import numpy as np
+import pytest
+
+import repro.core as jcore
+from repro.core.stats import NGramConfig as JConfig
+from repro_torch.core import NGramConfig, oracle, run_job
+
+# paper running example, a=1 b=2 x=3
+D1, D2, D3 = [1, 3, 2, 3, 3], [2, 1, 3, 2, 3], [3, 2, 1, 3, 2]
+PAPER = np.asarray(D1 + [0] + D2 + [0] + D3, np.int32)
+
+VARIANTS = [dict(combine=c, pack=p) for c in (True, False) for p in (True, False)]
+
+
+def assert_same_stats(got, want):
+    np.testing.assert_array_equal(got.grams, want.grams)
+    np.testing.assert_array_equal(got.lengths, want.lengths)
+    np.testing.assert_array_equal(got.counts, want.counts)
+    assert got.counters == want.counters
+    assert {k: type(v) for k, v in got.counters.items()} == \
+        {k: type(v) for k, v in want.counters.items()}
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_paper_running_example(use_kernels):
+    kw = dict(sigma=3, tau=3, vocab_size=3)
+    got = run_job(PAPER, NGramConfig(**kw), device="cpu")
+    assert got.to_dict() == {(1,): 3, (2,): 5, (3,): 7, (1, 3): 3, (3, 2): 4,
+                             (1, 3, 2): 3}
+    assert_same_stats(got, jcore.run_job(PAPER, JConfig(**kw,
+                                                        use_kernels=use_kernels)))
+
+
+@pytest.mark.parametrize("variant", range(len(VARIANTS)))
+@pytest.mark.parametrize("seed", range(4))
+def test_random_corpora_match_repro_and_oracle(seed, variant):
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(20, 400))
+    v = int(rng.integers(2, 50))
+    toks = rng.integers(0, v + 1, n)
+    sigma = int(rng.integers(1, 7))
+    tau = int(rng.integers(1, 4))
+    kw = dict(sigma=sigma, tau=tau, vocab_size=v, **VARIANTS[variant])
+    got = run_job(toks, NGramConfig(**kw), device="cpu")
+    assert got.to_dict() == oracle.ngram_counts(toks, sigma, tau)
+    # repro's jnp path and its Pallas kernels alternate over the grid, so
+    # each (combine, pack) variant meets both
+    want = jcore.run_job(toks, JConfig(**kw, use_kernels=bool((seed + variant) % 2)))
+    assert_same_stats(got, want)
+
+
+def test_zipf_corpus_matches_repro():
+    from repro_torch.data import corpus
+    toks = corpus.zipf_corpus(6000, corpus.NYT, seed=4, duplicate_frac=0.05)
+    kw = dict(sigma=5, tau=3, vocab_size=corpus.NYT.vocab_size)
+    assert_same_stats(run_job(toks, NGramConfig(**kw), device="cpu"),
+                      jcore.run_job(toks, JConfig(**kw)))
+
+
+def test_empty_and_degenerate_inputs():
+    cfg = NGramConfig(sigma=3, tau=1, vocab_size=5)
+    assert run_job(np.zeros(10, np.int32), cfg, device="cpu").to_dict() == {}
+    assert run_job(np.asarray([2], np.int32), cfg, device="cpu").to_dict() == {(2,): 1}
+    one = run_job(np.asarray([2, 2, 2], np.int32),
+                  NGramConfig(sigma=2, tau=2, vocab_size=5), device="cpu")
+    assert one.to_dict() == {(2,): 3, (2, 2): 2}
+    assert_same_stats(run_job(np.zeros(10, np.int32), cfg, device="cpu"),
+                      jcore.run_job(np.zeros(10, np.int32),
+                                    JConfig(sigma=3, tau=1, vocab_size=5)))
+
+
+def test_record_count_invariant():
+    """SSIV: SUFFIX-sigma emits exactly one record per token occurrence."""
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, 30, 1000)
+    for sigma in (1, 3, 9):
+        st = run_job(toks, NGramConfig(sigma=sigma, tau=5, vocab_size=29,
+                                       combine=False), device="cpu")
+        assert st.counters["map_records"] == int((toks != 0).sum())
+        assert st.counters["shuffle_records"] == int((toks != 0).sum())
+
+
+def test_unported_options_raise():
+    toks = np.asarray([1, 2, 0, 2], np.int32)
+    for kw in (dict(method="naive"), dict(method="apriori_scan"),
+               dict(combine_route="hash"), dict(n_buckets=2)):
+        with pytest.raises(NotImplementedError):
+            run_job(toks, NGramConfig(sigma=2, tau=1, vocab_size=3, **kw),
+                    device="cpu")
+    from repro_torch.core import suffix_sigma
+    with pytest.raises(NotImplementedError):
+        suffix_sigma.run(toks, NGramConfig(sigma=2, tau=1, vocab_size=3),
+                         mesh=object(), device="cpu")

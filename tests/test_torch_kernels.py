@@ -1,0 +1,188 @@
+"""The port's kernel plain versions against ``repro``'s references and Pallas
+kernels, and the CUDA kernels against their plain versions on the card.
+
+A registry mirrors ``tests/test_kernels.py::KERNEL_CASES`` for the four
+kernels of the port's main path.  Each case draws inputs with numpy from a
+seed and returns two calls: the port's op on a device (a CPU tensor runs its
+plain version), and ``repro``'s reference and Pallas kernel (interpret mode).
+Every output is an integer, so every comparison is exact.
+``test_registry_covers_ops`` fails if a wrapper in ``repro_torch.kernels.ops``
+has no case.  JAX is imported on first use only: the ``cuda`` tests of this
+file run on a GPU host that has no JAX.
+"""
+import inspect
+import zlib
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+
+
+def _jax():
+    """(jax.numpy, repro.kernels.ref, repro.kernels.ops), imported on demand."""
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+    return jnp, jref, jops
+
+
+def lex_sorted(rng, n, l, vmax=6):
+    t = rng.integers(0, vmax, (n, l)).astype(np.int64)
+    return t[np.lexsort(t.T[::-1])]
+
+
+def _case_lcp_boundary(rng, scale):
+    n = int(rng.integers(1, 40 * scale + 2))
+    l = int(rng.integers(1, 100))
+    terms = lex_sorted(rng, n, l, vmax=int(rng.integers(2, 9))).astype(np.int32)
+    block = int(rng.choice([32, 64, 512]))
+    return (lambda dev: ops.lcp_boundary(torch.as_tensor(terms, device=dev)),
+            lambda jnp, jref, jops: (
+                jref.lcp_boundary_ref(jnp.asarray(terms)),
+                jops.lcp_boundary(jnp.asarray(terms), block_rows=block)))
+
+
+def _case_suffix_pack(rng, scale):
+    n = int(rng.integers(1, 120 * scale + 2))
+    sigma = int(rng.integers(1, 65))
+    vocab = int(rng.choice([1, 3, 300, 20_000, 70_000, 1 << 30]))
+    toks = rng.integers(0, min(vocab, 1 << 20) + 1, n).astype(np.int32)
+    block = int(rng.choice([b for b in (32, 256, 1024) if b >= sigma]))
+    return (lambda dev: ops.suffix_pack(torch.as_tensor(toks, device=dev),
+                                        sigma=sigma, vocab_size=vocab),
+            lambda jnp, jref, jops: (
+                jref.suffix_pack_ref(jnp.asarray(toks), sigma=sigma,
+                                     vocab_size=vocab),
+                jops.suffix_pack(jnp.asarray(toks), sigma=sigma,
+                                 vocab_size=vocab, block=block)))
+
+
+def _case_hash_partition(rng, scale):
+    n = int(rng.integers(1, 200 * scale + 2))
+    parts = int(rng.choice([2, 8, 16, 64, 512]))
+    keys = rng.integers(0, 2**32, n).astype(np.uint32)     # bit 31 set too
+    valid = rng.random(n) < 0.8
+    block = int(rng.choice([64, 128, 512]))
+    return (lambda dev: ops.hash_partition(
+                torch.as_tensor(keys.astype(np.int64), device=dev),
+                torch.as_tensor(valid, device=dev), n_parts=parts),
+            lambda jnp, jref, jops: (
+                jref.hash_partition_ref(jnp.asarray(keys), jnp.asarray(valid),
+                                        parts),
+                jops.hash_partition(jnp.asarray(keys), jnp.asarray(valid),
+                                    n_parts=parts, block=block)))
+
+
+def _case_bsearch(rng, scale):
+    r = int(rng.integers(1, 200 * scale + 2))
+    n_l = int(rng.integers(1, 4))
+    q = int(rng.integers(1, 100 * scale + 2))
+    # small values collide often; a high base puts bit 31 in every lane
+    base = int(rng.choice([0, 2**31 + 5]))
+    lanes = (base + lex_sorted(rng, r, n_l, vmax=50)).astype(np.uint32)
+    queries = (base + rng.integers(0, 55, (q, n_l))).astype(np.uint32)
+    lo = rng.integers(0, r + 1, q).astype(np.int32)          # lo == hi == r too
+    hi = (lo + rng.integers(0, r, q)).clip(0, r).astype(np.int32)
+    upper = bool(rng.integers(0, 2))
+    block = int(rng.choice([64, 128, 1024]))
+
+    def repro_calls(jnp, jref, jops):
+        jargs = (jnp.asarray(lanes), jnp.asarray(queries), jnp.asarray(lo),
+                 jnp.asarray(hi))
+        return (jref.bsearch_ref(*jargs, upper=upper),
+                jops.bsearch(*jargs, upper=upper, block=block))
+
+    return (lambda dev: ops.bsearch(
+                torch.as_tensor(lanes.astype(np.int64), device=dev),
+                torch.as_tensor(queries.astype(np.int64), device=dev),
+                torch.as_tensor(lo, device=dev), torch.as_tensor(hi, device=dev),
+                upper=upper),
+            repro_calls)
+
+
+KERNEL_CASES = {
+    "lcp_boundary": _case_lcp_boundary,
+    "suffix_pack": _case_suffix_pack,
+    "hash_partition": _case_hash_partition,
+    "bsearch": _case_bsearch,
+}
+
+
+def _draw(name, sweep):
+    # crc32, not hash(): string hashing is salted per process, and the sweep
+    # must draw the same cases in every run to be debuggable
+    rng = np.random.default_rng(zlib.crc32(f"torch/{name}/{sweep}".encode()))
+    return KERNEL_CASES[name](rng, [1, 1, 4, 16][sweep])
+
+
+def _assert_equal(got, want):
+    if not isinstance(got, tuple):
+        got, want = (got,), (want,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        g = g.cpu().numpy()
+        w = np.asarray(w)
+        assert g.shape == w.shape
+        np.testing.assert_array_equal(g.astype(np.int64), w.astype(np.int64))
+
+
+def test_registry_covers_ops():
+    """Every public kernel wrapper in the port's ops.py has a registered case."""
+    public = {n for n, f in vars(ops).items()
+              if callable(f) and not n.startswith("_")
+              and inspect.getmodule(f) is ops}
+    assert public == set(KERNEL_CASES), public ^ set(KERNEL_CASES)
+
+
+@pytest.mark.parametrize("name", sorted(KERNEL_CASES))
+@pytest.mark.parametrize("sweep", range(4))
+def test_plain_matches_repro_ref_and_kernel(name, sweep):
+    port_call, repro_calls = _draw(name, sweep)
+    before = dict(ops.launches)
+    got = port_call("cpu")
+    assert dict(ops.launches) == before      # a CPU tensor launches no kernel
+    want_ref, want_kernel = repro_calls(*_jax())
+    _assert_equal(got, want_ref)
+    _assert_equal(got, want_kernel)
+
+
+def test_bsearch_plain_against_bisect():
+    """The search's plain version vs Python row-tuple bisection, lanes with
+    bit 31 set."""
+    import bisect
+    rng = np.random.default_rng(5)
+    r, n_l, q = 500, 3, 400
+    lanes = 2**31 + lex_sorted(rng, r, n_l, vmax=30)
+    queries = 2**31 + rng.integers(0, 33, (q, n_l))
+    lo = rng.integers(0, r, q)
+    hi = (lo + rng.integers(0, r, q)).clip(0, r)
+    rows = [tuple(x) for x in lanes.tolist()]
+    for upper in (False, True):
+        got = ref.bsearch_ref(torch.as_tensor(lanes), torch.as_tensor(queries),
+                              torch.as_tensor(lo), torch.as_tensor(hi),
+                              upper=upper)
+        side = bisect.bisect_right if upper else bisect.bisect_left
+        expect = [side(rows, tuple(qr), lo=int(l), hi=int(h))
+                  for qr, l, h in zip(queries.tolist(), lo, hi)]
+        np.testing.assert_array_equal(got.numpy(), expect)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(KERNEL_CASES))
+@pytest.mark.parametrize("sweep", range(4))
+def test_cuda_kernel_matches_plain(cuda_device, name, sweep):
+    port_call, _ = _draw(name, sweep)
+    before = ops.launches[name]
+    got = port_call(cuda_device)
+    torch.cuda.synchronize()
+    assert ops.launches[name] == before + 1
+    _assert_equal(got, port_call("cpu"))
