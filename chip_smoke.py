@@ -6,18 +6,31 @@
 Phases (any failure raises, and the script exits non-zero without its last
 line):
 
-  1. build    -- compile the four CUDA kernels from ``src/repro_torch/kernels/csrc``;
+  1. build    -- compile the eight CUDA kernels from ``src/repro_torch/kernels/csrc``;
   2. oracle   -- the paper's running example and ~50k NYT-profile tokens
                  through ``run_job`` -> ``build_index`` -> ``lookup`` /
                  ``continuations`` on the card, against the pure-Python oracle;
   3. main path -- 2**25 NYT-profile terms, sigma=5, tau=10: the job, the index,
                  2**16 point lookups (half hits, half misses or malformed) and
-                 2**14 top-8 continuation queries, each checked exactly; every
-                 kernel's launch counter must move during this phase;
-  4. kernels  -- each CUDA kernel against its plain PyTorch version on the card,
-                 at the shapes the main path gave it and on edge cases (exact
-                 equality), with its time, the plain version's time and the
-                 least time the card could take (``bound_ms``).
+                 2**14 top-8 continuation queries, each checked exactly; the
+                 launch counters of the job's and the flat index's kernels
+                 must move during this phase;
+  5. streaming -- the same corpus through ``StreamingNGramService`` (hash
+                 combiner, compressed rungs, merge-path compaction): a 60 %
+                 base, then 4 deltas; after each ingest 2**16 lookups and
+                 2**14 top-8 continuations checked exactly against the union
+                 of the per-batch job outputs, and a repeated batch served
+                 wholly from the cache; then ``compact_all``, whose single rung
+                 must equal a compressed index built directly from the union.
+                 Every one of the eight kernels' launch counters must move;
+  4. kernels  -- run last, as it needs phase 5's shapes: each CUDA kernel
+                 against its plain PyTorch version on the card, at the shapes
+                 the main paths gave it and on edge cases (exact equality),
+                 with its time, the plain version's time and the least time
+                 the card could take (``bound_ms``, from the uint32 values'
+                 bytes; ``bound_ms_as_stored`` from the int64 lanes the port
+                 keeps them in).  ``launches`` is the count on the path whose
+                 shapes the row was timed at; ``launches_by_path`` has both.
 
 The last lines are one JSON object describing each kernel, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.  The
@@ -38,14 +51,20 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core import NGramConfig, oracle, run_job  # noqa: E402
 from repro_torch.core import suffix_sigma  # noqa: E402
+from repro_torch.core.stats import NGramStats  # noqa: E402
 from repro_torch.data import corpus  # noqa: E402
 from repro_torch.index import build_index, continuations, lookup  # noqa: E402
+from repro_torch.index import (CompressedNGramIndex, build_compressed_index,  # noqa: E402
+                               compress_index)
+from repro_torch.index import compress as index_compress  # noqa: E402
+from repro_torch.index import merge as index_merge  # noqa: E402
 from repro_torch.index import query as index_query  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.mapreduce import pack  # noqa: E402
 from repro_torch.obs import trace  # noqa: E402
 from repro_torch.pipeline import stages  # noqa: E402
+from repro_torch.serve import StreamingNGramService  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bandwidth, and
 # the 32-bit non-tensor rate, the table's figure for the scalar integer work
@@ -62,7 +81,14 @@ KERNELS = {
     "hash_partition": "src/repro/kernels/hash_partition.py:49",
     "lcp_boundary": "src/repro/kernels/lcp_boundary.py:51",
     "bsearch": "src/repro/kernels/bsearch.py:84",
+    "hash_combine": "src/repro/kernels/hash_combine.py:91",
+    "merge_path": "src/repro/kernels/merge_path.py:109",
+    "block_expand": "src/repro/kernels/block_expand.py:104",
+    "block_decode": "src/repro/kernels/block_decode.py:129",
 }
+#: the kernels of the job and the flat index, which phase 3 drives
+MAIN_KERNELS = ("suffix_pack", "hash_partition", "lcp_boundary", "bsearch")
+N_DELTAS = 4
 
 
 def check(cond: bool, what: str) -> None:
@@ -75,6 +101,16 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def reset_peak() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+
+
+def device_peak() -> int:
+    """Peak bytes allocated on the card since the last :func:`reset_peak`."""
+    return torch.cuda.max_memory_allocated() if torch.cuda.is_available() else 0
 
 
 def wall_times(fn, sync, reps: int) -> list[float]:
@@ -338,8 +374,214 @@ def phase_main_path(dev, n_terms: int = MAIN_TERMS) -> dict:
           f"{launches}")
     print("main: checks passed (unigrams == bincount, hits, misses/malformed, "
           "continuation mass and top-k pairs, repeated job)")
-    return dict(tokens=tokens, stats=stats, idx=idx, queries=(g_dev, ln_dev),
-                prefixes=(pg_dev, pl_dev), launches=launches)
+    return dict(tokens=tokens, toks=toks, stats=stats, idx=idx,
+                queries=(g_dev, ln_dev), prefixes=(pg_dev, pl_dev),
+                launches=launches)
+
+
+# --------------------------------------------------------------------- phase 5
+def prefix_batch(stats, rng, n: int):
+    """Prefixes (len 0..sigma-1) of job-output rows, as phase 3 draws them."""
+    sigma = stats.grams.shape[1]
+    rows = rng.integers(0, len(stats), n)
+    pl = np.minimum(stats.lengths[rows], rng.integers(0, sigma, n)).astype(np.int32)
+    pg = (stats.grams[rows] * (np.arange(sigma)[None, :] < pl[:, None])).astype(np.int32)
+    return pg, pl
+
+
+def expected_continuations(stats, pg, pl, k: int) -> np.ndarray:
+    """Exact host answers [Q, 2+2k] (n_distinct | total | top-k terms | cfs):
+    the stats grouped by (length, prefix), ranked cf desc, next term asc."""
+    sigma = stats.grams.shape[1]
+    r = len(stats)
+    parent = stats.grams * (np.arange(sigma)[None, :] < (stats.lengths - 1)[:, None])
+    uniq, inv, n_per = np.unique(row_keys(stats.lengths, parent),
+                                 return_inverse=True, return_counts=True)
+    inv = inv.reshape(-1)
+    last = stats.grams[np.arange(r), stats.lengths - 1].astype(np.int64)
+    counts = stats.counts.astype(np.int64)
+    order = np.lexsort((last, -counts, inv))
+    start = np.concatenate([[0], np.cumsum(n_per)[:-1]])
+    mass = np.bincount(inv, weights=counts, minlength=len(uniq)).astype(np.int64)
+    q = row_keys(pl + 1, pg)
+    pos = np.minimum(np.searchsorted(uniq, q), len(uniq) - 1)
+    found = uniq[pos] == q
+    nd = np.where(found, n_per[pos], 0)
+    offs = start[pos][:, None] + np.arange(k)[None, :]
+    in_group = np.arange(k)[None, :] < nd[:, None]
+    safe = order[np.minimum(offs, r - 1)]
+    terms = np.where(in_group, last[safe], 0)
+    cfs = np.where(in_group, counts[safe], 0)
+    return np.concatenate([nd[:, None], np.where(found, mass[pos], 0)[:, None],
+                           terms, cfs], axis=1)
+
+
+def flat_bytes_u32(ix) -> int:
+    """Bytes of the flat layout of ``ix``'s rows with uint32 lanes and counts
+    (``repro``'s flat index): the reference of the at-rest ratio."""
+    size, sigma, n_l = ix.size, ix.sigma, ix.n_lanes
+    cells = sigma * (ix.n_fanout + 1)
+    return 4 * (size * (1 + n_l) + size + (sigma + 1) + cells + size * n_l
+                + 2 * size + cells + size + 1)
+
+
+def union_of(batches: list) -> NGramStats:
+    """Dedup-summed union of job outputs in canonical order (host numpy)."""
+    return stages.canonical_stats(NGramStats(
+        np.concatenate([b.grams for b in batches]),
+        np.concatenate([b.lengths for b in batches]),
+        np.concatenate([b.counts for b in batches])))
+
+
+def profile_ingest(svc, tokens) -> dict:
+    """One ingest under ``torch.profiler``: device busy time by kernel and the
+    share of the wall time the card sat idle."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rep = svc.ingest(tokens)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict[str, float] = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
+    busy_ms = sum(by_name.values())
+    print(f"stream: profiled ingest {wall_ms:.1f} ms wall (job {rep['job_s'] * 1e3:.1f} ms, "
+          f"ingest {rep['ingest_s'] * 1e3:.1f} ms, merges {rep['merges']}), device busy "
+          f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"stream:   device {ms:9.3f} ms  {name[:90]}")
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:8]
+    for ev in host:
+        print(f"stream:   host {ev.self_cpu_time_total / 1e3:9.3f} ms self  "
+              f"{ev.key[:60]} x{ev.count}")
+    return rep
+
+
+def phase_streaming(dev, main: dict) -> dict:
+    """Streaming ingest into a compressed generational index, at full width."""
+    vocab = corpus.NYT.vocab_size
+    toks = main["toks"]
+    base, rest = np.split(toks, [int(len(toks) * 0.6)])
+    batches = [base] + np.array_split(rest, N_DELTAS)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    # the reference: each batch's job output on the sort-route combiner
+    ref_cfg = NGramConfig(sigma=SIGMA, tau=TAU, vocab_size=vocab)
+    ref_stats = [run_job(b, ref_cfg, device=dev) for b in batches]
+    cfg = NGramConfig(sigma=SIGMA, tau=TAU, vocab_size=vocab, combine_route="hash")
+    svc = StreamingNGramService(cfg, compress=True, block_size=4, route="merge",
+                                device=dev)
+    rng = np.random.default_rng(5)
+    reset_peak()
+    peak = 0
+    tracer = trace.enable_tracing()
+    ops.launches.clear()
+    for step, batch in enumerate(batches):
+        label = "base" if step == 0 else f"delta {step}"
+        if step == len(batches) - 1 and dev.type == "cuda":
+            rep = profile_ingest(svc, batch)
+        else:
+            rep = svc.ingest(batch)
+        sync()
+        union = union_of(ref_stats[:step + 1])
+        levels = svc.gen.segments                    # materialize every rung
+        kinds = ["compressed" if isinstance(ix, CompressedNGramIndex) else "flat"
+                 for ix in levels]
+        at_rest = svc.gen.nbytes_at_rest
+        flat = sum(flat_bytes_u32(ix) for ix in levels)
+        at_rest_u32 = sum(ix.nbytes_at_rest if isinstance(ix, CompressedNGramIndex)
+                          else flat_bytes_u32(ix) for ix in levels)
+        print(f"stream: {label}: {len(batch)} positions, job {rep['job_s']:.3f} s, "
+              f"ingest {rep['ingest_s']:.3f} s, merges {rep['merges']}, rungs "
+              f"{rep['segment_rows']} ({', '.join(kinds)}); bytes at rest "
+              f"{at_rest_u32:,} (flat rungs in uint32 lanes) vs {flat:,} all flat "
+              f"= {flat / at_rest_u32:.3f}x smaller; resident {svc.gen.nbytes:,} "
+              f"(port, int64 flat lanes; at rest as stored {at_rest:,})")
+        g, ln, _ = lookup_batch(union, rng, N_LOOKUPS, vocab)
+        t0 = time.perf_counter()
+        got = svc.lookup(g, ln)
+        t_svc = time.perf_counter() - t0
+        check(np.array_equal(got, expected_lookups(union, g, ln, vocab)),
+              f"{label}: 2**16 service lookups == union")
+        h0, m0 = svc.cache.hits, svc.cache.misses
+        check(np.array_equal(svc.lookup(g, ln), got) and svc.cache.misses == m0
+              and svc.cache.hits == h0 + len(g), f"{label}: repeat served from cache")
+        pg, pl = prefix_batch(union, rng, N_PREFIXES)
+        t0 = time.perf_counter()
+        rows = svc.continuations(pg, pl, k=TOP_K)
+        t_svc_c = time.perf_counter() - t0
+        check(np.array_equal(rows, expected_continuations(union, pg, pl, TOP_K)),
+              f"{label}: 2**14 service continuations == union")
+        # the generational index alone, device tensors in and out
+        g_dev, ln_dev = torch.as_tensor(g, device=dev), torch.as_tensor(ln, device=dev)
+        pg_dev, pl_dev = torch.as_tensor(pg, device=dev), torch.as_tensor(pl, device=dev)
+        lk = wall_times(lambda: lookup(svc.gen, g_dev, ln_dev), sync, 5)
+        peak = max(peak, device_peak())
+        reset_peak()
+        held = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+        ct = wall_times(lambda: continuations(svc.gen, pg_dev, pl_dev, k=TOP_K), sync, 5)
+        cont_peak = device_peak()
+        peak = max(peak, cont_peak)
+        print(f"stream: {label}: service {N_LOOKUPS / t_svc:,.0f} lookups/s and "
+              f"{N_PREFIXES / t_svc_c:,.0f} continuations/s cold (host cache "
+              f"included); generational index {N_LOOKUPS / np.median(lk):,.0f} "
+              f"lookups/s, {N_PREFIXES / np.median(ct):,.0f} continuations/s "
+              f"(median of 5 batches); checks passed")
+        print(f"stream: {label}: continuations of {N_PREFIXES} prefixes over "
+              f"{len(levels)} rungs: peak device memory {cont_peak / 2**30:.2f} GiB "
+              f"({(cont_peak - held) / 2**30:.2f} GiB above the {held / 2**30:.2f} "
+              f"GiB held before the call)")
+
+    compact_inputs = list(reversed(svc.gen.levels))   # elder first, as merged
+    t0 = time.perf_counter()
+    svc.gen.compact_all()
+    sync()
+    t_compact = time.perf_counter() - t0
+    trace.disable_tracing()
+    launches = dict(ops.launches)
+    peak = max(peak, device_peak())
+    union = union_of(ref_stats)
+    (final,) = svc.gen.segments
+    check(isinstance(final, CompressedNGramIndex), "the compacted rung is compressed")
+    t0 = time.perf_counter()
+    flat_direct = build_index(union, vocab_size=vocab, device=dev)
+    sync()
+    t_flat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    direct = compress_index(flat_direct, block_size=4, device=dev)
+    sync()
+    t_compress = time.perf_counter() - t0
+    for f in ("heads", "lcps", "payload", "block_base", "counts_packed",
+              "cont_heads", "cont_lcps", "cont_payload", "cont_block_base",
+              "cont_last_packed", "cont_counts_packed", "sec_cache",
+              "cumsum_cache", "fan_cache", "cont_fan_cache"):
+        check(torch.equal(getattr(final, f), getattr(direct, f)),
+              f"compacted rung {f} == compress_index(build_index(union))")
+    g, ln, _ = lookup_batch(union, rng, N_LOOKUPS, vocab)
+    check(np.array_equal(svc.lookup(g, ln), expected_lookups(union, g, ln, vocab)),
+          "lookups after compact_all == union")
+    pg, pl = prefix_batch(union, rng, N_PREFIXES)
+    check(np.array_equal(svc.continuations(pg, pl, k=TOP_K),
+                         expected_continuations(union, pg, pl, TOP_K)),
+          "continuations after compact_all == union")
+    spans: dict[str, list] = {}
+    for ev in tracer.events:
+        acc = spans.setdefault(ev["name"], [0, 0.0])
+        acc[0] += 1
+        acc[1] += ev["dur"] / 1e3
+    print(f"stream: compact_all {t_compact:.3f} s -> one compressed rung of "
+          f"{final.n_rows} rows, equal to a direct compressed build of the union; "
+          f"at rest {final.nbytes_at_rest:,} bytes vs {flat_bytes_u32(final):,} flat "
+          f"(uint32) = {flat_bytes_u32(final) / final.nbytes_at_rest:.3f}x")
+    print(f"stream: direct build of the union: build_index {t_flat:.3f} s (device), "
+          f"compress_index {t_compress:.3f} s (host numpy build + copy to the card)")
+    print("stream: spans (count, ms) " + ", ".join(
+        f"{k} {n} {ms:.1f}" for k, (n, ms) in sorted(spans.items())))
+    print(f"stream: peak device memory {peak / 2**30:.2f} GiB; kernel launches {launches}")
+    return dict(svc=svc, final=final, union=union, base_tokens=base,
+                compact_inputs=compact_inputs, launches=launches)
 
 
 # --------------------------------------------------------------------- phase 4
@@ -362,7 +604,7 @@ def _probes(lo, hi, pos, steps: int) -> tuple[int, int]:
 def bound(bytes_moved: float, ops_done: float) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops_done / SCALAR_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return (float(t_bytes), "bytes") if t_bytes >= t_ops else (float(t_ops), "operations")
 
 
 def edge_cases(dev):
@@ -405,51 +647,62 @@ def edge_cases(dev):
     return cases
 
 
-def phase_kernels(dev, main: dict) -> list[dict]:
-    """Each kernel against its plain version at the main path's shapes."""
+def phase_kernels(dev, main: dict, stream: dict) -> list[dict]:
+    """Each kernel against its plain version at the main paths' shapes."""
     vocab = corpus.NYT.vocab_size
     n_l = pack.n_lanes(SIGMA, vocab)
     tokens, idx = main["tokens"], main["idx"]
     n = tokens.shape[0]
     rows = []
+    by_path = {k: {"main": main["launches"].get(k, 0),
+                   "stream": stream["launches"].get(k, 0)} for k in KERNELS}
 
-    def measure(name, kernel, plain, bytes_moved, ops_done, shape):
+    def measure(name, path, kernel, plain, bytes_u32, bytes_stored, ops_done, shape):
+        """One row; ``bytes_u32`` counts uint32 values at 4 bytes, ``bytes_stored``
+        at the 8 bytes of the port's int64 lanes (equal where all is 32-bit)."""
         err = max_abs_err(kernel(), plain())
         check(err == 0, f"{name} kernel == plain version at {shape}")
         ms = cuda_ms(kernel) if tokens.is_cuda else float("nan")
         plain_ms = cuda_ms(plain) if tokens.is_cuda else float("nan")
-        bound_ms, bound_by = bound(bytes_moved, ops_done)
+        bound_ms, bound_by = bound(bytes_u32, ops_done)
+        stored_ms, _ = bound(bytes_stored, ops_done)
         print(f"kernel {name} at {shape}: equal; {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by}), library call: none")
+              f"bound {bound_ms:.4f} ms ({bound_by}, uint32 values), "
+              f"{stored_ms:.4f} ms as stored (int64 lanes); launches {by_path[name]}; "
+              "library call: none")
         return dict(name=name, route="cuda",
                     source=f"src/repro_torch/kernels/csrc/{name}.cu",
-                    replaces=KERNELS[name], launches=main["launches"].get(name, 0),
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                    bound_by=bound_by, library_ms=None)
+                    replaces=KERNELS[name], launches=by_path[name][path],
+                    launches_by_path=by_path[name], max_abs_err=err, ms=ms,
+                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                    bound_ms_as_stored=stored_ms, library_ms=None)
 
     # the main path's own intermediates, rebuilt stage by stage
     rows.append(measure(
-        "suffix_pack",
+        "suffix_pack", "main",
         lambda: ops.suffix_pack(tokens, sigma=SIGMA, vocab_size=vocab),
         lambda: ref.suffix_pack_ref(tokens, sigma=SIGMA, vocab_size=vocab),
-        n * (4 + 8 * n_l), 6 * SIGMA * n, f"tokens [{n}] -> lanes [{n}, {n_l}]"))
+        n * (4 + 4 * n_l), n * (4 + 8 * n_l), 6 * SIGMA * n,
+        f"tokens [{n}] -> lanes [{n}, {n_l}]"))
     records, _ = suffix_sigma.make_records(tokens, sigma=SIGMA, vocab_size=vocab)
     records = stages.combine(records, n_l)
     live = records[:, n_l] > 0
     key = stages.partition_keys(records, n_l, kind="lead", vocab_size=vocab)
     rows.append(measure(
-        "hash_partition",
+        "hash_partition", "main",
         lambda: ops.hash_partition(key, live, n_parts=64),
         lambda: ref.hash_partition_ref(key, live, 64),
-        n * (8 + 1 + 4) + 64 * 4, 10 * n, f"keys [{n}], 64 parts"))
+        n * (4 + 1 + 4) + 64 * 4, n * (8 + 1 + 4) + 64 * 4, 10 * n,
+        f"keys [{n}], 64 parts"))
     del key, live
     terms = pack.unpack_terms(stages.sort_stage(records, n_keys=n_l)[:, :n_l],
                               vocab_size=vocab, sigma=SIGMA)
     del records
     rows.append(measure(
-        "lcp_boundary", lambda: ops.lcp_boundary(terms),
+        "lcp_boundary", "main", lambda: ops.lcp_boundary(terms),
         lambda: ref.lcp_boundary_ref(terms),
-        n * (4 * SIGMA + 4 + SIGMA), 3 * SIGMA * n, f"terms [{n}, {SIGMA}]"))
+        n * (4 * SIGMA + 4 + SIGMA), n * (4 * SIGMA + 4 + SIGMA), 3 * SIGMA * n,
+        f"terms [{n}, {SIGMA}]"))
     del terms
 
     # bsearch as the point lookups call it (the row reported), and as the
@@ -473,23 +726,164 @@ def phase_kernels(dev, main: dict) -> list[dict]:
         probes, distinct = _probes(b_lo, b_hi, pos, steps)
         n_q = q.shape[0]
         row = measure(
-            "bsearch",
+            "bsearch", "main",
             lambda l=lanes, q=q, a=b_lo, b=b_hi, u=upper: ops.bsearch(l, q, a, b, upper=u, steps=steps),
             lambda l=lanes, q=q, a=b_lo, b=b_hi, u=upper: ref.bsearch_ref(l, q, a, b, upper=u, steps=steps),
+            n_q * (4 * n_l + 4 + 4 + 4) + distinct * 4 * n_l,
             n_q * (8 * n_l + 4 + 4 + 4) + distinct * 8 * n_l,
             probes * (2 * n_l + 4),
             f"{label}: index [{idx.size}, {n_l}], queries [{n_q}], {steps} steps, "
             f"{probes} probes of {distinct} distinct rows")
         if label == "lookup":
             rows.append(row)
+    rows += stream_kernel_rows(dev, stream, measure)
 
-    cases = edge_cases(dev)
+    cases = edge_cases(dev) + stream_edge_cases(dev)
     for name, kernel, plain in cases:
         check(max_abs_err(kernel(), plain()) == 0, f"{name} edge case")
     print(f"kernels: {len(cases)} edge cases equal their plain versions "
           "(N=1, ragged N, keys >= 2**31, lo == hi, empty brackets, upper, "
-          "strided lanes, sigma=64)")
+          "strided lanes, sigma=64; strided records, M=0, N=0, all-equal keys "
+          "across runs, sentinel tails, sigma=15, block id nb-1)")
     return rows
+
+
+def stream_kernel_rows(dev, stream: dict, measure) -> list[dict]:
+    """The four kernels of phase 5 at the shapes it gave them."""
+    vocab = corpus.NYT.vocab_size
+    n_l = pack.n_lanes(SIGMA, vocab)
+    rows = []
+    # hash_combine: the base batch's map records (the largest combine call),
+    # read in place through the strided views that stages.combine_hash passes
+    base = torch.as_tensor(stream["base_tokens"], device=dev)
+    records, _ = suffix_sigma.make_records(base, sigma=SIGMA, vocab_size=vocab)
+    keys, weights = records[:, :n_l], records[:, n_l]
+    n = keys.shape[0]
+    rows.append(measure(
+        "hash_combine", "stream", lambda: ops.hash_combine(keys, weights),
+        lambda: ref.hash_combine_ref(keys, weights),
+        n * (4 * n_l + 8), n * (8 * n_l + 16), n * (12 * n_l + 12),
+        f"records [{n}, {n_l + 1}] (keys and weight read in place), blocks of "
+        "256 rows, 512 slots"))
+    del records, keys, weights, base
+    # merge_path: the last merge of compact_all (the largest on the path), on
+    # the very inputs it merged: the elder flat rung and the decoded
+    # compressed one, both capacity-padded with sentinel tails
+    runs = [index_merge._merge_input_segment(e, route="merge")
+            for e in stream["compact_inputs"]]
+    runs = [(r.keys, r.counts) for r in runs]
+    while len(runs) > 2:                          # compact_all's pairing tree
+        paired = [ops.merge_path(runs[i][0], runs[i + 1][0], runs[i][1], runs[i + 1][1])
+                  for i in range(0, len(runs) - 1, 2)]
+        runs = paired + runs[2 * len(paired):]
+    (ak, av), (bk, bv) = runs
+    m, nn, k = ak.shape[0], bk.shape[0], ak.shape[1]
+    steps = ref.search_steps(min(m, nn) + 1)
+    rows.append(measure(
+        "merge_path", "stream", lambda: ops.merge_path(ak, bk, av, bv),
+        lambda: ref.merge_path_ref(ak, bk, av, bv),
+        2 * (m + nn) * (4 * k + 4), 2 * (m + nn) * (8 * k + 8),
+        (m + nn) * steps * (2 * k + 6),
+        f"compact_all's runs [{m}, {k}] + [{nn}, {k}] (sentinel tails), {steps} steps"))
+    del runs, ak, av, bk, bv
+    # block_expand: one decode chunk of the compacted rung, as decode_segment
+    # launches it; block_decode: 2**16 point lookups against that rung
+    c = stream["final"]
+    cb = min(index_compress._DECODE_CHUNK_ROWS // c.block_size, c.n_blocks)
+    ids = torch.arange(cb, dtype=torch.int32, device=dev)
+    base_h = c.block_base[:cb + 1].cpu().numpy().view(np.uint32).astype(np.int64)
+    pay_bytes = (base_h[-1] - base_h[0]) * c.term_bits / 8
+    row_bytes = c.block_size * c.lcp_width / 8
+    stream_args = (c.lcps, c.payload, c.block_base, c.sec_cache)
+    kw = dict(term_bits=c.term_bits, lcp_width=c.lcp_width,
+              block_size=c.block_size, len_off=0)
+    be_bytes = cb * (4 + 4 + row_bytes + 4 * c.block_size * SIGMA) + pay_bytes
+    rows.append(measure(
+        "block_expand", "stream", lambda: ops.block_expand(*stream_args, ids, **kw),
+        lambda: ref.block_expand_ref(*stream_args, ids, **kw),
+        be_bytes, be_bytes, cb * c.block_size * SIGMA * 16,
+        f"blocks [{cb}] of {c.block_size} rows, sigma {SIGMA}, of a rung of "
+        f"{c.n_blocks} blocks"))
+    g, ln, _ = lookup_batch(stream["union"], np.random.default_rng(6), N_LOOKUPS, vocab)
+    g, ln, _ = index_query._clean(c, torch.as_tensor(g, device=dev),
+                                  torch.as_tensor(ln, device=dev), lo_len=1)
+    q_lanes = pack.pack_terms(g, vocab_size=vocab)
+    qkey = index_query._dense_qkey(c, ln, g)
+    lo_h, hi_h = index_query._c_head_bracket(
+        c, c.fan_cache, ln, pack.lead_term(q_lanes[:, 0], vocab_size=vocab))
+    pos_h = ops.bsearch(c.head_lanes, qkey, lo_h, hi_h, upper=True, steps=c.head_steps)
+    blk = (pos_h.to(torch.int64) - 1).clamp(0, c.n_blocks - 1).to(torch.int32)
+    distinct = torch.unique(blk).to(torch.int64)
+    base_all = c.block_base.to(torch.int64) & 0xFFFFFFFF
+    d_pay = float((base_all[distinct + 1] - base_all[distinct]).sum()) * c.term_bits / 8
+    n_q = blk.shape[0]
+    bd_bytes = n_q * (4 * SIGMA + 4 + 4 + 8) + distinct.numel() * (row_bytes + 8) + d_pay
+    rows.append(measure(
+        "block_decode", "stream",
+        lambda: ops.block_decode(*stream_args, blk, g, ln, **kw),
+        lambda: ref.block_decode_ref(*stream_args, blk, g, ln, **kw),
+        bd_bytes, bd_bytes, n_q * c.block_size * SIGMA * 20,
+        f"queries [{n_q}] over {distinct.numel()} distinct blocks of a rung of "
+        f"{c.n_blocks} blocks"))
+    return rows
+
+
+def stream_edge_cases(dev):
+    """(kernel name, kernel call, plain call) for the four phase-5 kernels on
+    ragged and corner inputs, and on small real compressed indexes."""
+    rng = np.random.default_rng(4)
+    t = lambda a: torch.as_tensor(np.asarray(a), device=dev)  # noqa: E731
+    cases = []
+    for n, k, vmax in ((1, 2, 5), (257, 3, 4), (1000, 1, 2**32), (4096, 4, 3),
+                       (300_001, 3, 40)):
+        keys = rng.integers(0, vmax, (n, k)).astype(np.int64)
+        keys[: min(n, 3), 0] = [2**32 - 1, 2**31, 0][: min(n, 3)]
+        w = rng.choice([0, 1, 2**31 + 3, 2**32 - 1], n).astype(np.int64)
+        kt, wt = t(keys), t(w)
+        cases.append(("hash_combine", lambda a=kt, b=wt: ops.hash_combine(a, b),
+                      lambda a=kt, b=wt: ref.hash_combine_ref(a, b)))
+        rec = torch.cat([kt, wt[:, None]], dim=1)   # keys and weight read in place
+        cases.append(("hash_combine",
+                      lambda r=rec, k=k: ops.hash_combine(r[:, :k], r[:, k]),
+                      lambda r=rec, k=k: ref.hash_combine_ref(r[:, :k], r[:, k])))
+    for m, n, k, vmax in ((0, 5, 2, 9), (7, 0, 2, 9), (1, 1, 1, 1), (500, 700, 3, 1),
+                          (1000, 333, 4, 2**32), (4096, 4096, 2, 50)):
+        a = rng.integers(0, vmax, (m, k)).astype(np.int64)
+        b = rng.integers(0, vmax, (n, k)).astype(np.int64)
+        a, b = a[np.lexsort(a.T[::-1])], b[np.lexsort(b.T[::-1])]
+        if m > 3 and n > 3:                       # sentinel tails on both runs
+            a[-2:], b[-3:] = 2**32 - 1, 2**32 - 1
+        args = (t(a), t(b), t(rng.integers(0, 2**32, m)), t(rng.integers(0, 2**32, n)))
+        cases.append(("merge_path", lambda x=args: ops.merge_path(*x),
+                      lambda x=args: ref.merge_path_ref(*x)))
+    # real compressed indexes: sigma 5 and 15 (8-bit lcps), every block (the
+    # sentinel tail and block nb-1 included), queries hitting block nb-1
+    for sigma, vocab, n_tok in ((5, 300, 3000), (15, 40, 2000), (3, 7, 50)):
+        toks = rng.integers(0, vocab + 1, n_tok).astype(np.int32)
+        st = run_job(toks, NGramConfig(sigma=sigma, tau=1, vocab_size=vocab), device=dev)
+        c = build_compressed_index(st, vocab_size=vocab, block_size=4, device=dev)
+        nb = c.n_blocks
+        for view, off in (("point", 0), ("cont", 1)):
+            sa = ((c.lcps, c.payload, c.block_base) if off == 0 else
+                  (c.cont_lcps, c.cont_payload, c.cont_block_base)) + (c.sec_cache,)
+            kw = dict(term_bits=c.term_bits, lcp_width=c.lcp_width,
+                      block_size=c.block_size, len_off=off)
+            ids = t(np.arange(nb, dtype=np.int32))
+            cases.append(("block_expand",
+                          lambda x=sa, i=ids, w=kw: ops.block_expand(*x, i, **w),
+                          lambda x=sa, i=ids, w=kw: ref.block_expand_ref(*x, i, **w)))
+            q = 777
+            blk = rng.integers(0, nb, q).astype(np.int32)
+            blk[:50] = nb - 1
+            rows = rng.integers(0, len(st), q)
+            qt, ql = st.grams[rows].astype(np.int32), st.lengths[rows].astype(np.int32)
+            ql[:20] = sigma + 1                   # the sentinel key
+            qt[:20] = (1 << c.term_bits) - 1
+            qa = (t(blk), t(qt), t(ql))
+            cases.append(("block_decode",
+                          lambda x=sa, y=qa, w=kw: ops.block_decode(*x, *y, **w),
+                          lambda x=sa, y=qa, w=kw: ref.block_decode_ref(*x, *y, **w)))
+    return cases
 
 
 def main() -> int:
@@ -511,9 +905,12 @@ def main() -> int:
 
     phase_oracle(dev)                                   # phase 2
     main_run = phase_main_path(dev)                     # phase 3
-    missing = [k for k in KERNELS if main_run["launches"].get(k, 0) == 0]
+    missing = [k for k in MAIN_KERNELS if main_run["launches"].get(k, 0) == 0]
     check(not missing, f"main path launched every kernel (missing {missing})")
-    rows = phase_kernels(dev, main_run)                 # phase 4
+    stream = phase_streaming(dev, main_run)             # phase 5
+    missing = [k for k in KERNELS if stream["launches"].get(k, 0) == 0]
+    check(not missing, f"streaming path launched every kernel (missing {missing})")
+    rows = phase_kernels(dev, main_run, stream)         # phase 4
 
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -4,7 +4,10 @@ The port mirrors ``repro``'s module names so each counterpart is easy to
 find, and imports only torch, numpy and the standard library -- never JAX and
 never a ``repro`` module.  Its first slice is the main path: token stream ->
 SUFFIX-sigma job -> ``NGramStats`` in canonical order -> flat ``NGramIndex``
--> batched ``lookup`` and top-k ``continuations``.
+-> batched ``lookup`` and top-k ``continuations``.  The second is streaming
+ingest: ``serve.StreamingNGramService`` runs each document batch through the
+job (hash combiner included) into a ``GenerationalIndex`` whose merged rungs
+freeze to the compressed layout, and answers queries across its rungs.
 
 Lane representation.  ``repro`` keeps packed term lanes, record weights,
 hash values and index counts as ``uint32``.  torch has no ``>>``, ``<``,
@@ -20,10 +23,20 @@ shift or multiply.  Consequences the code handles explicitly:
   * ``shuffle_bytes`` still counts 4 bytes per lane: it is the paper's
     MAP_OUTPUT_BYTES, not the port's storage width.
 
-Devices.  Entry points (``core.run_job``, ``index.build_index``) run on the
-card unless the caller passes ``device="cpu"``; with no card and no device
-given they raise.  Each kernel wrapper in ``kernels.ops`` launches its CUDA
-kernel on a CUDA tensor and runs the plain PyTorch version on a CPU tensor.
+Stream representation.  The compressed index's packed bit streams (lcp,
+payload, counts, next terms, head keys, block bases, Elias-Fano low/high/rank
+words) are ``torch.int32`` tensors holding the uint32 bit pattern, not int64:
+at rest they take exactly ``repro``'s bytes, which the compression contract
+is about.  Plain code widens a fetched word to int64 and masks it with
+``U32`` before any shift (torch's int32 ``>>`` sign-extends); the CUDA
+kernels read the words as ``uint32_t`` (``kernels.bitpack``).
+
+Devices.  Entry points (``core.run_job``, ``index.build_index``,
+``index.compress_index``, ``index.GenerationalIndex``,
+``serve.StreamingNGramService``) run on the card unless the caller passes
+``device="cpu"``; with no card and no device given they raise.  Each kernel
+wrapper in ``kernels.ops`` launches its CUDA kernel on a CUDA tensor and runs
+the plain PyTorch version on a CPU tensor.
 """
 from __future__ import annotations
 

@@ -1,8 +1,9 @@
-"""Shared row-layout constants and helpers of the index (port of the flat-index
-parts of ``repro.index._layout``): sentinel-padded sorted rows, a bucketed
-first-term fanout grid, and 128-row capacity quanta."""
+"""Shared row-layout constants and helpers of the index (port of
+``repro.index._layout``): sentinel-padded sorted rows, a bucketed first-term
+fanout grid, and 128-row capacity quanta."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch import U32
@@ -36,3 +37,18 @@ def pad_rows(a: torch.Tensor, size: int, fill) -> torch.Tensor:
 def row_offsets(sorted_key: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     """Lower-bound offsets of ``queries`` in a sorted key column, int32."""
     return torch.searchsorted(sorted_key, queries, side="left").to(torch.int32)
+
+
+def row_lengths(section_start: torch.Tensor, size: int) -> torch.Tensor:
+    """Row length 1..sigma (sentinels: sigma+1) [size] int32 from the section
+    start table."""
+    rows = torch.arange(size, dtype=section_start.dtype, device=section_start.device)
+    return torch.searchsorted(section_start, rows, side="right").to(torch.int32)
+
+
+def row_bytes_view(keys: np.ndarray) -> np.ndarray:
+    """[N] void view of uint32 key rows whose byte order is the numeric
+    lexicographic order (big-endian bytes), for host sorts and merges."""
+    n_cols = keys.shape[1]
+    return np.ascontiguousarray(keys.astype(">u4")).view(
+        np.dtype((np.void, 4 * n_cols)))[:, 0]

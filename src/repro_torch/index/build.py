@@ -65,6 +65,15 @@ class IndexSegment:
         """Real (non-sentinel) rows: lengths are the primary sort key."""
         return int((self.keys[:, 0] <= self.sigma).sum())
 
+    @property
+    def device(self) -> torch.device:
+        return self.keys.device
+
+    @property
+    def nbytes(self) -> int:
+        """Resident bytes (int64 lanes and counts: twice ``repro``'s uint32)."""
+        return sum(t.numel() * t.element_size() for t in (self.keys, self.counts))
+
 
 @dataclasses.dataclass(frozen=True)
 class NGramIndex:
@@ -108,6 +117,17 @@ class NGramIndex:
     @property
     def device(self) -> torch.device:
         return self.segment.keys.device
+
+    @property
+    def nbytes(self) -> int:
+        """Resident bytes of every array (int64 where ``repro`` has uint32)."""
+        return self.segment.nbytes + sum(t.numel() * t.element_size() for t in (
+            self.section_start, self.fanout, self.cont_prefix, self.cont_last,
+            self.cont_counts, self.cont_fanout, self.cont_cumsum))
+
+    def to_segment(self) -> IndexSegment:
+        """The point-view segment (shared tensors, no copy)."""
+        return self.segment
 
 
 def segment_from_stats(stats: NGramStats, *, vocab_size: int,

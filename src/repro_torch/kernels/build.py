@@ -1,11 +1,11 @@
 """Build the CUDA kernels with ``nvcc`` and bind them through ``ctypes``.
 
-Each ``csrc/*.cu`` file has a plain C entry point and compiles on its own into
-a shared library for ``sm_90a`` (no PyTorch headers, so a build takes
-seconds).  All sources compile in parallel, at first use, into
-``build/kernels/<digest>/`` under the repository root, where the digest is a
-hash of the sources and flags, so an edited source rebuilds and an unchanged
-one loads.  A missing ``nvcc`` or a failed build raises.
+Each ``csrc/*.cu`` file has a plain C entry point and compiles on its own
+(with the shared ``csrc/*.cuh`` headers it includes) into a shared library
+for ``sm_90a`` (no PyTorch headers, so a build takes seconds).  All sources
+compile in parallel, at first use, into ``build/kernels/<digest>/`` under the
+repository root, where the digest is a hash of the sources, headers and
+flags, so an edited source rebuilds and an unchanged one loads.  A missing ``nvcc`` or a failed build raises.
 """
 from __future__ import annotations
 
@@ -31,6 +31,11 @@ SIGNATURES = {
     "hash_partition": [_P, _P, _L, _I, _P, _P, _I, _P],
     "lcp_boundary": [_P, _L, _I, _P, _P, _P],
     "bsearch": [_P, _L, _I, _P, _L, _P, _P, _I, _I, _P, _P],
+    "hash_combine": [_P, _L, _P, _L, _L, _I, _I, _I, _P, _P],
+    "merge_path": [_P, _P, _P, _P, _L, _L, _I, _I, _P, _P, _P],
+    "block_expand": [_P, _L, _P, _L, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P, _P],
+    "block_decode": [_P, _L, _P, _L, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
+                     _P, _P, _P],
 }
 
 _ENTRIES: dict[str, ctypes._CFuncPtr] | None = None
@@ -52,6 +57,8 @@ def _digest(nvcc: str) -> str:
     h = hashlib.sha256(" ".join([nvcc] + NVCC_FLAGS).encode())
     for name in sorted(SIGNATURES):
         h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # shared by several sources
+        h.update(header.read_bytes())
     return h.hexdigest()[:16]
 
 

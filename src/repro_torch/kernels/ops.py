@@ -120,3 +120,127 @@ def bsearch(lanes: torch.Tensor, queries: torch.Tensor, lo: torch.Tensor,
                 lanes.shape[1], queries.data_ptr(), n_q, lo.data_ptr(),
                 hi.data_ptr(), steps, int(upper), pos.data_ptr())
     return pos
+
+
+def hash_combine(keys: torch.Tensor, weights: torch.Tensor, *,
+                 block: int = 256) -> torch.Tensor:
+    """Redistributed weights [N] int64 of the block-local hash-slot combiner
+    (``block`` rows per block, ``2 * block`` slots).
+
+    ``keys`` may be a row-strided view (its last dimension contiguous) and
+    ``weights`` a strided vector: the kernel reads the job's records in place.
+    """
+    if not keys.is_cuda:
+        return ref.hash_combine_ref(keys, weights, block=block)
+    _check(keys, "hash_combine keys", torch.int64, 2)
+    _check(weights, "hash_combine weights", torch.int64, 1)
+    if weights.shape[0] != keys.shape[0] or not weights.is_cuda:
+        raise ValueError("hash_combine: weights must be a CUDA tensor, one per key row")
+    if block not in (32, 64, 128, 256, 512, 1024):
+        raise ValueError(f"hash_combine: block {block} is not a power of two in [32, 1024]")
+    if keys.stride(1) != 1:
+        keys = keys.contiguous()
+    n = keys.shape[0]
+    out = torch.empty((n,), dtype=torch.int64, device=keys.device)
+    if n:
+        _launch("hash_combine", keys.device, keys.data_ptr(), keys.stride(0),
+                weights.data_ptr(), weights.stride(0), n, keys.shape[1],
+                2 * block, block, out.data_ptr())
+    return out
+
+
+def merge_path(a_keys: torch.Tensor, b_keys: torch.Tensor, a_vals: torch.Tensor,
+               b_vals: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stable merge of two sorted key matrices [M, K], [N, K] int64 (uint32
+    values) -> (keys [M+N, K], vals [M+N]); A rows first on ties."""
+    m, n = a_keys.shape[0], b_keys.shape[0]
+    if m == 0:
+        return b_keys, b_vals
+    if n == 0:
+        return a_keys, a_vals
+    if not a_keys.is_cuda:
+        return ref.merge_path_ref(a_keys, b_keys, a_vals, b_vals)
+    for t, what, nd in ((a_keys, "a_keys", 2), (b_keys, "b_keys", 2),
+                        (a_vals, "a_vals", 1), (b_vals, "b_vals", 1)):
+        _check(t, f"merge_path {what}", torch.int64, nd)
+        if not t.is_cuda:
+            raise ValueError(f"merge_path: {what} is not a CUDA tensor")
+    if b_keys.shape[1] != a_keys.shape[1] or a_vals.shape[0] != m \
+            or b_vals.shape[0] != n:
+        raise ValueError("merge_path: runs disagree in width or value count")
+    a_keys, b_keys = a_keys.contiguous(), b_keys.contiguous()
+    a_vals, b_vals = a_vals.contiguous(), b_vals.contiguous()
+    k = a_keys.shape[1]
+    keys = a_keys.new_empty((m + n, k))
+    vals = a_vals.new_empty((m + n,))
+    _launch("merge_path", a_keys.device, a_keys.data_ptr(), b_keys.data_ptr(),
+            a_vals.data_ptr(), b_vals.data_ptr(), m, n, k,
+            ref.search_steps(min(m, n) + 1), keys.data_ptr(), vals.data_ptr())
+    return keys, vals
+
+
+def _check_streams(what: str, lcps, payload, block_base, sec_starts, blk) -> None:
+    for t, name in ((lcps, "lcps"), (payload, "payload"),
+                    (block_base, "block_base"), (sec_starts, "sec_starts"),
+                    (blk, "blk")):
+        _check(t, f"{what} {name}", torch.int32, 1)
+        if not t.is_cuda or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} is not a contiguous CUDA tensor")
+    if lcps.shape[0] == 0 or payload.shape[0] == 0:
+        raise ValueError(f"{what}: empty lcp or payload stream")
+    if not 1 <= sec_starts.shape[0] - 1 <= 256:
+        raise ValueError(f"{what}: sigma {sec_starts.shape[0] - 1} outside [1, 256]")
+
+
+def block_expand(lcps: torch.Tensor, payload: torch.Tensor,
+                 block_base: torch.Tensor, sec_starts: torch.Tensor,
+                 blk: torch.Tensor, *, term_bits: int, lcp_width: int,
+                 block_size: int, len_off: int) -> torch.Tensor:
+    """Decoded term rows [B, block_size, sigma] int32 of the front-coded blocks
+    ``blk`` (streams: int32 tensors holding uint32 words)."""
+    if not blk.is_cuda:
+        return ref.block_expand_ref(lcps, payload, block_base, sec_starts, blk,
+                                    term_bits=term_bits, lcp_width=lcp_width,
+                                    block_size=block_size, len_off=len_off)
+    _check_streams("block_expand", lcps, payload, block_base, sec_starts, blk)
+    sigma = sec_starts.shape[0] - 1
+    blk = blk.contiguous()
+    out = torch.empty((blk.shape[0], block_size, sigma), dtype=torch.int32,
+                      device=blk.device)
+    if blk.shape[0]:
+        _launch("block_expand", blk.device, lcps.data_ptr(), lcps.shape[0],
+                payload.data_ptr(), payload.shape[0], block_base.data_ptr(),
+                sec_starts.data_ptr(), blk.data_ptr(), blk.shape[0], sigma,
+                term_bits, lcp_width, block_size, len_off, out.data_ptr())
+    return out
+
+
+def block_decode(lcps: torch.Tensor, payload: torch.Tensor,
+                 block_base: torch.Tensor, sec_starts: torch.Tensor,
+                 blk: torch.Tensor, q_terms: torch.Tensor, q_len: torch.Tensor,
+                 *, term_bits: int, lcp_width: int, block_size: int,
+                 len_off: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cnt_lt [Q], cnt_eq [Q]) int32: rows of each query's candidate block
+    ``blk`` whose (row_len, terms) key sorts below / equal to the query's."""
+    if not blk.is_cuda:
+        return ref.block_decode_ref(lcps, payload, block_base, sec_starts, blk,
+                                    q_terms, q_len, term_bits=term_bits,
+                                    lcp_width=lcp_width, block_size=block_size,
+                                    len_off=len_off)
+    _check_streams("block_decode", lcps, payload, block_base, sec_starts, blk)
+    _check(q_terms, "block_decode q_terms", torch.int32, 2)
+    _check(q_len, "block_decode q_len", torch.int32, 1)
+    sigma = sec_starts.shape[0] - 1
+    n_q = blk.shape[0]
+    if q_terms.shape != (n_q, sigma) or q_len.shape != (n_q,):
+        raise ValueError("block_decode: q_terms must be [Q, sigma] and q_len [Q]")
+    blk, q_terms, q_len = blk.contiguous(), q_terms.contiguous(), q_len.contiguous()
+    cnt_lt = torch.empty((n_q,), dtype=torch.int32, device=blk.device)
+    cnt_eq = torch.empty_like(cnt_lt)
+    if n_q:
+        _launch("block_decode", blk.device, lcps.data_ptr(), lcps.shape[0],
+                payload.data_ptr(), payload.shape[0], block_base.data_ptr(),
+                sec_starts.data_ptr(), blk.data_ptr(), q_terms.data_ptr(),
+                q_len.data_ptr(), n_q, sigma, term_bits, lcp_width, block_size,
+                len_off, cnt_lt.data_ptr(), cnt_eq.data_ptr())
+    return cnt_lt, cnt_eq

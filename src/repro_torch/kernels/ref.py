@@ -11,9 +11,11 @@ import math
 
 import torch
 
+from repro_torch import U32
 from repro_torch.mapreduce import pack as packing
 from repro_torch.mapreduce import segment
-from repro_torch.mapreduce.shuffle import hash_u32
+from repro_torch.mapreduce.shuffle import fold_hash, hash_u32
+from .bitpack import extract_bits
 
 
 def search_steps(n_rows: int) -> int:
@@ -88,3 +90,138 @@ def bsearch_ref(lanes: torch.Tensor, queries: torch.Tensor, lo: torch.Tensor,
         lo = torch.where(open_ & go_right, mid + 1, lo)
         hi = torch.where(open_ & ~go_right, mid, hi)
     return lo.to(torch.int32)
+
+
+def hash_combine_ref(keys: torch.Tensor, weights: torch.Tensor, *,
+                     block: int = 256) -> torch.Tensor:
+    """Redistributed weights [N] int64 (uint32 values) of the block-local
+    hash-slot combiner.
+
+    Per ``block`` rows (the tail padded with zero-key, zero-weight rows),
+    each row hashes its key lanes into one of ``2 * block`` slots; the
+    smallest row index of a slot wins it (a scatter-min); rows whose key
+    equals their winner's give it their weight, summed mod 2**32; slot losers
+    keep theirs.  Row order never changes.
+    """
+    n, n_keys = keys.shape
+    nb = max(1, -(-n // block))
+    n_pad = nb * block
+    dev = keys.device
+    k = torch.zeros((n_pad, n_keys), dtype=torch.int64, device=dev)
+    k[:n] = keys & U32
+    w = torch.zeros((n_pad,), dtype=torch.int64, device=dev)
+    w[:n] = weights & U32
+    n_slots = 2 * block
+    rows = torch.arange(n_pad, device=dev)
+    ids, blk = rows % block, rows // block
+    gslot = blk * n_slots + fold_hash(k) % n_slots
+    winner = torch.full((nb * n_slots,), block, dtype=torch.int64, device=dev)
+    winner.scatter_reduce_(0, gslot, ids, reduce="amin")
+    rep = winner[gslot]
+    rep_row = blk * block + rep
+    match = (k[rep_row] == k).all(dim=1)
+    contrib = torch.where(match, w, 0)
+    totals = torch.zeros_like(w).index_add_(0, rep_row, contrib) & U32
+    out = torch.where(rep == ids, totals, torch.where(match, 0, w))
+    return out[:n]
+
+
+def merge_path_ref(a_keys: torch.Tensor, b_keys: torch.Tensor,
+                   a_vals: torch.Tensor, b_vals: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(keys [M+N, K], vals [M+N]): stable two-way merge of sorted key rows,
+    every A row before every equal B row.
+
+    Rank and scatter, as ``repro``'s reference: an A row lands at its index
+    plus the number of strictly smaller B rows, a B row at its index plus the
+    number of A rows at most equal to it -- a different derivation from the
+    kernel's diagonal search.
+    """
+    m, n = a_keys.shape[0], b_keys.shape[0]
+    dev = a_keys.device
+    zeros_m = torch.zeros((m,), dtype=torch.int32, device=dev)
+    zeros_n = torch.zeros((n,), dtype=torch.int32, device=dev)
+    pos_a = torch.arange(m, device=dev) + bsearch_ref(
+        b_keys, a_keys, zeros_m, zeros_m + n, upper=False).to(torch.int64)
+    pos_b = torch.arange(n, device=dev) + bsearch_ref(
+        a_keys, b_keys, zeros_n, zeros_n + m, upper=True).to(torch.int64)
+    keys = a_keys.new_empty((m + n, a_keys.shape[1]))
+    keys[pos_a] = a_keys
+    keys[pos_b] = b_keys
+    vals = a_vals.new_empty((m + n,))
+    vals[pos_a] = a_vals
+    vals[pos_b] = b_vals
+    return keys, vals
+
+
+def _front_coded_rows(lcps, payload, block_base, sec_starts, blk, *,
+                      term_bits: int, lcp_width: int, block_size: int,
+                      len_off: int):
+    """Yield (row length [B], decoded row [B, sigma] int32) for each of the
+    ``block_size`` rows of every requested block, in order.
+
+    The front-coding chain, all blocks in lockstep: lane j of a row is the
+    previous row's below its lcp, a payload term below its stored length, else
+    0; block heads start from a zero row.  Stream reads go through
+    ``extract_bits`` (uint32 positions, clamped word fetches).
+    """
+    sigma = sec_starts.shape[0] - 1
+    dev = blk.device
+    blk = blk.to(torch.int64)
+    sec = sec_starts.to(torch.int64)
+    j = torch.arange(sigma, device=dev)[None, :]
+    off = block_base[blk].to(torch.int64)      # int32 view, as repro reads it
+    prev = torch.zeros((blk.shape[0], sigma), dtype=torch.int64, device=dev)
+    for r in range(block_size):
+        g = blk * block_size + r
+        lcp = extract_bits(lcps, g, lcp_width)
+        row_len = (g[:, None] >= sec[None, :]).sum(dim=1)
+        store_len = (row_len - len_off).clamp(0, sigma)
+        lcp = torch.minimum(lcp, store_len)
+        stored = extract_bits(payload, off[:, None] + (j - lcp[:, None]), term_bits)
+        prev = torch.where(j < lcp[:, None], prev,
+                           torch.where(j < store_len[:, None], stored, 0))
+        off = off + store_len - lcp
+        yield row_len, prev.to(torch.int32)
+
+
+def block_expand_ref(lcps: torch.Tensor, payload: torch.Tensor,
+                     block_base: torch.Tensor, sec_starts: torch.Tensor,
+                     blk: torch.Tensor, *, term_bits: int, lcp_width: int,
+                     block_size: int, len_off: int) -> torch.Tensor:
+    """Decoded term matrix [B, block_size, sigma] int32 of the requested blocks.
+
+    Streams are int32 tensors holding uint32 words; ``sec_starts`` [sigma+1]
+    int32 section starts give each row's length key; ``len_off`` is 0 for the
+    point view, 1 for the continuation (prefix) view.
+    """
+    rows = [row for _, row in _front_coded_rows(
+        lcps, payload, block_base, sec_starts, blk, term_bits=term_bits,
+        lcp_width=lcp_width, block_size=block_size, len_off=len_off)]
+    return torch.stack(rows, dim=1)
+
+
+def block_decode_ref(lcps: torch.Tensor, payload: torch.Tensor,
+                     block_base: torch.Tensor, sec_starts: torch.Tensor,
+                     blk: torch.Tensor, q_terms: torch.Tensor,
+                     q_len: torch.Tensor, *, term_bits: int, lcp_width: int,
+                     block_size: int, len_off: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cnt_lt [Q], cnt_eq [Q]) int32: rows of each query's candidate block
+    whose (row_len, terms) key sorts strictly below / equal to the query's."""
+    qt = q_terms.to(torch.int32)
+    ql = q_len.to(torch.int64)
+    cnt_lt = torch.zeros(blk.shape, dtype=torch.int32, device=blk.device)
+    cnt_eq = torch.zeros_like(cnt_lt)
+    for row_len, cur in _front_coded_rows(
+            lcps, payload, block_base, sec_starts, blk, term_bits=term_bits,
+            lcp_width=lcp_width, block_size=block_size, len_off=len_off):
+        eq = cur == qt
+        prefix_eq = torch.cumprod(
+            torch.cat([torch.ones_like(eq[:, :1]), eq[:, :-1]], dim=1)
+            .to(torch.int32), dim=1).to(torch.bool)
+        t_lt = (prefix_eq & (cur < qt)).any(dim=1)
+        len_eq = row_len == ql
+        cnt_lt += ((row_len < ql) | (len_eq & t_lt)).to(torch.int32)
+        cnt_eq += (len_eq & eq.all(dim=1)).to(torch.int32)
+    return cnt_lt, cnt_eq

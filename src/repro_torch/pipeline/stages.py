@@ -1,9 +1,10 @@
 """Shared stage implementations of the map/combine/shuffle/sort/reduce pipeline
 (port of the main-path parts of ``repro.pipeline.stages``).
 
-  combine -- map-side pre-aggregation (the Hadoop combiner), ``"sort"`` route:
-             sort + run-merge, exact within the buffer.  The ``"hash"`` route
-             waits for the ``hash_combine`` kernel's slice.
+  combine -- map-side pre-aggregation (the Hadoop combiner).  Two routes:
+             ``"sort"`` (sort + run-merge, exact within the buffer) and
+             ``"hash"`` (the sort-free hash-slot pass of the ``hash_combine``
+             kernel: best-effort per 256-row block, exact in total weight).
   shuffle -- partition-key computation (``mapreduce.shuffle.record_key``).
   sort    -- multi-key lexicographic sort of the packed lanes.
   reduce  -- ``reduce_suffix``: LCP runs, every prefix of every suffix
@@ -39,13 +40,27 @@ def combine_sort(records: torch.Tensor, n_lanes: int) -> torch.Tensor:
     return rec
 
 
+def combine_hash(records: torch.Tensor, n_lanes: int, *,
+                 block: int = 256) -> torch.Tensor:
+    """Sort-free hash-slot combiner: collapse duplicate keys without a sort.
+
+    Per block of ``block`` records (and ``2 * block`` slots, as ``repro``:
+    the ``shuffle_*`` counters count what survives, so the rule must match),
+    rows whose key equals their slot winner's key donate their weight to the
+    winner; slot losers keep theirs.  Row order never changes.  The weight
+    lane is rewritten in place: the records are the emit's own buffer.
+    """
+    records[:, n_lanes] = kops.hash_combine(records[:, :n_lanes],
+                                            records[:, n_lanes], block=block)
+    return records
+
+
 def combine(records: torch.Tensor, n_lanes: int, *,
             route: str = "sort") -> torch.Tensor:
     if route == "sort":
         return combine_sort(records, n_lanes)
     if route == "hash":
-        raise NotImplementedError("combine_route='hash' waits for the port of "
-                                  "the hash_combine kernel")
+        return combine_hash(records, n_lanes)
     raise ValueError(f"unknown combine route {route!r}")
 
 

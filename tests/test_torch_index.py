@@ -8,6 +8,7 @@ across with ``index_from_arrays`` must answer the same in the port.
 """
 import numpy as np
 import pytest
+import torch
 
 import repro.core as jcore
 import repro.index as jindex
@@ -17,6 +18,11 @@ from repro_torch.core import NGramConfig, NGramStats, oracle, run_job
 from repro_torch.data import corpus
 from repro_torch.index import (build_index, continuations, index_from_arrays,
                                lookup)
+
+# The tensors here are small, and a parallel test run shares the host's cores
+# between its workers: intra-op threads (which spin between parallel regions)
+# would only take cores from the other workers' tests.
+torch.set_num_threads(1)
 
 SIGMA, TAU = 4, 4
 VOCAB = corpus.NYT.vocab_size

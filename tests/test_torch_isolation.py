@@ -14,6 +14,11 @@ import numpy as np
 import pytest
 import torch
 
+# The tensors here are small, and a parallel test run shares the host's cores
+# between its workers: intra-op threads (which spin between parallel regions)
+# would only take cores from the other workers' tests.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 
 NO_JAX = "import sys\nsys.modules['jax'] = None\n"
@@ -65,3 +70,30 @@ def test_entry_points_refuse_cpu_without_a_device(monkeypatch):
         build_index(stats, vocab_size=3)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         index_from_arrays({}, sigma=2, vocab_size=3, fanout_shift=0, n_fanout=5)
+
+
+def test_streaming_entry_points_refuse_cpu_without_a_device(monkeypatch):
+    """``GenerationalIndex``, ``StreamingNGramService``, ``compress_index`` and
+    ``build_compressed_index`` run on the card by default and raise without
+    one; given ``device="cpu"`` they run on the host."""
+    from repro_torch.core import NGramConfig, run_job
+    from repro_torch.index import (GenerationalIndex, build_compressed_index,
+                                   build_index, compress_index,
+                                   compressed_index_from_arrays)
+    from repro_torch.serve import StreamingNGramService
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    toks = np.asarray([1, 2, 0, 2, 1], np.int32)
+    cfg = NGramConfig(sigma=2, tau=1, vocab_size=3, combine_route="hash")
+    stats = run_job(toks, cfg, device="cpu")
+    idx = build_index(stats, vocab_size=3, device="cpu")
+    for call in (lambda: GenerationalIndex(sigma=2, vocab_size=3),
+                 lambda: StreamingNGramService(cfg, compress=True, route="merge"),
+                 lambda: compress_index(idx),
+                 lambda: build_compressed_index(stats, vocab_size=3),
+                 lambda: compressed_index_from_arrays({}, {})):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    svc = StreamingNGramService(cfg, compress=True, route="merge", device="cpu")
+    svc.ingest(toks)
+    assert svc.lookup(np.asarray([[1, 2]], np.int32), np.asarray([2])).tolist() == [1]
+    assert compress_index(idx, device="cpu").n_rows == idx.n_rows

@@ -9,10 +9,16 @@ and ``repro`` run both through its jnp path and its Pallas kernels.
 """
 import numpy as np
 import pytest
+import torch
 
 import repro.core as jcore
 from repro.core.stats import NGramConfig as JConfig
 from repro_torch.core import NGramConfig, oracle, run_job
+
+# The tensors here are small, and a parallel test run shares the host's cores
+# between its workers: intra-op threads (which spin between parallel regions)
+# would only take cores from the other workers' tests.
+torch.set_num_threads(1)
 
 # paper running example, a=1 b=2 x=3
 D1, D2, D3 = [1, 3, 2, 3, 3], [2, 1, 3, 2, 3], [3, 2, 1, 3, 2]
@@ -58,6 +64,36 @@ def test_random_corpora_match_repro_and_oracle(seed, variant):
     assert_same_stats(got, want)
 
 
+@pytest.mark.parametrize("pack", [True, False])
+@pytest.mark.parametrize("seed", range(4))
+def test_hash_combiner_matches_repro(seed, pack):
+    """``combine_route="hash"`` on the corpora above: equal grams, counts and
+    counters -- ``shuffle_records`` counts the rows the lossy per-block
+    combiner leaves, so it pins the block and slot rule."""
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(20, 400))
+    v = int(rng.integers(2, 50))
+    toks = rng.integers(0, v + 1, n)
+    sigma = int(rng.integers(1, 7))
+    tau = int(rng.integers(1, 4))
+    kw = dict(sigma=sigma, tau=tau, vocab_size=v, pack=pack, combine_route="hash")
+    got = run_job(toks, NGramConfig(**kw), device="cpu")
+    assert got.to_dict() == oracle.ngram_counts(toks, sigma, tau)
+    assert_same_stats(got, jcore.run_job(toks, JConfig(**kw, use_kernels=bool(seed % 2))))
+
+
+def test_hash_combiner_zipf_corpus_matches_repro():
+    """Blocks of 256 rows with many equal suffixes (a Zipf corpus of 6000
+    terms): the combiner removes rows, and the counters still agree."""
+    from repro_torch.data import corpus
+    toks = corpus.zipf_corpus(6000, corpus.NYT, seed=4, duplicate_frac=0.05)
+    kw = dict(sigma=5, tau=3, vocab_size=corpus.NYT.vocab_size, combine_route="hash")
+    got = run_job(toks, NGramConfig(**kw), device="cpu")
+    want = jcore.run_job(toks, JConfig(**kw))
+    assert_same_stats(got, want)
+    assert got.counters["shuffle_records"] < got.counters["map_records"]
+
+
 def test_zipf_corpus_matches_repro():
     from repro_torch.data import corpus
     toks = corpus.zipf_corpus(6000, corpus.NYT, seed=4, duplicate_frac=0.05)
@@ -92,7 +128,7 @@ def test_record_count_invariant():
 def test_unported_options_raise():
     toks = np.asarray([1, 2, 0, 2], np.int32)
     for kw in (dict(method="naive"), dict(method="apriori_scan"),
-               dict(combine_route="hash"), dict(n_buckets=2)):
+               dict(n_buckets=2)):
         with pytest.raises(NotImplementedError):
             run_job(toks, NGramConfig(sigma=2, tau=1, vocab_size=3, **kw),
                     device="cpu")

@@ -1,8 +1,8 @@
 """The port's kernel plain versions against ``repro``'s references and Pallas
 kernels, and the CUDA kernels against their plain versions on the card.
 
-A registry mirrors ``tests/test_kernels.py::KERNEL_CASES`` for the four
-kernels of the port's main path.  Each case draws inputs with numpy from a
+A registry mirrors ``tests/test_kernels.py::KERNEL_CASES`` for the eight
+kernels of the port.  Each case draws inputs with numpy from a
 seed and returns two calls: the port's op on a device (a CPU tensor runs its
 plain version), and ``repro``'s reference and Pallas kernel (interpret mode).
 Every output is an integer, so every comparison is exact.
@@ -18,6 +18,11 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+
+# The tensors here are small, and a parallel test run shares the host's cores
+# between its workers: intra-op threads (which spin between parallel regions)
+# would only take cores from the other workers' tests.
+torch.set_num_threads(1)
 
 
 def _jax():
@@ -102,12 +107,135 @@ def _case_bsearch(rng, scale):
             repro_calls)
 
 
+def _case_hash_combine(rng, scale):
+    """Duplicate-heavy keys so slots collide both equal and unequal, weights
+    up to 2**32 - 1 so the sums wrap, ragged tails (pad rows).  The port reads
+    keys and weight through strided views of one record matrix, as
+    ``stages.combine_hash`` passes them."""
+    n = int(rng.integers(1, 300 * scale + 2))
+    n_keys = int(rng.integers(1, 6))
+    vmax = int(rng.choice([2, 5, 50, 2**32]))
+    keys = rng.integers(0, vmax, (n, n_keys)).astype(np.uint32)
+    weights = rng.choice([0, 1, 3, 2**31 + 7, 2**32 - 1], n).astype(np.uint32)
+    block = int(rng.choice([32, 64, 256]))
+    records = np.concatenate([keys, weights[:, None]], axis=1).astype(np.int64)
+    return (lambda dev: (lambda r: ops.hash_combine(r[:, :n_keys], r[:, n_keys],
+                                                    block=block))(
+                torch.as_tensor(records, device=dev)),
+            lambda jnp, jref, jops: (
+                jref.hash_combine_ref(jnp.asarray(keys), jnp.asarray(weights),
+                                      block=block),
+                jops and jops.hash_combine(jnp.asarray(keys), jnp.asarray(weights),
+                                           block=block)))
+
+
+def _case_merge_path(rng, scale):
+    """Sorted runs with duplicates within and across runs (the A-first tie
+    rule), empty and singleton runs, lanes with bit 31 set."""
+    n_l = int(rng.integers(1, 4))
+    vmax = int(rng.choice([3, 20, 2**32]))
+    m = int(rng.integers(0, 150 * scale + 2))
+    n = int(rng.integers(0, 150 * scale + 2))
+    a = lex_sorted(rng, m, n_l, vmax=vmax).astype(np.uint32)
+    b = lex_sorted(rng, n, n_l, vmax=vmax).astype(np.uint32)
+    if m and n and rng.integers(0, 2):      # force cross-run duplicates
+        take = rng.integers(0, m, min(n, 8))
+        b[:len(take)] = a[take]
+        b = b[np.lexsort(b.T[::-1])]
+    av = rng.integers(0, 2**32, m).astype(np.uint32)
+    bv = rng.integers(0, 2**32, n).astype(np.uint32)
+    block = int(rng.choice([64, 256, 1024]))
+
+    def port(dev):
+        t = [torch.as_tensor(x.astype(np.int64), device=dev) for x in (a, b, av, bv)]
+        return ops.merge_path(*t)
+
+    def repro_calls(jnp, jref, jops):
+        args = [jnp.asarray(x) for x in (a, b, av, bv)]
+        return (jref.merge_path_ref(*args),
+                jops and jops.merge_path(*args, block=block))
+
+    return port, repro_calls
+
+
+def _front_coded_case(rng, scale):
+    """Fuzzed compressed streams -- not only what ``compress_index`` writes --
+    so the clamped fetches and a nonzero lcp at a block head are exercised.
+    Bases stay below 2**24, so bit positions never wrap."""
+    sigma = int(rng.choice([1, 3, 5, 8, 15]))
+    term_bits = int(rng.integers(3, 17))
+    lcp_width = 4 if sigma <= 14 else 8
+    block_size = int(rng.choice([4, 8, 16]))
+    nb = int(rng.integers(1, 20 * scale + 2))
+    size = nb * block_size
+    q = int(rng.integers(1, 80 * scale + 2))
+    streams = (rng.integers(0, 2**32, -(-size * lcp_width // 32)).astype(np.uint32),
+               rng.integers(0, 2**32, int(rng.integers(1, 200))).astype(np.uint32),
+               np.sort(rng.integers(0, 2**24, nb + 1)).astype(np.uint32))
+    sec = np.sort(rng.integers(0, size + 1, sigma + 1)).astype(np.int32)
+    blk = rng.integers(0, nb, q).astype(np.int32)
+    blk[0] = nb - 1
+    kw = dict(term_bits=term_bits, lcp_width=lcp_width, block_size=block_size,
+              len_off=int(rng.integers(0, 2)))
+    return sigma, streams, sec, blk, kw
+
+
+def _jit(fn, **kw):
+    """``repro``'s reference as one compiled program: op-by-op dispatch of
+    the block decoders' references takes seconds a call."""
+    import functools
+
+    import jax
+    return jax.jit(functools.partial(fn, **kw))
+
+
+def _port_streams(dev, streams, *rest):
+    return [torch.as_tensor(w.view(np.int32), device=dev) for w in streams] + \
+        [torch.as_tensor(x, device=dev) for x in rest]
+
+
+def _case_block_expand(rng, scale):
+    sigma, streams, sec, blk, kw = _front_coded_case(rng, scale)
+
+    def repro_calls(jnp, jref, jops):
+        args = [jnp.asarray(x) for x in (*streams, sec, blk)]
+        return (_jit(jref.block_expand_ref, **kw)(*args),
+                jops and jops.block_expand(*args, **kw, sigma=sigma, bblock=64))
+
+    return (lambda dev: ops.block_expand(*_port_streams(dev, streams, sec, blk), **kw),
+            repro_calls)
+
+
+def _case_block_decode(rng, scale):
+    sigma, streams, sec, blk, kw = _front_coded_case(rng, scale)
+    qt = rng.integers(0, 1 << kw["term_bits"], (blk.shape[0], sigma)).astype(np.int32)
+    ql = rng.integers(0, sigma + 2, blk.shape[0]).astype(np.int32)
+
+    def repro_calls(jnp, jref, jops):
+        args = [jnp.asarray(x) for x in (*streams, sec, blk, qt, ql)]
+        return (_jit(jref.block_decode_ref, **kw)(*args),
+                jops and jops.block_decode(*args, **kw, qblock=64))
+
+    return (lambda dev: ops.block_decode(*_port_streams(dev, streams, sec, blk, qt, ql),
+                                         **kw),
+            repro_calls)
+
+
 KERNEL_CASES = {
     "lcp_boundary": _case_lcp_boundary,
     "suffix_pack": _case_suffix_pack,
     "hash_partition": _case_hash_partition,
     "bsearch": _case_bsearch,
+    "hash_combine": _case_hash_combine,
+    "merge_path": _case_merge_path,
+    "block_expand": _case_block_expand,
+    "block_decode": _case_block_decode,
 }
+
+
+# Pallas kernels whose interpret mode takes seconds a call: the larger sweeps
+# hold the port against repro's reference only (``jops`` is None there)
+INTERPRET_SLOW = {"hash_combine", "merge_path", "block_expand", "block_decode"}
 
 
 def _draw(name, sweep):
@@ -143,9 +271,12 @@ def test_plain_matches_repro_ref_and_kernel(name, sweep):
     before = dict(ops.launches)
     got = port_call("cpu")
     assert dict(ops.launches) == before      # a CPU tensor launches no kernel
-    want_ref, want_kernel = repro_calls(*_jax())
+    jnp, jref, jops = _jax()
+    with_kernel = sweep == 0 or name not in INTERPRET_SLOW
+    want_ref, want_kernel = repro_calls(jnp, jref, jops if with_kernel else None)
     _assert_equal(got, want_ref)
-    _assert_equal(got, want_kernel)
+    if with_kernel:
+        _assert_equal(got, want_kernel)
 
 
 def test_bsearch_plain_against_bisect():

@@ -20,6 +20,11 @@ from repro_torch.core import suffix_sigma
 from repro_torch.mapreduce import pack, segment, shuffle, sort
 from repro_torch.pipeline import stages
 
+# The tensors here are small, and a parallel test run shares the host's cores
+# between its workers: intra-op threads (which spin between parallel regions)
+# would only take cores from the other workers' tests.
+torch.set_num_threads(1)
+
 VOCABS = [1, 2, 3, 255, 300, 20_000, 65_535, 70_000, 2**24, 2**30]
 
 
