@@ -16,7 +16,8 @@ line):
                  launch counters of the job's and the flat index's kernels
                  must move during this phase;
   5. streaming -- the same corpus through ``StreamingNGramService`` (hash
-                 combiner, compressed rungs, merge-path compaction): a 60 %
+                 combiner, compressed rungs, and the default merge-path
+                 compaction route): a 60 %
                  base, then 4 deltas; after each ingest 2**16 lookups and
                  2**14 top-8 continuations checked exactly against the union
                  of the per-batch job outputs, and a repeated batch served
@@ -26,11 +27,16 @@ line):
   4. kernels  -- run last, as it needs phase 5's shapes: each CUDA kernel
                  against its plain PyTorch version on the card, at the shapes
                  the main paths gave it and on edge cases (exact equality),
-                 with its time, the plain version's time and the least time
-                 the card could take (``bound_ms``, from the uint32 values'
-                 bytes; ``bound_ms_as_stored`` from the int64 lanes the port
-                 keeps them in).  ``launches`` is the count on the path whose
+                 with its time a call (``ms``), its own device time from
+                 torch.profiler (``kernel_ms``), the plain version's time
+                 and the least time the card could take (``bound_ms``, from
+                 the uint32 values' bytes; ``bound_ms_as_stored`` from the
+                 int64 lanes the port keeps them in).  ``launches`` is the count on the path whose
                  shapes the row was timed at; ``launches_by_path`` has both.
+                 ``bsearch`` also gets its latency floor (``floor_ms``): the
+                 round trips of its longest query times one dependent L2
+                 load, plus an empty kernel, both measured here by
+                 ``scripts/latency_probe.cu`` (built beside the kernels).
 
 The last lines are one JSON object describing each kernel, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.  The
@@ -38,7 +44,9 @@ script needs one card; without CUDA it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import ctypes
 import json
+import re
 import subprocess
 import sys
 import time
@@ -86,6 +94,8 @@ KERNELS = {
     "block_expand": "src/repro/kernels/block_expand.py:104",
     "block_decode": "src/repro/kernels/block_decode.py:129",
 }
+#: the floor probes of the bsearch row: an L2 pointer chase and an empty kernel
+PROBE_SRC = Path(__file__).resolve().parent / "scripts" / "latency_probe.cu"
 #: the kernels of the job and the flat index, which phase 3 drives
 MAIN_KERNELS = ("suffix_pack", "hash_partition", "lcp_boundary", "bsearch")
 N_DELTAS = 4
@@ -136,6 +146,86 @@ def cuda_ms(fn, reps: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, kernel: str, reps: int = 10) -> float:
+    """Mean device milliseconds of one launch of the ``__global__`` function
+    ``kernel`` as ``fn`` makes it: torch.profiler's CUDA activity over
+    ``reps`` calls (after a warm-up), so the wrapper's host time is left out.
+    The profiler can miss the first launches of its window: the mean is over
+    the launches it saw, and None if it saw fewer than half, three times."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    name = re.compile(rf"\b{kernel}\b")
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [ev.time_range.elapsed_us() for ev in prof.events()
+                if ev.device_type == torch.autograd.DeviceType.CUDA
+                and name.search(ev.name)]
+        if 2 * len(hits) >= reps:
+            return sum(hits) / 1e3 / len(hits)
+    print(f"kernel_ms: the profiler saw {len(hits)} launches of {kernel} in "
+          f"{reps} calls, three times: not measured")
+    return None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def start_nvcc(source: Path, lib: Path, defines=()) -> subprocess.Popen:
+    """Start compiling ``source`` (with ``-D`` each of ``defines``) into the
+    shared library ``lib``, with the flags of ``kernels/build.py``."""
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    return subprocess.Popen(
+        [kbuild.nvcc_path(), *kbuild.NVCC_FLAGS, *(f"-D{d}" for d in defines),
+         "-o", str(lib), str(source)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def finish_nvcc(proc: subprocess.Popen, lib: Path) -> ctypes.CDLL:
+    report = proc.communicate()[0]
+    check(proc.returncode == 0, f"nvcc built {lib.name}:\n{report}")
+    return ctypes.CDLL(str(lib))
+
+
+def bsearch_levels() -> int:
+    """D, the levels of the halving tree per round trip, as csrc/bsearch.cu
+    is built."""
+    src = (kbuild.CSRC / "bsearch.cu").read_text()
+    return int(re.search(r"#define BSEARCH_LEVELS (\d+)", src).group(1))
+
+
+def latency_floor(probe: ctypes.CDLL, n_words: int, dev) -> tuple:
+    """(one dependent load round trip in us, an empty kernel's device ms), by
+    ``scripts/latency_probe.cu``: one thread chasing a random cycle of
+    ``n_words`` int64s (as large as the searched index, so it sits in L2),
+    timed at two lengths; and a launch of nothing.  None where the profiler
+    saw too few launches."""
+    probe.chase_launch.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
+                                   ctypes.c_void_p, ctypes.c_void_p]
+    probe.empty_launch.argtypes = [ctypes.c_void_p]
+    perm = torch.randperm(n_words, device=dev)
+    nxt = torch.empty(n_words, dtype=torch.int64, device=dev)
+    nxt[perm] = perm.roll(-1)
+    out = torch.empty(1, dtype=torch.int64, device=dev)
+
+    def launch(err):
+        check(err == 0, f"latency probe launched (cudaError {err})")
+
+    def chase(hops):
+        return lambda: launch(probe.chase_launch(nxt.data_ptr(), hops, out.data_ptr(),
+                                                 torch.cuda.current_stream().cuda_stream))
+    short, long_ = 1_000, 11_000
+    t_short, t_long = (kernel_ms(chase(h), "chase_kernel") for h in (short, long_))
+    l2_us = None if None in (t_short, t_long) else (t_long - t_short) * 1e3 / (long_ - short)
+    empty = kernel_ms(lambda: launch(probe.empty_launch(torch.cuda.current_stream().cuda_stream)),
+                      "empty_kernel", reps=50)
+    return l2_us, empty
 
 
 def max_abs_err(got, want) -> int:
@@ -471,8 +561,9 @@ def phase_streaming(dev, main: dict) -> dict:
     ref_cfg = NGramConfig(sigma=SIGMA, tau=TAU, vocab_size=vocab)
     ref_stats = [run_job(b, ref_cfg, device=dev) for b in batches]
     cfg = NGramConfig(sigma=SIGMA, tau=TAU, vocab_size=vocab, combine_route="hash")
-    svc = StreamingNGramService(cfg, compress=True, block_size=4, route="merge",
-                                device=dev)
+    # default construction: the port's default route is "merge" (the card)
+    svc = StreamingNGramService(cfg, compress=True, block_size=4, device=dev)
+    check(svc.gen.route == "merge", "a default service compacts on the merge route")
     rng = np.random.default_rng(5)
     reset_peak()
     peak = 0
@@ -585,20 +676,23 @@ def phase_streaming(dev, main: dict) -> dict:
 
 
 # --------------------------------------------------------------------- phase 4
-def _probes(lo, hi, pos, steps: int) -> tuple[int, int]:
-    """(total probes, distinct rows probed) of a bounded binary search, replayed
-    from its answer: a step goes right exactly when mid < the final position."""
+def _probes(lo, hi, pos, steps: int) -> tuple[int, int, torch.Tensor]:
+    """(total probes, distinct rows probed, probes [Q] of each query) of a
+    bounded binary search, replayed from its answer: a step goes right
+    exactly when mid < the final position."""
     lo, hi, pos = lo.to(torch.int64), hi.to(torch.int64), pos.to(torch.int64)
     mids = []
+    per_query = torch.zeros_like(lo)
     for _ in range(steps):
         live = lo < hi
         mid = (lo + hi) // 2
         mids.append(mid[live])
+        per_query += live
         right = mid < pos
         lo = torch.where(live & right, mid + 1, lo)
         hi = torch.where(live & ~right, mid, hi)
     mids = torch.cat(mids)
-    return int(mids.numel()), int(torch.unique(mids).numel())
+    return int(mids.numel()), int(torch.unique(mids).numel()), per_query
 
 
 def bound(bytes_moved: float, ops_done: float) -> tuple[float, str]:
@@ -633,6 +727,59 @@ def edge_cases(dev):
         a = t(a[np.lexsort(a.T[::-1])])
         cases.append(("lcp_boundary", lambda a=a: ops.lcp_boundary(a),
                       lambda a=a: ref.lcp_boundary_ref(a)))
+    # suffix_pack at its tile edges (T = 1024 positions for n_lanes <= 4;
+    # more lanes take the generic instance) with a PAD run across the edge;
+    # sigma 1, 64 and past 64; a new lane matrix and the map's records
+    for n in (1, 3, 63, 64, 65, 1023, 1024, 1025, 2049):
+        for sigma, vocab, edge in ((5, 20_000, 1024), (40, 2**30, 64)):
+            toks = rng.integers(1, 300, n).astype(np.int32)
+            toks[max(0, min(n, edge) - 3):edge + 2] = 0
+            x = t(toks)
+            cases.append(("suffix_pack",
+                          lambda x=x, s=sigma, v=vocab: ops.suffix_pack(x, sigma=s, vocab_size=v),
+                          lambda x=x, s=sigma, v=vocab: ref.suffix_pack_ref(x, sigma=s, vocab_size=v)))
+    big = rng.integers(0, 2**20, 5000).astype(np.int32)
+    for sigma, vocab in ((1, 20_000), (1, 2**30), (64, 2**30), (5, 20_000), (8, 300),
+                         (128, 1), (65, 2**30), (300, 2**30)):
+        x = t(big % (min(vocab, 2**20) + 1))
+        for records in (False, True):
+            def run(fn, x=x, s=sigma, v=vocab, records=records):
+                if not records:
+                    return fn(x, sigma=s, vocab_size=v)
+                rec = torch.full((x.shape[0], pack.n_lanes(s, v) + 1), -1,
+                                 dtype=torch.int64, device=x.device)
+                fn(x, sigma=s, vocab_size=v, out=rec)
+                return rec
+            cases.append(("suffix_pack", lambda run=run: run(ops.suffix_pack),
+                          lambda run=run: run(ref.suffix_pack_ref)))
+    # bsearch: every lane-count instance (1-4 and the generic 6), four
+    # layouts of the lanes, brackets of width 0, 1, 2**d - 1, 2**d and R
+    # (d = 2, 3, 4), full and truncated steps, int32 and int64 brackets, keys
+    # >= 2**31, both bounds
+    r, q = 300, 600
+    widths = np.array([0, 1, 3, 4, 7, 8, 15, 16, r])
+    for n_l in (1, 2, 3, 4, 6):
+        lanes = 2**31 + rng.integers(0, 3, (r, n_l)).astype(np.int64)
+        lanes = lanes[np.lexsort(lanes.T[::-1])]
+        queries = t(2**31 + rng.integers(0, 4, (q, n_l)).astype(np.int64))
+        width = widths[rng.integers(0, len(widths), q)]
+        lo = rng.integers(0, r + 1 - width)
+        hi = lo + width
+        # the lanes as a view of a wider matrix, junk columns before and
+        # after: 16-byte lane-pair loads from lane 0 or 1, or none
+        for k, (before, after) in enumerate(((0, 0), (1, 0), (0, 1), (1, 1))):
+            junk = np.full((r, 1), 2**32 - 1, np.int64)
+            view = t(np.concatenate([junk] * before + [lanes] + [junk] * after,
+                                    axis=1))[:, before:before + n_l]
+            dt = (np.int32, np.int64)[k % 2]
+            a = (view, queries, t(lo.astype(dt)), t(hi.astype(dt)))
+            for upper in (False, True):
+                for steps in (ref.search_steps(r), 1, 3):
+                    cases.append(("bsearch",
+                                  lambda a=a, u=upper, st=steps:
+                                  ops.bsearch(*a, upper=u, steps=st),
+                                  lambda a=a, u=upper, st=steps:
+                                  ref.bsearch_ref(*a, upper=u, steps=st)))
     for r, n_l, q, upper in ((1, 1, 5, False), (1, 2, 5, True), (333, 3, 1000, False),
                              (333, 3, 1000, True), (4096, 4, 3000, True)):
         lanes = rng.integers(0, 40, (r, n_l + 1)).astype(np.int64) + 2**31
@@ -647,7 +794,7 @@ def edge_cases(dev):
     return cases
 
 
-def phase_kernels(dev, main: dict, stream: dict) -> list[dict]:
+def phase_kernels(dev, main: dict, stream: dict, probe: ctypes.CDLL) -> list[dict]:
     """Each kernel against its plain version at the main paths' shapes."""
     vocab = corpus.NYT.vocab_size
     n_l = pack.n_lanes(SIGMA, vocab)
@@ -663,10 +810,12 @@ def phase_kernels(dev, main: dict, stream: dict) -> list[dict]:
         err = max_abs_err(kernel(), plain())
         check(err == 0, f"{name} kernel == plain version at {shape}")
         ms = cuda_ms(kernel) if tokens.is_cuda else float("nan")
+        k_ms = kernel_ms(kernel, f"{name}_kernel") if tokens.is_cuda else float("nan")
         plain_ms = cuda_ms(plain) if tokens.is_cuda else float("nan")
         bound_ms, bound_by = bound(bytes_u32, ops_done)
         stored_ms, _ = bound(bytes_stored, ops_done)
-        print(f"kernel {name} at {shape}: equal; {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        print(f"kernel {name} at {shape}: equal; {ms:.4f} ms a call, kernel "
+              f"{fmt_ms(k_ms)} ms on the device, plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}, uint32 values), "
               f"{stored_ms:.4f} ms as stored (int64 lanes); launches {by_path[name]}; "
               "library call: none")
@@ -674,17 +823,27 @@ def phase_kernels(dev, main: dict, stream: dict) -> list[dict]:
                     source=f"src/repro_torch/kernels/csrc/{name}.cu",
                     replaces=KERNELS[name], launches=by_path[name][path],
                     launches_by_path=by_path[name], max_abs_err=err, ms=ms,
-                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                    kernel_ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                     bound_ms_as_stored=stored_ms, library_ms=None)
 
-    # the main path's own intermediates, rebuilt stage by stage
+    # the main path's own intermediates, rebuilt stage by stage; suffix_pack
+    # as the map emit (suffix_sigma.make_records) calls it: whole records
+    records = torch.empty((n, n_l + 1), dtype=torch.int64, device=tokens.device)
+    plain_out = torch.empty_like(records)
     rows.append(measure(
         "suffix_pack", "main",
-        lambda: ops.suffix_pack(tokens, sigma=SIGMA, vocab_size=vocab),
-        lambda: ref.suffix_pack_ref(tokens, sigma=SIGMA, vocab_size=vocab),
-        n * (4 + 4 * n_l), n * (4 + 8 * n_l), 6 * SIGMA * n,
-        f"tokens [{n}] -> lanes [{n}, {n_l}]"))
-    records, _ = suffix_sigma.make_records(tokens, sigma=SIGMA, vocab_size=vocab)
+        lambda: ops.suffix_pack(tokens, sigma=SIGMA, vocab_size=vocab, out=records),
+        lambda: ref.suffix_pack_ref(tokens, sigma=SIGMA, vocab_size=vocab, out=plain_out),
+        n * (4 + 4 * (n_l + 1)), n * (4 + 8 * (n_l + 1)), 6 * SIGMA * n,
+        f"tokens [{n}] -> records [{n}, {n_l + 1}] (lanes | weight)"))
+    del plain_out
+    if tokens.is_cuda:          # the lanes alone, [N, n_lanes], for comparison
+        lanes_only = lambda: ops.suffix_pack(tokens, sigma=SIGMA, vocab_size=vocab)  # noqa: E731
+        k_ms = kernel_ms(lanes_only, "suffix_pack_kernel")
+        print(f"kernel suffix_pack lanes alone [{n}, {n_l}]: {cuda_ms(lanes_only):.4f} ms "
+              f"a call, kernel {fmt_ms(k_ms)} ms on the device; "
+              f"bound {bound(n * (4 + 4 * n_l), 0)[0]:.4f} ms (uint32 values), "
+              f"{bound(n * (4 + 8 * n_l), 0)[0]:.4f} ms as stored")
     records = stages.combine(records, n_l)
     live = records[:, n_l] > 0
     key = stages.partition_keys(records, n_l, kind="lead", vocab_size=vocab)
@@ -721,9 +880,20 @@ def phase_kernels(dev, main: dict, stream: dict) -> list[dict]:
     shapes = (("lookup", idx.lanes, q_lanes, lo, hi, False),
               ("continuation lower", idx.cont_prefix, p_lanes, c_lo, c_hi, False),
               ("continuation upper", idx.cont_prefix, p_lanes, c_lo, c_hi, True))
+    # the floor of a search: its longest query's round trips, one dependent
+    # L2 load each, plus a launch
+    levels = bsearch_levels()
+    if tokens.is_cuda:
+        l2_us, empty_ms = latency_floor(probe, idx.lanes.untyped_storage().nbytes() // 8, dev)
+        print(f"kernel bsearch floor: one dependent load from L2 "
+              f"{'not measured' if l2_us is None else f'{l2_us:.4f} us'}, an empty "
+              f"kernel {fmt_ms(empty_ms)} ms on the device")
+    else:
+        l2_us = empty_ms = None
     for label, lanes, q, b_lo, b_hi, upper in shapes:
         pos = ops.bsearch(lanes, q, b_lo, b_hi, upper=upper, steps=steps)
-        probes, distinct = _probes(b_lo, b_hi, pos, steps)
+        probes, distinct, per_q = _probes(b_lo, b_hi, pos, steps)
+        trips = -(-per_q // levels)                 # round trips of each query
         n_q = q.shape[0]
         row = measure(
             "bsearch", "main",
@@ -733,7 +903,17 @@ def phase_kernels(dev, main: dict, stream: dict) -> list[dict]:
             n_q * (8 * n_l + 4 + 4 + 4) + distinct * 8 * n_l,
             probes * (2 * n_l + 4),
             f"{label}: index [{idx.size}, {n_l}], queries [{n_q}], {steps} steps, "
-            f"{probes} probes of {distinct} distinct rows")
+            f"{probes} probes of {distinct} distinct rows; round trips at {levels} "
+            f"levels each: max {int(trips.max())}, mean {float(trips.float().mean()):.3f}")
+        floor_ms = (None if None in (l2_us, empty_ms)
+                    else int(trips.max()) * l2_us / 1e3 + empty_ms)
+        if floor_ms is not None and row["kernel_ms"] is not None:
+            print(f"kernel bsearch at {label}: floor {floor_ms:.4f} ms "
+                  f"({int(trips.max())} round trips x {l2_us:.4f} us + "
+                  f"{empty_ms:.4f} ms); kernel {row['kernel_ms'] / floor_ms:.2f}x the floor")
+        row.update(levels=levels, round_trips_max=int(trips.max()),
+                   round_trips_mean=float(trips.float().mean()),
+                   l2_latency_us=l2_us, empty_kernel_ms=empty_ms, floor_ms=floor_ms)
         if label == "lookup":
             rows.append(row)
     rows += stream_kernel_rows(dev, stream, measure)
@@ -743,8 +923,11 @@ def phase_kernels(dev, main: dict, stream: dict) -> list[dict]:
         check(max_abs_err(kernel(), plain()) == 0, f"{name} edge case")
     print(f"kernels: {len(cases)} edge cases equal their plain versions "
           "(N=1, ragged N, keys >= 2**31, lo == hi, empty brackets, upper, "
-          "strided lanes, sigma=64; strided records, M=0, N=0, all-equal keys "
-          "across runs, sentinel tails, sigma=15, block id nb-1)")
+          "strided lanes, sigma=64; suffix_pack tile edges, sigma 65-300, lanes "
+          "and records; bsearch lane counts 1-4 and 6 in four layouts, bracket "
+          "widths 0, 1, 2**d - 1, 2**d and R, truncated steps, int32 and int64 brackets; "
+          "strided records, M=0, N=0, all-equal keys across runs, sentinel "
+          "tails, sigma=15, block id nb-1)")
     return rows
 
 
@@ -895,6 +1078,8 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    probe_lib = kbuild.BUILD_ROOT.parent / "probe" / "liblatency_probe.so"
+    probe_nvcc = start_nvcc(PROBE_SRC, probe_lib)      # beside the kernels' builds
     kbuild.entries()                                    # phase 1
     info = kbuild.build_info
     print(f"build: {len(info['compiled'])} kernels compiled in "
@@ -910,7 +1095,8 @@ def main() -> int:
     stream = phase_streaming(dev, main_run)             # phase 5
     missing = [k for k in KERNELS if stream["launches"].get(k, 0) == 0]
     check(not missing, f"streaming path launched every kernel (missing {missing})")
-    rows = phase_kernels(dev, main_run, stream)         # phase 4
+    rows = phase_kernels(dev, main_run, stream,         # phase 4
+                         finish_nvcc(probe_nvcc, probe_lib))
 
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -23,6 +23,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import suffix_windows
+from repro_torch.mapreduce import pack as packing
 from repro_torch.pipeline import plan as plan_mod
 from .stats import NGramConfig, NGramStats
 
@@ -31,10 +32,18 @@ __all__ = ["suffix_windows", "make_records", "plan", "run"]
 
 def make_records(tokens: torch.Tensor, *, sigma: int, vocab_size: int
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Map emit: [N, n_lanes + 1] int64 records = packed lanes | weight."""
-    lanes = kops.suffix_pack(tokens, sigma=sigma, vocab_size=vocab_size)
-    valid = tokens != 0
-    return torch.cat([lanes, valid.to(torch.int64)[:, None]], dim=1), valid
+    """Map emit: [N, n_lanes + 1] int64 records = packed lanes | weight.
+
+    The ``suffix_pack`` kernel writes whole records, weight included, in one
+    pass: no lane matrix to copy, and no column written apart (a column
+    alone fills a part of each 32-byte memory sector, which costs the card a
+    read of the rest).
+    """
+    n_l = packing.n_lanes(sigma, vocab_size)
+    records = torch.empty((tokens.shape[0], n_l + 1), dtype=torch.int64,
+                          device=tokens.device)
+    kops.suffix_pack(tokens, sigma=sigma, vocab_size=vocab_size, out=records)
+    return records, tokens != 0
 
 
 def _plan_emit(tok_ext, aux_ext, n_live, cfg: NGramConfig, carry, k):

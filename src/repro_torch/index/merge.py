@@ -364,11 +364,15 @@ class GenerationalIndex:
     a fresh L0, compressed (with ``compress=True``) for a rung made by a
     merge.  ``generation`` bumps on every mutation -- the serving cache's
     invalidation key.  Runs on the card unless ``device`` says otherwise.
+
+    ``route`` defaults to ``"merge"``, where ``repro`` defaults to ``"kway"``:
+    the port's ``kway`` folds on the host, and a default index must keep its
+    compactions on the card (every route gives the same segments).
     """
 
     def __init__(self, *, sigma: int, vocab_size: int, compress: bool = False,
                  block_size: int = 4, size_ratio: int = DEFAULT_SIZE_RATIO,
-                 route: str = "kway", device=None):
+                 route: str = "merge", device=None):
         if size_ratio < 1:
             raise ValueError("size_ratio must be >= 1")
         self.device = resolve_device(device)

@@ -7,45 +7,166 @@
 // port's lane type).  Exact uint32 arithmetic: each term is shifted and added
 // mod 2^32, as the TPU kernel does.
 //
-// Design: one thread per position reads its window straight from global
-// memory; neighbouring threads read neighbouring addresses, so the sigma
-// loads of a warp are coalesced and mostly hit L1/L2.  Reads past N are PAD.
-// The TPU kernel's next-block halo ref and its sigma <= block limit are not
-// needed: any thread may read any address.
+// What bounds it on the H100: bytes.  4 bytes in and 8 * n_lanes out per
+// position (8 more with the weight column), N * (4 + 8 * n_lanes) / 3.35e12 s
+// as stored; the arithmetic (a few integer operations per term) is far below
+// the integer peak.  The first port (one thread per position, straight from
+// global memory) reached about 1.2 TB/s: each thread stored its n_lanes lanes
+// at a stride of 8 * n_lanes bytes, so every warp-wide store touched n_lanes
+// times the sectors it filled, each token was loaded sigma times, and 137,543
+// one-shot blocks of 256 threads were launched at 2^25 terms.
 //
-// Bound on the H100 (3.35 TB/s): 4 bytes in per position plus
-// n_lanes x 8 bytes out, i.e. N * (4 + 8 * n_lanes) / 3.35e12 s; the
-// arithmetic (a few integer ops per term) is far below the integer peak.
+// Design, for n_lanes = 1-4 (a template; every configuration of the repo's
+// n-gram jobs packs into at most 4 lanes):
+//  * Tiles with their halo: a block owns T = 1024 consecutive positions at a
+//    time and loads the T + sigma - 1 tokens they need into shared memory
+//    once, with 16-byte loads where the stream is aligned, PAD past N (the TPU
+//    kernel's next-block halo ref, per tile).  sigma <= 32 * n_lanes, so the
+//    halo has a fixed bound.
+//  * Packing in registers: each thread packs its positions out of shared
+//    memory.
+//  * Coalesced stores: the [T, cols] output tile is staged in shared memory
+//    and written in address order, consecutive threads on consecutive
+//    addresses, with 16-byte stores where the output is aligned.
+//  * Whole records: with `weight`, each row gains the map weight column (1 for
+//    a real token, 0 for PAD), so the map emit writes its [N, n_lanes + 1]
+//    records in one pass.  Written as lanes alone into the records' columns,
+//    each 32-byte record would get 24 bytes, and such partial-sector stores
+//    ran at 0.89 ms against 0.375 ms dense at 2^25 terms on the H100.
+//  * Persistent grid: as many blocks as fit on the card walk the tiles in a
+//    grid-stride loop.
+// More lanes (n_lanes = 0 here, the generic instance) take any sigma: one
+// thread per position reads its window through the read-only cache and
+// stores its row from registers, so neither the halo nor the staged tile
+// bounds sigma.
 #include <cstdint>
 #include <cuda_runtime.h>
 
-__global__ void suffix_pack_kernel(const int32_t* __restrict__ tokens,
-                                   long long n, int sigma, int bits, int per,
-                                   int n_lanes, long long* __restrict__ out) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kTile = 1024;  // positions per tile (n_lanes 1-4)
+
+struct Args {
+  const int32_t* tokens;
+  long long n;
+  int sigma, bits, per, n_lanes;
+  long long* out;            // [n, n_lanes + weight], dense
+  int weight;                // 1: column n_lanes gets the map weight (token != PAD)
+};
+
+// the packed window of position r, lane by lane, into row[0 .. nl); tok(j)
+// reads token r + j
+template <typename Tok>
+__device__ __forceinline__ void pack_row(const Args& a, int nl, Tok tok,
+                                         long long* row) {
   uint32_t alive = 1u;
-  for (int lane = 0; lane < n_lanes; ++lane) {
+  int j = 0;
+#pragma unroll
+  for (int lane = 0; lane < nl; ++lane) {
     uint32_t acc = 0u;
-    for (int slot = 0; slot < per; ++slot) {
-      int j = lane * per + slot;
-      if (j >= sigma) break;
-      long long p = i + j;
-      uint32_t tok = p < n ? (uint32_t)tokens[p] : 0u;
-      alive &= (tok != 0u) ? 1u : 0u;
-      acc += (tok * alive) << (bits * (per - 1 - slot));
+    for (int slot = 0; slot < a.per && j < a.sigma; ++slot, ++j) {
+      const uint32_t t = (uint32_t)tok(j);
+      alive &= t != 0u ? 1u : 0u;
+      acc += (t * alive) << (a.bits * (a.per - 1 - slot));
     }
-    out[i * n_lanes + lane] = (long long)acc;
+    row[lane] = (long long)acc;
   }
 }
 
+template <int NL>
+__global__ void __launch_bounds__(kThreads) suffix_pack_kernel(Args a) {
+  const int cols = a.n_lanes + a.weight;
+  if constexpr (NL == 0) {
+    for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < a.n;
+         i += (long long)gridDim.x * kThreads) {
+      const auto tok = [&](int j) { return i + j < a.n ? __ldg(a.tokens + i + j) : 0; };
+      long long* row = a.out + i * cols;
+      pack_row(a, a.n_lanes, tok, row);
+      if (a.weight) row[a.n_lanes] = tok(0) != 0 ? 1 : 0;
+    }
+  } else {
+    __shared__ __align__(16) int32_t s_tok[kTile + 32 * NL];
+    __shared__ __align__(16) long long s_out[kTile * (NL + 1)];
+    const long long n_tiles = (a.n + kTile - 1) / kTile;
+    const bool vec_in = ((uintptr_t)a.tokens & 15) == 0;
+    // kTile * cols is even, so every tile starts as aligned as the output
+    const bool vec_out = ((uintptr_t)a.out & 15) == 0;
+    for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const long long t0 = tile * kTile;
+      const int rows = (int)(a.n - t0 < kTile ? a.n - t0 : kTile);
+      // 1. the tile's tokens and halo, PAD past n
+      const int n_vec = (rows + a.sigma - 1 + 3) / 4;
+      for (int v = threadIdx.x; v < n_vec; v += kThreads) {
+        const long long g = t0 + 4 * v;
+        int4 x;
+        if (vec_in && g + 4 <= a.n) {
+          x = __ldg((const int4*)(a.tokens + g));
+        } else {
+          x.x = g < a.n ? __ldg(a.tokens + g) : 0;
+          x.y = g + 1 < a.n ? __ldg(a.tokens + g + 1) : 0;
+          x.z = g + 2 < a.n ? __ldg(a.tokens + g + 2) : 0;
+          x.w = g + 3 < a.n ? __ldg(a.tokens + g + 3) : 0;
+        }
+        *(int4*)(s_tok + 4 * v) = x;
+      }
+      __syncthreads();
+      // 2. each position's window, packed into the staged tile
+      for (int r = threadIdx.x; r < rows; r += kThreads) {
+        pack_row(a, NL, [&](int j) { return s_tok[r + j]; }, s_out + r * cols);
+        if (a.weight) s_out[r * cols + NL] = s_tok[r] != 0 ? 1 : 0;
+      }
+      __syncthreads();
+      // 3. the tile in address order
+      const int cnt = rows * cols;
+      long long* dst = a.out + t0 * cols;
+      if (vec_out) {
+        for (int e = 2 * threadIdx.x; e < cnt; e += 2 * kThreads) {
+          if (e + 1 < cnt) {
+            *(longlong2*)(dst + e) = *(const longlong2*)(s_out + e);
+          } else {
+            dst[e] = s_out[e];
+          }
+        }
+      } else {
+        for (int e = threadIdx.x; e < cnt; e += kThreads) dst[e] = s_out[e];
+      }
+      __syncthreads();
+    }
+  }
+}
+
+template <int NL>
+int launch(const Args& a, cudaStream_t stream) {
+  const long long per_block = NL > 0 ? kTile : kThreads;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, suffix_pack_kernel<NL>,
+                                                kThreads, 0);
+  const long long needed = (a.n + per_block - 1) / per_block;
+  long long blocks = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  if (blocks > needed) blocks = needed;
+  suffix_pack_kernel<NL><<<(unsigned int)blocks, kThreads, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// out: [n, n_lanes + (weight != 0)] int64, dense
 extern "C" int suffix_pack_launch(const void* tokens, long long n, int sigma,
                                   int bits, int per, int n_lanes, void* out,
-                                  void* stream) {
-  const int threads = 256;
-  long long blocks = (n + threads - 1) / threads;
-  suffix_pack_kernel<<<(unsigned int)blocks, threads, 0,
-                       (cudaStream_t)stream>>>(
-      (const int32_t*)tokens, n, sigma, bits, per, n_lanes, (long long*)out);
-  return (int)cudaGetLastError();
+                                  int weight, void* stream) {
+  if (sigma < 1 || per < 1 || n_lanes != (sigma + per - 1) / per)
+    return (int)cudaErrorInvalidValue;
+  const Args a{(const int32_t*)tokens, n, sigma, bits, per, n_lanes,
+               (long long*)out, weight != 0};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (n_lanes) {
+    case 1: return launch<1>(a, s);
+    case 2: return launch<2>(a, s);
+    case 3: return launch<3>(a, s);
+    case 4: return launch<4>(a, s);
+    default: return launch<0>(a, s);
+  }
 }

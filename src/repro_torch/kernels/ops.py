@@ -13,7 +13,7 @@ import collections
 import torch
 
 from repro_torch.mapreduce import pack as packing
-from . import ref
+from . import build, ref
 
 #: kernel name -> launches on CUDA tensors since the last ``launches.clear()``
 launches: collections.Counter = collections.Counter()
@@ -26,29 +26,48 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
-    from . import build
-    fn = build.entries()[name]
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    """Launch kernel ``name`` on the current stream of ``device``: the C entry
+    point takes the raw stream handle last.  The device context is entered
+    only when ``device`` is not already the current one."""
+    if device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return _launch(name, device, *args)
+    err = build.entries()[name](*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
     launches[name] += 1
 
 
-def suffix_pack(tokens: torch.Tensor, *, sigma: int,
-                vocab_size: int) -> torch.Tensor:
-    """Packed sigma-truncated suffix lanes [N, n_lanes] int64 of a token stream."""
+def suffix_pack(tokens: torch.Tensor, *, sigma: int, vocab_size: int,
+                out: torch.Tensor | None = None) -> torch.Tensor:
+    """Packed sigma-truncated suffix lanes [N, n_lanes] int64 of a token stream.
+
+    With ``out``, a contiguous [N, n_lanes + 1] int64 tensor on the tokens'
+    device, the map's records are written there in one pass and returned:
+    the lanes, then the weight, 1 for a real token and 0 for PAD.  Any
+    sigma >= 1 (as ``NGramConfig`` takes).
+    """
+    n_l = packing.n_lanes(sigma, vocab_size)
+    if out is not None:
+        _check(out, "suffix_pack out", torch.int64, 2)
+        if out.shape != (tokens.shape[0], n_l + 1) or out.device != tokens.device \
+                or not out.is_contiguous():
+            raise ValueError(f"suffix_pack: out must be a contiguous [{tokens.shape[0]}, "
+                             f"{n_l + 1}] tensor on the tokens' device")
     if not tokens.is_cuda:
-        return ref.suffix_pack_ref(tokens, sigma=sigma, vocab_size=vocab_size)
+        return ref.suffix_pack_ref(tokens, sigma=sigma, vocab_size=vocab_size,
+                                   out=out)
     _check(tokens, "suffix_pack tokens", torch.int32, 1)
     tokens = tokens.contiguous()
     n = tokens.shape[0]
-    n_l = packing.n_lanes(sigma, vocab_size)
-    out = torch.empty((n, n_l), dtype=torch.int64, device=tokens.device)
+    weight = out is not None
+    if out is None:
+        out = torch.empty((n, n_l), dtype=torch.int64, device=tokens.device)
     if n:
         _launch("suffix_pack", tokens.device, tokens.data_ptr(), n, sigma,
                 packing.bits_for_vocab(vocab_size),
-                packing.terms_per_lane(vocab_size), n_l, out.data_ptr())
+                packing.terms_per_lane(vocab_size), n_l, out.data_ptr(),
+                int(weight))
     return out
 
 
@@ -95,9 +114,11 @@ def bsearch(lanes: torch.Tensor, queries: torch.Tensor, lo: torch.Tensor,
             hi: torch.Tensor, *, upper: bool = False,
             steps: int | None = None) -> torch.Tensor:
     """Positions [Q] int32 of the lower (or, with ``upper``, upper) bound of each
-    query [Q, L] among sorted rows ``lanes`` [R, L], within [lo, hi).
+    query [Q, L] among sorted rows ``lanes`` [R, L], within [lo, hi)
+    (0 <= lo <= hi <= R), after exactly ``steps`` halving trips.
 
     ``lanes`` may be a row-strided view (its last dimension contiguous).
+    ``lo`` and ``hi`` are int32 or int64 tensors of one dtype, read as given.
     """
     if steps is None:
         steps = ref.search_steps(lanes.shape[0])
@@ -105,20 +126,24 @@ def bsearch(lanes: torch.Tensor, queries: torch.Tensor, lo: torch.Tensor,
         return ref.bsearch_ref(lanes, queries, lo, hi, upper=upper, steps=steps)
     _check(lanes, "bsearch lanes", torch.int64, 2)
     _check(queries, "bsearch queries", torch.int64, 2)
+    n_q = queries.shape[0]
     if queries.shape[1] != lanes.shape[1]:
         raise ValueError(f"bsearch: {queries.shape[1]} query lanes vs "
                          f"{lanes.shape[1]} index lanes")
+    if lo.dtype != hi.dtype or lo.dtype not in (torch.int32, torch.int64) \
+            or lo.shape != (n_q,) or hi.shape != (n_q,):
+        raise TypeError("bsearch: lo and hi must be [Q] tensors, both int32 or "
+                        f"both int64 (got {lo.dtype} {tuple(lo.shape)}, "
+                        f"{hi.dtype} {tuple(hi.shape)})")
     if lanes.stride(1) != 1:
         lanes = lanes.contiguous()
-    queries = queries.contiguous()
-    lo = lo.to(torch.int32).contiguous()
-    hi = hi.to(torch.int32).contiguous()
-    n_q = queries.shape[0]
+    queries, lo, hi = queries.contiguous(), lo.contiguous(), hi.contiguous()
     pos = torch.empty((n_q,), dtype=torch.int32, device=queries.device)
     if n_q:
         _launch("bsearch", lanes.device, lanes.data_ptr(), lanes.stride(0),
-                lanes.shape[1], queries.data_ptr(), n_q, lo.data_ptr(),
-                hi.data_ptr(), steps, int(upper), pos.data_ptr())
+                lanes.shape[0], lanes.shape[1], queries.data_ptr(), n_q,
+                lo.data_ptr(), hi.data_ptr(), lo.element_size(), steps,
+                int(upper), pos.data_ptr())
     return pos
 
 

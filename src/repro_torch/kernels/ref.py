@@ -38,11 +38,20 @@ def suffix_windows(tokens: torch.Tensor, sigma: int
     return (w * keep).to(torch.int32), tokens != 0
 
 
-def suffix_pack_ref(tokens: torch.Tensor, *, sigma: int,
-                    vocab_size: int) -> torch.Tensor:
-    """Packed sigma-truncated suffix lanes [N, n_lanes] int64 of a token stream."""
-    windows, _ = suffix_windows(tokens, sigma)
-    return packing.pack_terms(windows, vocab_size=vocab_size)
+def suffix_pack_ref(tokens: torch.Tensor, *, sigma: int, vocab_size: int,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+    """Packed sigma-truncated suffix lanes [N, n_lanes] int64 of a token stream.
+
+    With ``out`` ([N, n_lanes + 1]) the map's records are written there:
+    the lanes, then the weight, 1 for a real token and 0 for PAD.
+    """
+    windows, valid = suffix_windows(tokens, sigma)
+    lanes = packing.pack_terms(windows, vocab_size=vocab_size)
+    if out is None:
+        return lanes
+    out[:, :-1] = lanes
+    out[:, -1] = valid
+    return out
 
 
 def hash_partition_ref(keys: torch.Tensor, valid: torch.Tensor, n_parts: int

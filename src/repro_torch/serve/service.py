@@ -52,7 +52,9 @@ class StreamingNGramService:
     """Generational index + query cache behind a batch lookup/completion API.
 
     Runs on the card unless ``device`` says otherwise (no card and no
-    ``device``: it raises).
+    ``device``: it raises).  ``route`` defaults to ``"merge"``, not
+    ``repro``'s ``"kway"``: the port's ``kway`` compacts on the host, and a
+    default service keeps its compactions on the card.
     """
 
     #: cache key of one point lookup
@@ -67,7 +69,7 @@ class StreamingNGramService:
 
     def __init__(self, cfg, *, compress: bool = False, block_size: int = 4,
                  cache_capacity: int = 65536, size_ratio: int = 4,
-                 route: str = "kway", wave_tokens: int | None = None, mesh=None,
+                 route: str = "merge", wave_tokens: int | None = None, mesh=None,
                  device=None):
         if wave_tokens is not None:
             raise NotImplementedError("wave-engine ingest (wave_tokens) is not "

@@ -64,6 +64,31 @@ def test_random_corpora_match_repro_and_oracle(seed, variant):
     assert_same_stats(got, want)
 
 
+@pytest.mark.parametrize("variant", range(len(VARIANTS)))
+@pytest.mark.parametrize("seed", range(4))
+def test_make_records_matches_repro(seed, variant):
+    """The map emit's records (lanes written in place, then the weight
+    column) and valid mask equal ``repro``'s ``make_records`` on the corpora
+    above, at the lane vocabulary each variant packs with."""
+    import jax.numpy as jnp
+
+    from repro.core import suffix_sigma as jsuffix_sigma
+    from repro_torch.core import suffix_sigma
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(20, 400))
+    v = int(rng.integers(2, 50))
+    toks = rng.integers(0, v + 1, n).astype(np.int32)
+    sigma = int(rng.integers(1, 7))
+    vocab = NGramConfig(sigma=sigma, tau=1, vocab_size=v, **VARIANTS[variant]).lane_vocab
+    for t in (toks, PAPER):
+        records, valid = suffix_sigma.make_records(torch.as_tensor(t), sigma=sigma,
+                                                   vocab_size=vocab)
+        want, jvalid = jsuffix_sigma.make_records(jnp.asarray(t), sigma=sigma,
+                                                  vocab_size=vocab)
+        np.testing.assert_array_equal(records.numpy(), np.asarray(want).astype(np.int64))
+        np.testing.assert_array_equal(valid.numpy(), np.asarray(jvalid))
+
+
 @pytest.mark.parametrize("pack", [True, False])
 @pytest.mark.parametrize("seed", range(4))
 def test_hash_combiner_matches_repro(seed, pack):

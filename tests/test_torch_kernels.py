@@ -300,6 +300,200 @@ def test_bsearch_plain_against_bisect():
         np.testing.assert_array_equal(got.numpy(), expect)
 
 
+# --------------------------------------------------------------------------
+# Edge cases of the redesigned suffix_pack and bsearch kernels: the tile
+# edges of suffix_pack (T = 1024 positions for n_lanes <= 4; more lanes take
+# the generic instance), sigma past 64, its records output, and bsearch's
+# lane-count instances, bracket widths around the 2**2 rows of a round trip,
+# truncated steps, both index dtypes and both bounds.  Each case: (port call
+# on a device, repro's reference), compared exactly on the CPU and, on a
+# card, kernel against plain version.
+# --------------------------------------------------------------------------
+
+def _suffix_pack_edge(toks, sigma, vocab, records):
+    """Without ``records`` a fresh [N, n_lanes] lane matrix; with it the
+    map's [N, n_lanes + 1] records (lanes | weight), written into a matrix
+    that held -1."""
+    from repro_torch.mapreduce import pack
+    n_l = pack.n_lanes(sigma, vocab)
+
+    def port(dev):
+        t = torch.as_tensor(toks, device=dev)
+        if not records:
+            return ops.suffix_pack(t, sigma=sigma, vocab_size=vocab)
+        rec = torch.full((len(toks), n_l + 1), -1, dtype=torch.int64, device=dev)
+        assert ops.suffix_pack(t, sigma=sigma, vocab_size=vocab,
+                               out=rec).data_ptr() == rec.data_ptr()
+        return rec
+
+    def want(jnp, jref):
+        lanes = np.asarray(jref.suffix_pack_ref(jnp.asarray(toks), sigma=sigma,
+                                                vocab_size=vocab)).astype(np.int64)
+        if records:
+            lanes = np.concatenate([lanes, (toks != 0)[:, None]], axis=1)
+        return lanes
+
+    return port, want
+
+
+#: (sigma, vocab) past the first port's tile limits: 128 terms in 4 lanes of
+#: 32 one-bit terms (the widest halo of the tiled instances); 65 and 300
+#: lanes of one term (the generic instance)
+WIDE_SIGMAS = ((128, 1), (65, 1 << 30), (300, 1 << 30))
+
+
+def _suffix_pack_edges():
+    rng = np.random.default_rng(13)
+    cases = {}
+    for n in (1, 3, 63, 64, 65, 1023, 1024, 1025, 2049):
+        for sigma, vocab in ((5, 20_000), (40, 1 << 30)):      # tiled; generic
+            toks = rng.integers(1, 300, n).astype(np.int32)
+            edge = 1024 if sigma == 5 else 64
+            toks[max(0, min(n, edge) - 3):edge + 2] = 0       # PAD run across a tile edge
+            cases[f"suffix_pack-n{n}-sigma{sigma}"] = _suffix_pack_edge(
+                toks, sigma, vocab, n > 3 and n % 2 == 1)
+    toks = rng.integers(0, 5, 3000).astype(np.int32)
+    for sigma, vocab in ((1, 20_000), (1, 1 << 30), (64, 1 << 30), (64, 3), *WIDE_SIGMAS):
+        cases[f"suffix_pack-sigma{sigma}-vocab{vocab}"] = _suffix_pack_edge(
+            toks, sigma, vocab, False)
+    big = rng.integers(0, 2**20, 5000).astype(np.int32)
+    for out in ("new", "records"):
+        for sigma, vocab in ((5, 20_000), (8, 300), (2, 3), (64, 1 << 30), *WIDE_SIGMAS):
+            cases[f"suffix_pack-out-{out}-sigma{sigma}-vocab{vocab}"] = \
+                _suffix_pack_edge(big % (vocab + 1), sigma, vocab, out == "records")
+    return cases
+
+
+#: where the searched lanes sit in a wider matrix: (columns before, columns
+#: after).  With an even row stride the kernel reads lane pairs with 16-byte
+#: loads, starting at lane 0 (no column before) or lane 1 (one before).
+LAYOUTS = {"dense": (0, 0), "offset": (1, 0), "leading": (0, 1), "middle": (1, 1)}
+
+
+def _bsearch_edge(lanes, layout, queries, lo, hi, index_dtype, upper, steps):
+    """``lanes`` [R, L] sorted uint32 values, searched as a view of a wider
+    matrix (``LAYOUTS``) whose other columns hold junk."""
+    before, after = LAYOUTS[layout]
+
+    def port(dev):
+        junk = np.full((lanes.shape[0], 1), 2**32 - 1, np.int64)
+        full = np.concatenate([junk] * before + [lanes.astype(np.int64)] + [junk] * after,
+                              axis=1)
+        view = torch.as_tensor(full, device=dev)[:, before:before + lanes.shape[1]]
+        return ops.bsearch(view, torch.as_tensor(queries.astype(np.int64), device=dev),
+                           torch.as_tensor(lo.astype(index_dtype), device=dev),
+                           torch.as_tensor(hi.astype(index_dtype), device=dev),
+                           upper=upper, steps=steps)
+
+    def want(jnp, jref):
+        return np.asarray(jref.bsearch_ref(
+            jnp.asarray(lanes), jnp.asarray(queries), jnp.asarray(lo),
+            jnp.asarray(hi), upper=upper, steps=steps))
+
+    return port, want
+
+
+def _bsearch_edges():
+    rng = np.random.default_rng(14)
+    cases = {}
+    r, q = 300, 600
+    widths = np.array([0, 1, 3, 4, 7, 8, 15, 16, r])     # 0, 1, 2**d - 1, 2**d, R
+    for n_l in (1, 2, 3, 4, 6):
+        # few distinct values: long runs of equal rows; every lane >= 2**31
+        lanes = (2**31 + lex_sorted(rng, r, n_l, vmax=3)).astype(np.uint32)
+        queries = (2**31 + rng.integers(0, 4, (q, n_l))).astype(np.uint32)
+        width = widths[rng.integers(0, len(widths), q)]
+        lo = rng.integers(0, r + 1 - width).astype(np.int32)
+        hi = (lo + width).astype(np.int32)
+        for k, layout in enumerate(LAYOUTS):
+            index_dtype = (np.int32, np.int64)[k % 2]
+            for upper in (False, True):
+                for steps in (None, 1, 3):                  # full, and too few
+                    full = steps is None
+                    cases[f"bsearch-nl{n_l}-{layout}-{'upper' if upper else 'lower'}-"
+                          f"{np.dtype(index_dtype).name}-steps{'full' if full else steps}"
+                          ] = _bsearch_edge(
+                        lanes, layout, queries, lo, hi, index_dtype, upper,
+                        ref.search_steps(r) if full else steps)
+    return cases
+
+
+EDGE_CASES = {**_suffix_pack_edges(), **_bsearch_edges()}
+
+
+def test_edge_case_registry_covers_every_lane_count_and_tile_edge():
+    names = "\n".join(EDGE_CASES)
+    for n_l in (1, 2, 3, 4, 6):
+        for layout in LAYOUTS:
+            assert f"bsearch-nl{n_l}-{layout}-" in names
+    for n in (1, 1023, 1024, 1025):
+        assert f"suffix_pack-n{n}-sigma5" in names
+
+
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_edge_case_plain_matches_repro(case):
+    port, want = EDGE_CASES[case]
+    jnp, jref, _ = _jax()
+    np.testing.assert_array_equal(port("cpu").numpy().astype(np.int64),
+                                  want(jnp, jref).astype(np.int64))
+
+
+@pytest.mark.parametrize("sigma,vocab", [(5, 20_000), (1, 7), (9, 70_000), (64, 1 << 30),
+                                         *WIDE_SIGMAS])
+def test_plain_suffix_pack_writes_records_in_place(sigma, vocab):
+    """The plain version writes the map's records into ``out``: ``repro``'s
+    lanes, then the weight (1 for a real token, 0 for PAD)."""
+    from repro_torch.mapreduce import pack
+    jnp, jref, _ = _jax()
+    toks = np.random.default_rng(sigma).integers(0, min(vocab, 999) + 1, 777).astype(np.int32)
+    n_l = pack.n_lanes(sigma, vocab)
+    records = torch.full((777, n_l + 1), 12345, dtype=torch.int64)
+    assert ops.suffix_pack(torch.as_tensor(toks), sigma=sigma, vocab_size=vocab,
+                           out=records) is records
+    np.testing.assert_array_equal(
+        records[:, :n_l].numpy(),
+        np.asarray(jref.suffix_pack_ref(jnp.asarray(toks), sigma=sigma,
+                                        vocab_size=vocab)).astype(np.int64))
+    np.testing.assert_array_equal(records[:, n_l].numpy(), toks != 0)
+
+
+def test_suffix_pack_rejects_a_misshapen_out():
+    toks = torch.ones(10, dtype=torch.int32)              # sigma 3 -> 2 lanes + weight
+    for bad in (torch.empty((10, 2), dtype=torch.int64),
+                torch.empty((10, 4), dtype=torch.int64),
+                torch.empty((9, 3), dtype=torch.int64),
+                torch.empty((10, 3), dtype=torch.int32),
+                torch.empty((10, 4), dtype=torch.int64)[:, :3],
+                torch.empty((10, 6), dtype=torch.int64)[:, ::2]):
+        with pytest.raises((ValueError, TypeError)):
+            ops.suffix_pack(toks, sigma=3, vocab_size=20_000, out=bad)
+
+
+@pytest.mark.parametrize("steps", [1, 2, 4, 7])
+@pytest.mark.parametrize("upper", [False, True])
+def test_plain_bsearch_truncated_steps_matches_repro(steps, upper):
+    """With fewer steps than the brackets need, the port's plain search stops
+    where ``repro``'s does."""
+    jnp, jref, _ = _jax()
+    rng = np.random.default_rng(steps)
+    r, q, n_l = 1000, 500, 3
+    lanes = (2**31 + lex_sorted(rng, r, n_l, vmax=9)).astype(np.uint32)
+    queries = (2**31 + rng.integers(0, 10, (q, n_l))).astype(np.uint32)
+    lo = rng.integers(0, r, q).astype(np.int32)
+    hi = (lo + rng.integers(0, r, q)).clip(0, r).astype(np.int32)
+    got = ref.bsearch_ref(torch.as_tensor(lanes.astype(np.int64)),
+                          torch.as_tensor(queries.astype(np.int64)),
+                          torch.as_tensor(lo), torch.as_tensor(hi),
+                          upper=upper, steps=steps)
+    want = jref.bsearch_ref(jnp.asarray(lanes), jnp.asarray(queries),
+                            jnp.asarray(lo), jnp.asarray(hi), upper=upper, steps=steps)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    full = ref.bsearch_ref(torch.as_tensor(lanes.astype(np.int64)),
+                           torch.as_tensor(queries.astype(np.int64)),
+                           torch.as_tensor(lo), torch.as_tensor(hi), upper=upper)
+    assert steps >= ref.search_steps(r) or not torch.equal(got, full)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -317,3 +511,15 @@ def test_cuda_kernel_matches_plain(cuda_device, name, sweep):
     torch.cuda.synchronize()
     assert ops.launches[name] == before + 1
     _assert_equal(got, port_call("cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_cuda_edge_case_matches_plain(cuda_device, case):
+    port, _ = EDGE_CASES[case]
+    name = case.split("-")[0]
+    before = ops.launches[name]
+    got = port(cuda_device)
+    torch.cuda.synchronize()
+    assert ops.launches[name] == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), port("cpu").numpy())

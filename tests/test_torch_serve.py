@@ -110,6 +110,33 @@ def test_streaming_service_matches_repro():
                                   jsvc.continuations(pg, pl, k=4))
 
 
+def test_default_route_compacts_on_the_merge_route_as_kway_and_repro():
+    """The port's default route is ``merge`` (``repro``'s is ``kway``, which in
+    the port folds on the host); a default service's compacted rung equals an
+    explicit ``kway`` service's and ``repro``'s default service's."""
+    from repro_torch.index import GenerationalIndex
+    from tests.test_torch_compress import assert_same_compressed
+    from tests.test_torch_merge import assert_tensors_equal
+    vocab, sigma = 30, 3
+    kw = dict(sigma=sigma, tau=1, vocab_size=vocab, combine_route="hash")
+    assert GenerationalIndex(sigma=sigma, vocab_size=vocab, device="cpu").route == "merge"
+    svc = StreamingNGramService(NGramConfig(**kw), compress=True, device="cpu")
+    assert svc.gen.route == "merge"
+    kway = StreamingNGramService(NGramConfig(**kw), compress=True, route="kway",
+                                 device="cpu")
+    jsvc = JService(JConfig(**kw), compress=True)
+    assert jsvc.gen.route == "kway"
+    for i in range(4):
+        toks = make_corpus(600, vocab, "zipf", 90 + i)
+        for s in (svc, kway, jsvc):
+            s.ingest(toks)
+    for s in (svc, kway, jsvc):
+        s.gen.compact_all()
+    (rung,), (kway_rung,), (jrung,) = (s.gen.segments for s in (svc, kway, jsvc))
+    assert_tensors_equal(rung, kway_rung)
+    assert_same_compressed(rung, jrung)
+
+
 def test_unported_service_options_raise():
     cfg = NGramConfig(sigma=2, tau=1, vocab_size=3)
     with pytest.raises(NotImplementedError):
