@@ -670,6 +670,14 @@ def phase_streaming(dev, main: dict) -> dict:
           f"compress_index {t_compress:.3f} s (host numpy build + copy to the card)")
     print("stream: spans (count, ms) " + ", ".join(
         f"{k} {n} {ms:.1f}" for k, (n, ms) in sorted(spans.items())))
+    decode_ms = [ev["dur"] / 1e3 for ev in tracer.events if ev["name"] == "compress.decode"]
+    n_decodes = len(decode_ms)
+    print(f"stream: block_expand launches {launches.get('block_expand', 0)} for "
+          f"{n_decodes} compressed-rung decodes (compress.decode spans, ms: "
+          + ", ".join(f"{ms:.2f}" for ms in decode_ms) + ")")
+    if dev.type == "cuda":
+        check(launches.get("block_expand", 0) == n_decodes,
+              "one block_expand launch per compressed-rung decode")
     print(f"stream: peak device memory {peak / 2**30:.2f} GiB; kernel launches {launches}")
     return dict(svc=svc, final=final, union=union, base_tokens=base,
                 compact_inputs=compact_inputs, launches=launches)
@@ -927,8 +935,43 @@ def phase_kernels(dev, main: dict, stream: dict, probe: ctypes.CDLL) -> list[dic
           "and records; bsearch lane counts 1-4 and 6 in four layouts, bracket "
           "widths 0, 1, 2**d - 1, 2**d and R, truncated steps, int32 and int64 brackets; "
           "strided records, M=0, N=0, all-equal keys across runs, sentinel "
-          "tails, sigma=15, block id nb-1)")
+          "tails, sigma=15, block id nb-1; block_expand and block_decode at block "
+          f"sizes {', '.join(map(str, BLOCK_SIZES))} x sigma 1, 5, 15 x both views, "
+          "out= in place, "
+          "empty id lists)")
     return rows
+
+
+def measure_expand(dev, c, measure, label: str) -> dict:
+    """``block_expand`` on the point view of compressed rung ``c`` as
+    decode_segment launches it: one chunk (the whole rung here), its lanes
+    packed into the key columns of a [rows, 1 + n_lanes] matrix in place.
+    With ``measure`` the kernel's row; without, the times alone."""
+    vocab = c.vocab_size
+    n_l = c.n_lanes
+    bs = c.block_size
+    nb_used = -(-c.n_rows // bs)
+    cb = min(max(1, index_compress._DECODE_CHUNK_ROWS // bs), nb_used)
+    n = min(cb * bs, c.n_rows)
+    ids = torch.arange(cb, dtype=torch.int32, device=dev).clamp(max=c.n_blocks - 1)
+    base_h = c.block_base[:cb + 1].cpu().numpy().view(np.uint32).astype(np.int64)
+    read = cb * (4 + 4 + bs * c.lcp_width / 8) + (base_h[-1] - base_h[0]) * c.term_bits / 8
+    args = (c.lcps, c.payload, c.block_base, c.sec_cache, ids)
+    kw = dict(term_bits=c.term_bits, lcp_width=c.lcp_width, block_size=bs, len_off=0,
+              vocab_size=vocab)
+    keys = torch.empty((n, 1 + n_l), dtype=torch.int64, device=dev)
+    plain_keys = torch.empty_like(keys)
+    kernel = lambda: ops.block_expand(*args, **kw, out=keys[:, 1:])  # noqa: E731
+    plain = lambda: ref.block_expand_ref(*args, **kw, out=plain_keys[:, 1:])  # noqa: E731
+    shape = (f"blocks [{cb}] of {bs} rows, sigma {c.sigma}, packed in place into "
+             f"keys[:, 1:] [{n}, {n_l}]")
+    if measure is not None:
+        return measure("block_expand", "stream", kernel, plain, read + n * n_l * 4,
+                       read + n * n_l * 8, cb * bs * c.sigma * 16, f"{label}: {shape}")
+    check(max_abs_err(kernel(), plain()) == 0, f"block_expand == plain version at {shape}")
+    return dict(shape=shape, ms=cuda_ms(kernel),
+                kernel_ms=kernel_ms(kernel, "block_expand_kernel"),
+                bound_ms=bound(read + n * n_l * 4, 0)[0])
 
 
 def stream_kernel_rows(dev, stream: dict, measure) -> list[dict]:
@@ -969,24 +1012,37 @@ def stream_kernel_rows(dev, stream: dict, measure) -> list[dict]:
         (m + nn) * steps * (2 * k + 6),
         f"compact_all's runs [{m}, {k}] + [{nn}, {k}] (sentinel tails), {steps} steps"))
     del runs, ak, av, bk, bv
-    # block_expand: one decode chunk of the compacted rung, as decode_segment
-    # launches it; block_decode: 2**16 point lookups against that rung
+    # block_expand: compact_all's decode of its compressed input, one launch
+    # as decode_segment makes it, packed into the key columns in place (and,
+    # for scale, the compacted rung decoded whole, and the first port's
+    # 1,024-block chunk); block_decode: 2**16 point lookups against the
+    # compacted rung
+    c = max((e for e in stream["compact_inputs"] if isinstance(e, CompressedNGramIndex)),
+            key=lambda e: e.n_rows)
+    rows.append(measure_expand(dev, c, measure, "compact_all's decode of its compressed "
+                               f"input, rung of {c.n_blocks} blocks"))
     c = stream["final"]
-    cb = min(index_compress._DECODE_CHUNK_ROWS // c.block_size, c.n_blocks)
-    ids = torch.arange(cb, dtype=torch.int32, device=dev)
-    base_h = c.block_base[:cb + 1].cpu().numpy().view(np.uint32).astype(np.int64)
-    pay_bytes = (base_h[-1] - base_h[0]) * c.term_bits / 8
-    row_bytes = c.block_size * c.lcp_width / 8
     stream_args = (c.lcps, c.payload, c.block_base, c.sec_cache)
-    kw = dict(term_bits=c.term_bits, lcp_width=c.lcp_width,
-              block_size=c.block_size, len_off=0)
-    be_bytes = cb * (4 + 4 + row_bytes + 4 * c.block_size * SIGMA) + pay_bytes
-    rows.append(measure(
-        "block_expand", "stream", lambda: ops.block_expand(*stream_args, ids, **kw),
-        lambda: ref.block_expand_ref(*stream_args, ids, **kw),
-        be_bytes, be_bytes, cb * c.block_size * SIGMA * 16,
-        f"blocks [{cb}] of {c.block_size} rows, sigma {SIGMA}, of a rung of "
-        f"{c.n_blocks} blocks"))
+    kw = dict(term_bits=c.term_bits, lcp_width=c.lcp_width, block_size=c.block_size,
+              len_off=0)
+    row_bytes = c.block_size * c.lcp_width / 8
+    if dev.type == "cuda":
+        whole = measure_expand(dev, c, None, "")
+        print(f"kernel block_expand at the compacted rung decoded whole ({whole['shape']}): "
+              f"{whole['ms']:.4f} ms a call, kernel {fmt_ms(whole['kernel_ms'])} ms on the "
+              f"device; bound {whole['bound_ms']:.6f} ms (uint32 values)")
+        old = torch.arange(min(1024, c.n_blocks), dtype=torch.int32, device=dev)
+        old_fn = lambda: ops.block_expand(*stream_args, old, **kw)  # noqa: E731
+        check(max_abs_err(old_fn(), ref.block_expand_ref(*stream_args, old, **kw)) == 0,
+              "block_expand on a 1,024-block chunk == plain version")
+        nb_old = old.shape[0]
+        base_h = c.block_base[:nb_old + 1].cpu().numpy().view(np.uint32).astype(np.int64)
+        old_read = nb_old * (4 + 4 + row_bytes) + float(base_h[-1] - base_h[0]) * c.term_bits / 8
+        print(f"kernel block_expand continuity at the first port's chunk (blocks "
+              f"[{nb_old}] of the compacted rung, int32 terms [{nb_old}, {c.block_size}, "
+              f"{SIGMA}]): {cuda_ms(old_fn):.4f} ms a call, kernel "
+              f"{fmt_ms(kernel_ms(old_fn, 'block_expand_kernel'))} ms on the device; bound "
+              f"{bound(old_read + nb_old * c.block_size * SIGMA * 4, 0)[0]:.6f} ms")
     g, ln, _ = lookup_batch(stream["union"], np.random.default_rng(6), N_LOOKUPS, vocab)
     g, ln, _ = index_query._clean(c, torch.as_tensor(g, device=dev),
                                   torch.as_tensor(ln, device=dev), lo_len=1)
@@ -1066,6 +1122,105 @@ def stream_edge_cases(dev):
             cases.append(("block_decode",
                           lambda x=sa, y=qa, w=kw: ops.block_decode(*x, *y, **w),
                           lambda x=sa, y=qa, w=kw: ref.block_decode_ref(*x, *y, **w)))
+    return cases + block_edge_cases(dev)
+
+
+#: block sizes of the block kernels' edge grid: every group width of the
+#: warp-group decode, full (1, 4, 8, 16, 32 lanes) and part-used (2 and 3 rows
+#: in 4, 17 in 32), and the generic walk (33)
+BLOCK_SIZES = (1, 2, 3, 4, 8, 16, 17, 32, 33)
+
+
+def block_edge_cases(dev):
+    """``block_expand`` and ``block_decode`` over block_size x sigma (1, 5, 15)
+    x len_off (0, 1) on fuzzed streams: ids arbitrary, repeated and nb - 1;
+    ``out=`` a row-strided view one row short of B * block_size inside a
+    matrix of -1 (compared whole, so nothing around it may be written); int32
+    terms at sigma 5; an empty id list; and real compressed indexes at every
+    block size (decode_segment's one launch, and lookups at block nb - 1)."""
+    rng = np.random.default_rng(7)
+    t = lambda a: torch.as_tensor(np.asarray(a), device=dev)  # noqa: E731
+    cases = []
+
+    def expand_into(fn, sa, ids, kw, n, n_l, vocab):
+        full = torch.full((n + 3, n_l + 2), -1, dtype=torch.int64, device=dev)
+        check(fn(*sa, ids, **kw, out=full[:n, 1:1 + n_l], vocab_size=vocab).data_ptr()
+              == full[:n, 1:1 + n_l].data_ptr(), "block_expand returns out")
+        return full
+
+    grid = [(bs, sigma, off) for bs in BLOCK_SIZES for sigma in (1, 5, 15)
+            for off in (0, 1)] + [(3, 40, 1), (16, 40, 1)]   # sigma past 32 too
+    for bs, sigma, off in grid:
+        tb = int(rng.choice([3, 7, 15, 16]))
+        lw = 4 if sigma <= 14 else 8
+        nb = int(rng.integers(2, 300))
+        size = nb * bs
+        sa = (t(rng.integers(0, 2**32, -(-size * lw // 32)).astype(np.uint32).view(np.int32)),
+              t(rng.integers(0, 2**32, int(rng.integers(1, 2000))).astype(np.uint32)
+                .view(np.int32)),
+              t(np.sort(rng.integers(0, 2**24, nb + 1)).astype(np.uint32).view(np.int32)),
+              t(np.sort(rng.integers(0, size + 1, sigma + 1)).astype(np.int32)))
+        kw = dict(term_bits=tb, lcp_width=lw, block_size=bs, len_off=off)
+        blk = rng.integers(0, nb, 1000).astype(np.int32)
+        blk[:3], blk[3:8] = nb - 1, blk[8]
+        ids = t(blk)
+        vocab = (1 << tb) - 1
+        n_l = pack.n_lanes(sigma, vocab)
+        n = blk.shape[0] * bs - 1
+        cases.append(("block_expand",
+                      lambda x=sa, i=ids, w=kw, n=n, n_l=n_l, v=vocab:
+                      expand_into(ops.block_expand, x, i, w, n, n_l, v),
+                      lambda x=sa, i=ids, w=kw, n=n, n_l=n_l, v=vocab:
+                      expand_into(ref.block_expand_ref, x, i, w, n, n_l, v)))
+        if sigma == 5:
+            cases.append(("block_expand",
+                          lambda x=sa, i=ids, w=kw: ops.block_expand(*x, i, **w),
+                          lambda x=sa, i=ids, w=kw: ref.block_expand_ref(*x, i, **w)))
+        qt = rng.integers(0, 1 << tb, (blk.shape[0], sigma)).astype(np.int32)
+        ql = rng.integers(0, sigma + 2, blk.shape[0]).astype(np.int32)
+        rows = ref.block_expand_ref(*sa, ids, **kw).cpu().numpy()
+        pick = rng.integers(0, bs, blk.shape[0])
+        mine = rng.random(blk.shape[0]) < 0.5       # a row of the block itself
+        qt[mine] = rows[np.arange(blk.shape[0]), pick][mine]
+        g = blk.astype(np.int64) * bs + pick
+        sec_h = sa[3].cpu().numpy()
+        ql[mine] = (g[:, None] >= sec_h[None, :]).sum(axis=1)[mine]
+        qa = (ids, t(qt), t(ql))
+        cases.append(("block_decode",
+                      lambda x=sa, y=qa, w=kw: ops.block_decode(*x, *y, **w),
+                      lambda x=sa, y=qa, w=kw: ref.block_decode_ref(*x, *y, **w)))
+        if sigma == 1 and off == 0:                  # an empty id list
+            none = t(np.zeros(0, np.int32))
+            qn = (none, t(np.zeros((0, sigma), np.int32)), none)
+            cases.append(("block_expand",
+                          lambda x=sa, i=none, w=kw: ops.block_expand(*x, i, **w),
+                          lambda x=sa, i=none, w=kw: ref.block_expand_ref(*x, i, **w)))
+            cases.append(("block_decode",
+                          lambda x=sa, y=qn, w=kw: ops.block_decode(*x, *y, **w),
+                          lambda x=sa, y=qn, w=kw: ref.block_decode_ref(*x, *y, **w)))
+    # real compressed indexes at every block size: the point view through
+    # decode_segment's launch into keys[:, 1:], lookups on blocks nb - 1
+    toks = rng.integers(0, 301, 3000).astype(np.int32)
+    st = run_job(toks, NGramConfig(sigma=5, tau=1, vocab_size=300), device=dev)
+    for bs in BLOCK_SIZES:
+        pad = -(-(len(st) + 1) // (128 * bs)) * 128 * bs
+        c = build_compressed_index(st, vocab_size=300, block_size=bs, pad_to=pad,
+                                   device=dev)
+        sa = (c.lcps, c.payload, c.block_base, c.sec_cache)
+        kw = dict(term_bits=c.term_bits, lcp_width=c.lcp_width, block_size=bs, len_off=0)
+        ids = t(np.arange(c.n_blocks, dtype=np.int32))
+        cases.append(("block_expand",
+                      lambda x=sa, i=ids, w=kw, n=c.n_rows, n_l=c.n_lanes:
+                      expand_into(ops.block_expand, x, i, w, n, n_l, 300),
+                      lambda x=sa, i=ids, w=kw, n=c.n_rows, n_l=c.n_lanes:
+                      expand_into(ref.block_expand_ref, x, i, w, n, n_l, 300)))
+        blk = rng.integers(0, c.n_blocks, 777).astype(np.int32)
+        blk[:50] = c.n_blocks - 1
+        rows = rng.integers(0, len(st), 777)
+        qa = (t(blk), t(st.grams[rows].astype(np.int32)), t(st.lengths[rows].astype(np.int32)))
+        cases.append(("block_decode",
+                      lambda x=sa, y=qa, w=kw: ops.block_decode(*x, *y, **w),
+                      lambda x=sa, y=qa, w=kw: ref.block_decode_ref(*x, *y, **w)))
     return cases
 
 

@@ -252,24 +252,24 @@ class CompressedNGramIndex:
                             sigma=self.sigma, vocab_size=self.vocab_size)
 
 
-# rows decoded per chunk by decode_segment; module-level so tests can shrink
-# it and assert the working-set bound.  The value is repro's, sized for the
-# TPU's on-chip memory and not yet worked out again for the card: at 4096
-# rows a chunk is one block_expand launch of 1024 blocks
-_DECODE_CHUNK_ROWS = 4096
-# peak rows any single decode chunk materialized (the "compaction never
-# decodes a full table" contract)
+# rows decoded per block_expand launch by decode_segment; module-level so
+# tests can shrink it and assert the working-set bound.  Worked out for the
+# H100.  A row reads a few bytes of streams (a 4-8 bit lcp, its stored suffix
+# terms of term_bits each, a 4-byte block base per block) and its n_lanes int64
+# lanes (24 bytes at sigma 5) go straight into the segment's key matrix, which
+# the decode fills whatever the chunk; beyond that matrix a chunk holds only
+# its block ids, 4 bytes a block, at most a quarter of the bytes its rows take
+# in the key matrix.  The card keeps 132 SMs x 2,048 threads = 270,336 lanes
+# resident, one row a lane in the group decode (block_size 4), so a chunk of
+# 2**22 rows is ~16 such waves and ~100 MB of lane writes (~30 us at
+# 3.35 TB/s), against a few us of host and launch cost per chunk.  Every
+# rung of the streaming path (67k-375k rows) decodes in one launch.
+_DECODE_CHUNK_ROWS = 1 << 22
+# peak rows of any single decode chunk.  The chunk no longer materializes
+# its rows anywhere but in the key matrix, so this now bounds only the block
+# ids of one launch (repro's "compaction never decodes a full table" tests
+# read it as the chunk's width)
 _DECODE_WATERMARK = {"rows": 0}
-
-
-def _decode_chunk(lcps, payload, block_base, sec, ids, *, term_bits: int,
-                  lcp_width: int, block_size: int, vocab_size: int) -> torch.Tensor:
-    """Packed lanes [len(ids)*block_size, L] int64 of the requested point blocks."""
-    sigma = sec.shape[0] - 1
-    terms = kops.block_expand(lcps, payload, block_base, sec, ids,
-                              term_bits=term_bits, lcp_width=lcp_width,
-                              block_size=block_size, len_off=0)
-    return packing.pack_terms(terms.reshape(-1, sigma), vocab_size=vocab_size)
 
 
 def decode_segment(cidx: CompressedNGramIndex, *,
@@ -277,9 +277,10 @@ def decode_segment(cidx: CompressedNGramIndex, *,
     """Stream the point view back into an **unpadded** :class:`IndexSegment`
     on the index's device.
 
-    Blocks decode ``chunk_rows`` rows at a time through ``block_expand`` (the
-    tail chunk clips block ids to the last block), so the decoded working set
-    is one chunk, never the whole table.
+    Blocks decode ``chunk_rows`` rows at a time, one ``block_expand`` launch
+    each, which packs the rows' lanes straight into the segment's keys (the
+    tail chunk clips block ids to the last block and writes only real rows),
+    so the decode's working set beyond the keys is one chunk's block ids.
     """
     b = cidx.block_size
     r = cidx.n_rows
@@ -298,12 +299,11 @@ def decode_segment(cidx: CompressedNGramIndex, *,
         for c0 in range(0, nb_used, cb):
             ids = torch.arange(c0, c0 + cb, dtype=torch.int32, device=dev).clamp(
                 max=max(cidx.n_blocks - 1, 0))
-            lanes = _decode_chunk(cidx.lcps, cidx.payload, cidx.block_base,
-                                  cidx.sec_cache, ids, term_bits=cidx.term_bits,
-                                  lcp_width=cidx.lcp_width, block_size=b,
-                                  vocab_size=cidx.vocab_size)
-            lo, hi = c0 * b, min((c0 + cb) * b, r)
-            keys[lo:hi, 1:] = lanes[:hi - lo]
+            kops.block_expand(cidx.lcps, cidx.payload, cidx.block_base,
+                              cidx.sec_cache, ids, term_bits=cidx.term_bits,
+                              lcp_width=cidx.lcp_width, block_size=b, len_off=0,
+                              out=keys[c0 * b:min((c0 + cb) * b, r), 1:],
+                              vocab_size=cidx.vocab_size)
             _DECODE_WATERMARK["rows"] = max(_DECODE_WATERMARK["rows"], cb * b)
         counts = extract_bits(cidx.counts_packed,
                               torch.arange(max(r, 1), device=dev),

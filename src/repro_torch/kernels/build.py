@@ -6,6 +6,8 @@ for ``sm_90a`` (no PyTorch headers, so a build takes seconds).  All sources
 compile in parallel, at first use, into ``build/kernels/<digest>/`` under the
 repository root, where the digest is a hash of the sources, headers and
 flags, so an edited source rebuilds and an unchanged one loads.  A missing ``nvcc`` or a failed build raises.
+A library that also exports ``<name>_load`` has it called once, as it is
+loaded, so that its kernels load then and not inside their first launch.
 """
 from __future__ import annotations
 
@@ -33,7 +35,8 @@ SIGNATURES = {
     "bsearch": [_P, _L, _L, _I, _P, _L, _P, _P, _I, _I, _I, _P, _P],
     "hash_combine": [_P, _L, _P, _L, _L, _I, _I, _I, _P, _P],
     "merge_path": [_P, _P, _P, _P, _L, _L, _I, _I, _P, _P, _P],
-    "block_expand": [_P, _L, _P, _L, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P, _P],
+    "block_expand": [_P, _L, _P, _L, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P, _L, _L,
+                     _I, _P],
     "block_decode": [_P, _L, _P, _L, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
                      _P, _P, _P],
 }
@@ -101,9 +104,13 @@ def entries() -> dict[str, ctypes._CFuncPtr]:
     if _ENTRIES is None:
         found = {}
         for name, lib in build().items():
-            fn = getattr(ctypes.CDLL(str(lib)), f"{name}_launch")
+            so = ctypes.CDLL(str(lib))
+            fn = getattr(so, f"{name}_launch")
             fn.argtypes = SIGNATURES[name]
             fn.restype = ctypes.c_int
             found[name] = fn
+            load = getattr(so, f"{name}_load", None)
+            if load is not None and load() != 0:
+                raise RuntimeError(f"CUDA kernels of {name} failed to load")
         _ENTRIES = found
     return _ENTRIES

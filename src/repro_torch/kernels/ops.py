@@ -217,26 +217,60 @@ def _check_streams(what: str, lcps, payload, block_base, sec_starts, blk) -> Non
         raise ValueError(f"{what}: sigma {sec_starts.shape[0] - 1} outside [1, 256]")
 
 
+def _check_block_out(out: torch.Tensor, vocab_size: int | None, blk: torch.Tensor,
+                     *, sigma: int, block_size: int) -> None:
+    """``out`` of ``block_expand``: an int64 [n, n_lanes] view on the block ids'
+    device, last dimension contiguous, rows not overlapping, n <= B * block_size."""
+    if vocab_size is None:
+        raise ValueError("block_expand: out needs vocab_size to pack the lanes")
+    _check(out, "block_expand out", torch.int64, 2)
+    n_l = packing.n_lanes(sigma, vocab_size)
+    n, width = out.shape
+    if width != n_l or n > blk.shape[0] * block_size or out.device != blk.device \
+            or (n_l > 1 and out.stride(1) != 1) or (n > 1 and out.stride(0) < n_l):
+        raise ValueError(f"block_expand: out must be an [n <= {blk.shape[0] * block_size}, "
+                         f"{n_l}] view on the block ids' device with a contiguous "
+                         "last dimension")
+
+
 def block_expand(lcps: torch.Tensor, payload: torch.Tensor,
                  block_base: torch.Tensor, sec_starts: torch.Tensor,
                  blk: torch.Tensor, *, term_bits: int, lcp_width: int,
-                 block_size: int, len_off: int) -> torch.Tensor:
+                 block_size: int, len_off: int, out: torch.Tensor | None = None,
+                 vocab_size: int | None = None) -> torch.Tensor:
     """Decoded term rows [B, block_size, sigma] int32 of the front-coded blocks
-    ``blk`` (streams: int32 tensors holding uint32 words)."""
+    ``blk`` (streams: int32 tensors holding uint32 words).
+
+    With ``out`` (and ``vocab_size``), the rows are packed as ``pack_terms``
+    packs them and written into ``out``, an int64 [n, n_lanes] row-strided
+    view with n <= B * block_size: row i of the decoded blocks goes to
+    ``out[i]``, rows from n on are not written, and ``out`` is returned.
+    """
+    sigma = sec_starts.shape[0] - 1
+    if out is not None:
+        _check_block_out(out, vocab_size, blk, sigma=sigma, block_size=block_size)
+    elif vocab_size is not None:
+        raise ValueError("block_expand: vocab_size packs into out; pass both or neither")
     if not blk.is_cuda:
         return ref.block_expand_ref(lcps, payload, block_base, sec_starts, blk,
                                     term_bits=term_bits, lcp_width=lcp_width,
-                                    block_size=block_size, len_off=len_off)
+                                    block_size=block_size, len_off=len_off,
+                                    out=out, vocab_size=vocab_size)
     _check_streams("block_expand", lcps, payload, block_base, sec_starts, blk)
-    sigma = sec_starts.shape[0] - 1
     blk = blk.contiguous()
-    out = torch.empty((blk.shape[0], block_size, sigma), dtype=torch.int32,
-                      device=blk.device)
-    if blk.shape[0]:
+    if out is None:
+        out = torch.empty((blk.shape[0], block_size, sigma), dtype=torch.int32,
+                          device=blk.device)
+        n_rows, stride, bits = blk.shape[0] * block_size, sigma, 0
+    else:
+        n_rows, stride = out.shape[0], out.stride(0)
+        bits = packing.bits_for_vocab(vocab_size)
+    if n_rows:
         _launch("block_expand", blk.device, lcps.data_ptr(), lcps.shape[0],
                 payload.data_ptr(), payload.shape[0], block_base.data_ptr(),
                 sec_starts.data_ptr(), blk.data_ptr(), blk.shape[0], sigma,
-                term_bits, lcp_width, block_size, len_off, out.data_ptr())
+                term_bits, lcp_width, block_size, len_off, out.data_ptr(),
+                n_rows, stride, bits)
     return out
 
 

@@ -197,17 +197,26 @@ def _front_coded_rows(lcps, payload, block_base, sec_starts, blk, *,
 def block_expand_ref(lcps: torch.Tensor, payload: torch.Tensor,
                      block_base: torch.Tensor, sec_starts: torch.Tensor,
                      blk: torch.Tensor, *, term_bits: int, lcp_width: int,
-                     block_size: int, len_off: int) -> torch.Tensor:
+                     block_size: int, len_off: int, out: torch.Tensor | None = None,
+                     vocab_size: int | None = None) -> torch.Tensor:
     """Decoded term matrix [B, block_size, sigma] int32 of the requested blocks.
 
     Streams are int32 tensors holding uint32 words; ``sec_starts`` [sigma+1]
     int32 section starts give each row's length key; ``len_off`` is 0 for the
-    point view, 1 for the continuation (prefix) view.
+    point view, 1 for the continuation (prefix) view.  With ``out`` ([n,
+    n_lanes] int64, n <= B * block_size) the first n decoded rows are packed
+    with ``vocab_size`` (``pack_terms``) into ``out``, which is returned.
     """
     rows = [row for _, row in _front_coded_rows(
         lcps, payload, block_base, sec_starts, blk, term_bits=term_bits,
         lcp_width=lcp_width, block_size=block_size, len_off=len_off)]
-    return torch.stack(rows, dim=1)
+    terms = torch.stack(rows, dim=1)
+    if out is None:
+        return terms
+    sigma = terms.shape[2]
+    out.copy_(packing.pack_terms(terms.reshape(-1, sigma)[:out.shape[0]],
+                                 vocab_size=vocab_size))
+    return out
 
 
 def block_decode_ref(lcps: torch.Tensor, payload: torch.Tensor,

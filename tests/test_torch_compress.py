@@ -25,6 +25,8 @@ from repro_torch.index import (build_index, compress_index,
                                decode_segment, lookup, segment_from_stats)
 from repro_torch.index import compress as tcompress
 from repro_torch.kernels import bitpack
+from repro_torch.kernels import ops, ref
+from repro_torch.mapreduce import pack
 from tests.test_compress import CORPUS_DRAWS, make_corpus, query_batches
 
 # The tensors here are small, and a parallel test run shares the host's cores
@@ -190,6 +192,63 @@ def test_decode_segment_chunk_sweep(monkeypatch):
     padded = c.to_segment()
     np.testing.assert_array_equal(padded.keys.numpy(), seg.keys.numpy())
     np.testing.assert_array_equal(padded.counts.numpy(), seg.counts.numpy())
+
+
+@pytest.mark.parametrize("sigma", [1, 5, 15])
+@pytest.mark.parametrize("block_size", [1, 2, 3, 4, 8, 16, 17, 32, 33])
+def test_block_expand_out_equals_repro_decode_segment(block_size, sigma):
+    """Every block of a real compressed index through the plain
+    ``block_expand(out=)`` into the key columns of a row-strided matrix: the
+    lanes equal ``pack_terms`` of the decoded terms and ``repro``'s
+    ``decode_segment``; the length column and the capacity rows past the
+    real ones are left as they were."""
+    vocab = 300
+    toks = make_corpus(1500, vocab, "zipf", sigma)
+    stats = run_job(toks, NGramConfig(sigma=sigma, tau=1, vocab_size=vocab), device="cpu")
+    r = len(stats)
+    pad = -(-(r + 1) // (128 * block_size)) * 128 * block_size   # a multiple of block_size
+    c = compress_index(build_index(stats, vocab_size=vocab, pad_to=pad, device="cpu"),
+                       block_size=block_size, device="cpu")
+    jc = jcompress.compress_index(jindex.build_index(
+        JStats(stats.grams, stats.lengths, stats.counts), vocab_size=vocab, pad_to=pad),
+        block_size=block_size)
+    assert c.n_rows == r < c.n_blocks * block_size
+    keys = torch.full((r, 1 + c.n_lanes), -1, dtype=torch.int64)
+    ids = torch.arange(c.n_blocks, dtype=torch.int32)
+    args = (c.lcps, c.payload, c.block_base, c.sec_cache, ids)
+    kw = dict(term_bits=c.term_bits, lcp_width=c.lcp_width, block_size=block_size,
+              len_off=0)
+    assert ops.block_expand(*args, **kw, out=keys[:, 1:], vocab_size=vocab) \
+        .data_ptr() == keys[:, 1:].data_ptr()
+    assert bool((keys[:, 0] == -1).all())
+    packed = pack.pack_terms(ref.block_expand_ref(*args, **kw).reshape(-1, sigma),
+                             vocab_size=vocab)
+    np.testing.assert_array_equal(keys[:, 1:].numpy(), packed[:r].numpy())
+    want = jcompress.decode_segment(jc)
+    np.testing.assert_array_equal(keys[:, 1:].numpy(),
+                                  np.asarray(want.keys)[:, 1:].astype(np.int64))
+
+
+def test_decode_segment_default_chunk_matches_repro(monkeypatch):
+    """At the port's default chunk a table of more rows than ``repro``'s
+    4,096-row chunk decodes in one ``block_expand`` call, and equals
+    ``repro``'s ``decode_segment`` (which takes several)."""
+    vocab = 300
+    toks = make_corpus(6000, vocab, "zipf", 12)
+    stats = run_job(toks, NGramConfig(sigma=4, tau=1, vocab_size=vocab), device="cpu")
+    c = compress_index(build_index(stats, vocab_size=vocab, device="cpu"), device="cpu")
+    jc = jcompress.compress_index(jindex.build_index(
+        JStats(stats.grams, stats.lengths, stats.counts), vocab_size=vocab))
+    assert c.n_rows > jcompress._DECODE_CHUNK_ROWS
+    calls = []
+    expand = tcompress.kops.block_expand
+    monkeypatch.setattr(tcompress.kops, "block_expand",
+                        lambda *a, **k: calls.append(1) or expand(*a, **k))
+    got = decode_segment(c)
+    assert len(calls) == 1
+    want = jcompress.decode_segment(jc)
+    np.testing.assert_array_equal(got.keys.numpy(), np.asarray(want.keys).astype(np.int64))
+    np.testing.assert_array_equal(got.counts.numpy(), np.asarray(want.counts).astype(np.int64))
 
 
 def test_empty_tiny_and_full_width_counts():

@@ -418,7 +418,128 @@ def _bsearch_edges():
     return cases
 
 
-EDGE_CASES = {**_suffix_pack_edges(), **_bsearch_edges()}
+#: the block decoders' grid: every group width of the warp-group decode, full
+#: (1, 4, 8, 16 and 32 lanes) and part-used (2 and 3 rows in a group of 4, 17
+#: in a group of 32), and the generic walk (33)
+BLOCK_SIZES = (1, 2, 3, 4, 8, 16, 17, 32, 33)
+#: sigma 1, 5 and 15 (8-bit lcps, and more columns than a group of 4 or 8
+#: lanes); a few cases at sigma 40 take the instance that holds no row in
+#: registers
+BLOCK_SIGMAS = (1, 5, 15)
+
+
+def _block_streams(rng, sigma, block_size):
+    """Fuzzed front-coded streams (as ``_front_coded_case`` draws them) of a
+    few blocks, and 40 requested ids: arbitrary, repeated, and the last
+    block."""
+    term_bits = int(rng.choice([3, 7, 15, 16]))
+    lcp_width = 4 if sigma <= 14 else 8
+    nb = int(rng.integers(2, 12))
+    size = nb * block_size
+    streams = (rng.integers(0, 2**32, -(-size * lcp_width // 32)).astype(np.uint32),
+               rng.integers(0, 2**32, int(rng.integers(1, 200))).astype(np.uint32),
+               np.sort(rng.integers(0, 2**24, nb + 1)).astype(np.uint32))
+    sec = np.sort(rng.integers(0, size + 1, sigma + 1)).astype(np.int32)
+    blk = rng.integers(0, nb, 40).astype(np.int32)
+    blk[:3] = nb - 1
+    blk[3:8] = blk[8]
+    return streams, sec, blk, dict(term_bits=term_bits, lcp_width=lcp_width,
+                                   block_size=block_size)
+
+
+def _block_expand_edge(streams, sec, blk, kw, vocab):
+    """With ``vocab``, the rows packed into a row-strided view of a matrix
+    that held -1, one row short of B * block_size: the matrix is returned, so
+    the columns around the view and the rows past it must stay -1.  Without,
+    the int32 term rows."""
+    sigma = sec.shape[0] - 1
+
+    if vocab is None:
+        def port(dev):
+            return ops.block_expand(*_port_streams(dev, streams, sec, blk), **kw)
+
+        def want(jnp, jref):
+            args = [jnp.asarray(x) for x in (*streams, sec, blk)]
+            return np.asarray(_jit(jref.block_expand_ref, **kw)(*args))
+        return port, want
+
+    from repro_torch.mapreduce import pack
+    n_l = pack.n_lanes(sigma, vocab)
+    n = blk.shape[0] * kw["block_size"] - 1
+
+    def port(dev):
+        full = torch.full((n + 3, n_l + 2), -1, dtype=torch.int64, device=dev)
+        view = full[:n, 1:1 + n_l]
+        assert ops.block_expand(*_port_streams(dev, streams, sec, blk), **kw, out=view,
+                                vocab_size=vocab) is view
+        return full
+
+    def want(jnp, jref):
+        from repro.mapreduce import pack as jpack
+        args = [jnp.asarray(x) for x in (*streams, sec, blk)]
+        terms = _jit(jref.block_expand_ref, **kw)(*args).reshape(-1, sigma)
+        full = np.full((n + 3, n_l + 2), -1, np.int64)
+        full[:n, 1:1 + n_l] = np.asarray(jpack.pack_terms(terms, vocab_size=vocab))[:n]
+        return full
+
+    return port, want
+
+
+def _block_decode_edge(rng, streams, sec, blk, kw):
+    """Queries on each block: half of them a row of the block itself (its
+    terms and length key, so cnt_eq counts), half drawn at random."""
+    sigma = sec.shape[0] - 1
+    bs = kw["block_size"]
+    rows = ref.block_expand_ref(*_port_streams("cpu", streams, sec, blk),
+                                **kw).numpy()                   # [Q, bs, sigma]
+    pick = rng.integers(0, bs, blk.shape[0])
+    own = rows[np.arange(blk.shape[0]), pick]
+    own_len = (blk.astype(np.int64) * bs + pick)[:, None] >= sec[None, :]
+    qt = rng.integers(0, 1 << kw["term_bits"], (blk.shape[0], sigma)).astype(np.int32)
+    ql = rng.integers(0, sigma + 2, blk.shape[0]).astype(np.int32)
+    mine = rng.random(blk.shape[0]) < 0.5
+    qt[mine], ql[mine] = own[mine], own_len.sum(axis=1)[mine]
+
+    def port(dev):
+        return torch.stack(ops.block_decode(
+            *_port_streams(dev, streams, sec, blk, qt, ql), **kw))
+
+    def want(jnp, jref):
+        args = [jnp.asarray(x) for x in (*streams, sec, blk, qt, ql)]
+        return np.stack([np.asarray(x) for x in
+                         _jit(jref.block_decode_ref, **kw)(*args)])
+
+    return port, want
+
+
+def _block_edges():
+    rng = np.random.default_rng(15)
+    cases = {}
+    for bs in BLOCK_SIZES:
+        for sigma in BLOCK_SIGMAS:
+            for off in (0, 1):
+                streams, sec, blk, kw = _block_streams(rng, sigma, bs)
+                kw["len_off"] = off
+                vocab = (1 << kw["term_bits"]) - 1          # bits_for_vocab == term_bits
+                tag = f"bs{bs}-sigma{sigma}-off{off}"
+                cases[f"block_expand-out-{tag}"] = _block_expand_edge(
+                    streams, sec, blk, kw, vocab)
+                if sigma == 5:
+                    cases[f"block_expand-terms-{tag}"] = _block_expand_edge(
+                        streams, sec, blk, kw, None)
+                cases[f"block_decode-{tag}"] = _block_decode_edge(
+                    rng, streams, sec, blk, kw)
+    for bs in (3, 16):                  # sigma past 32: terms fetched a column at a time
+        streams, sec, blk, kw = _block_streams(rng, 40, bs)
+        kw["len_off"] = 1
+        tag = f"bs{bs}-sigma40-off1"
+        cases[f"block_expand-out-{tag}"] = _block_expand_edge(
+            streams, sec, blk, kw, (1 << kw["term_bits"]) - 1)
+        cases[f"block_decode-{tag}"] = _block_decode_edge(rng, streams, sec, blk, kw)
+    return cases
+
+
+EDGE_CASES = {**_suffix_pack_edges(), **_bsearch_edges(), **_block_edges()}
 
 
 def test_edge_case_registry_covers_every_lane_count_and_tile_edge():
@@ -428,6 +549,14 @@ def test_edge_case_registry_covers_every_lane_count_and_tile_edge():
             assert f"bsearch-nl{n_l}-{layout}-" in names
     for n in (1, 1023, 1024, 1025):
         assert f"suffix_pack-n{n}-sigma5" in names
+
+
+def test_edge_case_registry_covers_the_block_grid():
+    for bs in BLOCK_SIZES:
+        for sigma in BLOCK_SIGMAS:
+            for off in (0, 1):
+                for kind in ("block_expand-out", "block_decode"):
+                    assert f"{kind}-bs{bs}-sigma{sigma}-off{off}" in EDGE_CASES
 
 
 @pytest.mark.parametrize("case", sorted(EDGE_CASES))
@@ -467,6 +596,55 @@ def test_suffix_pack_rejects_a_misshapen_out():
                 torch.empty((10, 6), dtype=torch.int64)[:, ::2]):
         with pytest.raises((ValueError, TypeError)):
             ops.suffix_pack(toks, sigma=3, vocab_size=20_000, out=bad)
+
+
+def _tiny_streams(dev):
+    """Two blocks of 4 rows, sigma 3, as int32 word tensors on ``dev``."""
+    rng = np.random.default_rng(16)
+    streams, sec, _, kw = _block_streams(rng, 3, 4)
+    nb = streams[2].shape[0] - 1
+    return _port_streams(dev, streams, sec), dict(kw, len_off=0), nb
+
+
+def test_block_expand_rejects_a_misshapen_or_misplaced_out():
+    """out must be an int64 [n <= B * block_size, n_lanes] view with a
+    contiguous last dimension, on the ids' device, and comes with vocab_size."""
+    streams, kw, _ = _tiny_streams("cpu")
+    blk = torch.zeros(2, dtype=torch.int32)                 # 8 rows; 3 terms of 7 bits
+    vocab = 100                                             # 4 terms a lane: 1 lane
+    good = torch.zeros((8, 1), dtype=torch.int64)
+    assert ops.block_expand(*streams, blk, **kw, out=good, vocab_size=vocab) is good
+    for bad, v in ((torch.zeros((9, 1), dtype=torch.int64), vocab),    # too many rows
+                   (torch.zeros((8, 2), dtype=torch.int64), vocab),    # lanes
+                   (torch.zeros((8, 1), dtype=torch.int32), vocab),    # dtype
+                   (torch.zeros((8,), dtype=torch.int64), vocab),      # 1-d
+                   (torch.zeros((1, 1), dtype=torch.int64).expand(8, 1), vocab),  # rows overlap
+                   (torch.zeros((8, 6), dtype=torch.int64)[:, ::2], 1 << 30),     # strided lanes
+                   (torch.zeros((8, 1), dtype=torch.int64, device="meta"), vocab)):
+        with pytest.raises((ValueError, TypeError)):
+            ops.block_expand(*streams, blk, **kw, out=bad, vocab_size=v)
+    with pytest.raises(ValueError):
+        ops.block_expand(*streams, blk, **kw, out=good)       # no vocab_size
+    with pytest.raises(ValueError):
+        ops.block_expand(*streams, blk, **kw, vocab_size=vocab)  # no out
+
+
+def _empty_ids(dev):
+    """Both block kernels on an empty id list: empty outputs, out untouched."""
+    streams, kw, _ = _tiny_streams(dev)
+    blk = torch.zeros((0,), dtype=torch.int32, device=dev)
+    terms = ops.block_expand(*streams, blk, **kw)
+    assert terms.shape == (0, 4, 3) and terms.dtype == torch.int32
+    out = torch.full((0, 1), -1, dtype=torch.int64, device=dev)
+    assert ops.block_expand(*streams, blk, **kw, out=out, vocab_size=100) is out
+    lt, eq = ops.block_decode(*streams, blk, torch.zeros((0, 3), dtype=torch.int32,
+                                                         device=dev),
+                              torch.zeros((0,), dtype=torch.int32, device=dev), **kw)
+    assert lt.shape == eq.shape == (0,)
+
+
+def test_block_kernels_take_an_empty_id_list():
+    _empty_ids("cpu")
 
 
 @pytest.mark.parametrize("steps", [1, 2, 4, 7])
@@ -523,3 +701,20 @@ def test_cuda_edge_case_matches_plain(cuda_device, case):
     torch.cuda.synchronize()
     assert ops.launches[name] == before + 1
     np.testing.assert_array_equal(got.cpu().numpy(), port("cpu").numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_block_kernels_take_an_empty_id_list(cuda_device):
+    before = dict(ops.launches)
+    _empty_ids(cuda_device)
+    torch.cuda.synchronize()
+    assert dict(ops.launches) == before                  # nothing to launch
+
+
+@pytest.mark.cuda
+def test_cuda_block_expand_rejects_an_out_off_the_card(cuda_device):
+    streams, kw, _ = _tiny_streams(cuda_device)
+    blk = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        ops.block_expand(*streams, blk, **kw, out=torch.zeros((8, 1), dtype=torch.int64),
+                         vocab_size=100)
