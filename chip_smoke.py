@@ -37,6 +37,9 @@ line):
                  round trips of its longest query times one dependent L2
                  load, plus an empty kernel, both measured here by
                  ``scripts/latency_probe.cu`` (built beside the kernels).
+                 ``hash_combine`` runs in place, as the combine stage calls
+                 it; the stage itself (every kernel one
+                 ``stages.combine_hash`` call launches) gets its own line.
 
 The last lines are one JSON object describing each kernel, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.  The
@@ -148,24 +151,34 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_ms(fn, kernel: str, reps: int = 10) -> float:
-    """Mean device milliseconds of one launch of the ``__global__`` function
-    ``kernel`` as ``fn`` makes it: torch.profiler's CUDA activity over
-    ``reps`` calls (after a warm-up), so the wrapper's host time is left out.
-    The profiler can miss the first launches of its window: the mean is over
-    the launches it saw, and None if it saw fewer than half, three times."""
+def device_launches(fn, reps: int) -> dict[str, list[float]]:
+    """Device microseconds of every kernel launch that ``reps`` calls of
+    ``fn`` make (after a warm-up), by kernel name: torch.profiler's CUDA
+    activity, so the wrapper's host time is left out."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, list[float]] = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            out.setdefault(ev.name, []).append(ev.time_range.elapsed_us())
+    return out
+
+
+def kernel_ms(fn, kernel: str, reps: int = 10) -> float:
+    """Mean device milliseconds of one launch of the ``__global__`` function
+    ``kernel`` as ``fn`` makes it, by :func:`device_launches` over ``reps``
+    calls.  The profiler can miss the first launches of its window: the mean
+    is over the launches it saw, and None if it saw fewer than half, three
+    times."""
     name = re.compile(rf"\b{kernel}\b")
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        hits = [ev.time_range.elapsed_us() for ev in prof.events()
-                if ev.device_type == torch.autograd.DeviceType.CUDA
-                and name.search(ev.name)]
+        hits = [us for ev_name, times in device_launches(fn, reps).items()
+                if name.search(ev_name) for us in times]
         if 2 * len(hits) >= reps:
             return sum(hits) / 1e3 / len(hits)
     print(f"kernel_ms: the profiler saw {len(hits)} launches of {kernel} in "
@@ -533,16 +546,22 @@ def profile_ingest(svc, tokens) -> dict:
         rep = svc.ingest(tokens)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name: dict[str, float] = {}
+    by_name: dict[str, list] = {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
-    busy_ms = sum(by_name.values())
+            acc = by_name.setdefault(ev.name, [0.0, 0])
+            acc[0] += ev.time_range.elapsed_us() / 1e3
+            acc[1] += 1
+    busy_ms = sum(ms for ms, _ in by_name.values())
     print(f"stream: profiled ingest {wall_ms:.1f} ms wall (job {rep['job_s'] * 1e3:.1f} ms, "
           f"ingest {rep['ingest_s'] * 1e3:.1f} ms, merges {rep['merges']}), device busy "
-          f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"stream:   device {ms:9.3f} ms  {name[:90]}")
+          f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}; "
+          f"{sum(k for _, k in by_name.values())} device launches")
+    top = sorted(by_name, key=lambda name: -by_name[name][0])[:10]
+    top += [name for name in by_name if "hash_combine" in name and name not in top]
+    for name in top:                    # the ten longest, and the combine stage's
+        ms, k = by_name[name]
+        print(f"stream:   device {ms:9.3f} ms x{k:<3d} {name[:90]}")
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:8]
     for ev in host:
         print(f"stream:   host {ev.self_cpu_time_total / 1e3:9.3f} ms self  "
@@ -935,11 +954,34 @@ def phase_kernels(dev, main: dict, stream: dict, probe: ctypes.CDLL) -> list[dic
           "and records; bsearch lane counts 1-4 and 6 in four layouts, bracket "
           "widths 0, 1, 2**d - 1, 2**d and R, truncated steps, int32 and int64 brackets; "
           "strided records, M=0, N=0, all-equal keys across runs, sentinel "
-          "tails, sigma=15, block id nb-1; block_expand and block_decode at block "
+          "tails, sigma=15, block id nb-1; hash_combine K 1-5 x blocks 32-1024 in "
+          "place, aligned and not, and on separate tensors, all keys equal or "
+          "distinct; merge_path K 1-6, M=1, N=1, ties in runs of 256, 1024 and "
+          "5000 rows across tiles; block_expand and block_decode at block "
           f"sizes {', '.join(map(str, BLOCK_SIZES))} x sigma 1, 5, 15 x both views, "
           "out= in place, "
           "empty id lists)")
     return rows
+
+
+def combine_stage(records: torch.Tensor, n_lanes: int, reps: int = 10) -> int:
+    """Print the device time of one ``stages.combine_hash(records, n_lanes)``
+    call, every kernel it launches summed, and return its launches.  Each
+    kernel's mean time counts once for each launch a call makes, so a launch
+    the profiler missed at its window's start moves nothing.  The call
+    rewrites the weights in place; the keys, and so the work, stay."""
+    times = device_launches(lambda: stages.combine_hash(records, n_lanes), reps)
+    per_call = {name: max(1, round(len(t) / reps)) for name, t in times.items()}
+    ms = sum(float(np.mean(t)) * per_call[name] for name, t in times.items()) / 1e3
+    n, cols = records.shape
+    moved = 2 * n * cols * 8             # every row read, its sectors written back
+    launches = sum(per_call.values())
+    names = "; ".join(f"{name[:60]} x{k}" for name, k in per_call.items())
+    print(f"kernel hash_combine stage: stages.combine_hash on records [{n}, {cols}]: "
+          f"{launches} kernel launches a call ({names}), {ms:.4f} ms on the device; "
+          f"in place every row read and written back whole, {moved:,} bytes: "
+          f"{bound(moved, 0)[0]:.4f} ms at 3.35 TB/s")
+    return launches
 
 
 def measure_expand(dev, c, measure, label: str) -> dict:
@@ -980,18 +1022,28 @@ def stream_kernel_rows(dev, stream: dict, measure) -> list[dict]:
     n_l = pack.n_lanes(SIGMA, vocab)
     rows = []
     # hash_combine: the base batch's map records (the largest combine call),
-    # read in place through the strided views that stages.combine_hash passes
+    # combined in place as stages.combine_hash calls it (out= the weight
+    # column); repeated calls recombine the same keys, so the work repeats
     base = torch.as_tensor(stream["base_tokens"], device=dev)
     records, _ = suffix_sigma.make_records(base, sigma=SIGMA, vocab_size=vocab)
-    keys, weights = records[:, :n_l], records[:, n_l]
-    n = keys.shape[0]
+    plain_rec = records.clone()
+
+    def in_place(fn, rec):
+        w = rec[:, n_l]
+        fn(rec[:, :n_l], w, out=w)
+        return rec
+    n = records.shape[0]
     rows.append(measure(
-        "hash_combine", "stream", lambda: ops.hash_combine(keys, weights),
-        lambda: ref.hash_combine_ref(keys, weights),
+        "hash_combine", "stream", lambda: in_place(ops.hash_combine, records),
+        lambda: in_place(ref.hash_combine_ref, plain_rec),
         n * (4 * n_l + 8), n * (8 * n_l + 16), n * (12 * n_l + 12),
-        f"records [{n}, {n_l + 1}] (keys and weight read in place), blocks of "
-        "256 rows, 512 slots"))
-    del records, keys, weights, base
+        f"records [{n}, {n_l + 1}] combined in place (out= the weight column), "
+        "blocks of 256 rows, 512 slots"))
+    del plain_rec
+    if dev.type == "cuda":
+        check(combine_stage(records, n_l) == 1,
+              "one kernel launch per stages.combine_hash call")
+    del records, base
     # merge_path: the last merge of compact_all (the largest on the path), on
     # the very inputs it merged: the elder flat rung and the decoded
     # compressed one, both capacity-padded with sentinel tails
@@ -1095,6 +1147,7 @@ def stream_edge_cases(dev):
         args = (t(a), t(b), t(rng.integers(0, 2**32, m)), t(rng.integers(0, 2**32, n)))
         cases.append(("merge_path", lambda x=args: ops.merge_path(*x),
                       lambda x=args: ref.merge_path_ref(*x)))
+    cases += combine_edge_cases(dev) + merge_edge_cases(dev)
     # real compressed indexes: sigma 5 and 15 (8-bit lcps), every block (the
     # sentinel tail and block nb-1 included), queries hitting block nb-1
     for sigma, vocab, n_tok in ((5, 300, 3000), (15, 40, 2000), (3, 7, 50)):
@@ -1123,6 +1176,91 @@ def stream_edge_cases(dev):
                           lambda x=sa, y=qa, w=kw: ops.block_decode(*x, *y, **w),
                           lambda x=sa, y=qa, w=kw: ref.block_decode_ref(*x, *y, **w)))
     return cases + block_edge_cases(dev)
+
+
+def combine_edge_cases(dev):
+    """``hash_combine``'s records instance (K = 1-4 key lanes of one
+    contiguous [N, K + 1] matrix, combined in place, tiles of 1,024 rows) and
+    its generic instance (K = 5, or the same matrix at an 8-byte offset, or
+    separate tensors): N off the tile and the block, blocks of 32-1024 rows,
+    all keys equal or all distinct, weights that wrap.  The matrix cases
+    compare the whole matrix, so the keys must come back untouched."""
+    rng = np.random.default_rng(8)
+    cases = []
+
+    def keys_of(kind, n, k):
+        if kind == "equal":
+            return np.full((n, k), 2**31 + 5, np.int64)
+        if kind == "distinct":                   # row i spells i
+            return (np.arange(n)[:, None] + 7 * np.arange(k)[None, :]) + 2**31
+        return rng.integers(0, 3, (n, k)) + 2**31
+
+    def in_place(fn, rec, k, block, off):
+        flat = torch.zeros(rec.numel() + 2, dtype=torch.int64, device=dev)
+        r = flat[off:off + rec.numel()].view(rec.shape)
+        r.copy_(rec)
+        w = r[:, k]
+        check(fn(r[:, :k], w, block=block, out=w).data_ptr() == w.data_ptr(),
+              "hash_combine returns out")
+        return r
+
+    sizes = (1, 1023, 1025, 3001, 70_001)
+    for i, (k, block) in enumerate((k, b) for k in (1, 2, 3, 4, 5)
+                                   for b in (32, 64, 256, 1024)):
+        n, kind = sizes[i % len(sizes)], ("dup", "equal", "distinct")[i % 3]
+        w = rng.choice([0, 1, 2**31 + 3, 2**32 - 1], n)
+        rec = torch.as_tensor(np.concatenate([keys_of(kind, n, k), w[:, None]], axis=1),
+                              device=dev)
+        for off in (0, 1):                          # 16-byte aligned, and not
+            cases.append(("hash_combine",
+                          lambda r=rec, k=k, b=block, o=off: in_place(ops.hash_combine, r, k, b, o),
+                          lambda r=rec, k=k, b=block, o=off: in_place(ref.hash_combine_ref,
+                                                                       r, k, b, o)))
+        kt, wt = rec[:, :k].contiguous(), rec[:, k].contiguous()   # separate tensors
+        cases.append(("hash_combine",
+                      lambda a=kt, c=wt, b=block: ops.hash_combine(a, c, block=b),
+                      lambda a=kt, c=wt, b=block: ref.hash_combine_ref(a, c, block=b)))
+    return cases
+
+
+def tied_run(n: int, run: int, k: int, shift: int = 0) -> np.ndarray:
+    """n sorted rows of k lanes (>= 2**31) whose keys change every ``run``
+    rows from row ``shift``: long runs of equal keys, equal across runs
+    built alike."""
+    ids = (np.arange(n) + shift) // run
+    lanes = [ids // 3 ** (k - 1 - c) % (3 if c else n + 1) for c in range(k)]
+    return np.stack(lanes, axis=1).astype(np.int64) + 2**31
+
+
+def merge_edge_cases(dev):
+    """``merge_path``'s tiles (512 output rows, K = 1-5) and its generic
+    instance (K = 6): runs inside one tile and across many, M = 1 and N = 1,
+    sentinel tails, lanes >= 2**31, and ties equal across A and B in runs of
+    256, 1,024 and 5,000 rows that straddle the tiles' edges."""
+    rng = np.random.default_rng(9)
+    t = lambda a: torch.as_tensor(np.asarray(a), device=dev)  # noqa: E731
+    cases = []
+
+    def add(a, b):
+        args = (t(a), t(b), t(rng.integers(0, 2**32, len(a))),
+                t(rng.integers(0, 2**32, len(b))))
+        cases.append(("merge_path", lambda x=args: ops.merge_path(*x),
+                      lambda x=args: ref.merge_path_ref(*x)))
+
+    for m, n, k, vmax in ((1, 1, 4, 3), (1, 1, 6, 3), (1, 900, 4, 5), (900, 1, 4, 5),
+                          (3, 5, 1, 2), (1000, 24, 5, 4), (300_000, 70_000, 4, 40),
+                          (70_000, 300_000, 6, 40), (4096, 4096, 3, 2**32)):
+        a = rng.integers(0, vmax, (m, k)).astype(np.int64) + (2**31 if vmax < 2**31 else 0)
+        b = rng.integers(0, vmax, (n, k)).astype(np.int64) + (2**31 if vmax < 2**31 else 0)
+        a, b = a[np.lexsort(a.T[::-1])], b[np.lexsort(b.T[::-1])]
+        if m > 3 and n > 3:                       # sentinel tails on both runs
+            a[-2:], b[-3:] = 2**32 - 1, 2**32 - 1
+        add(a, b)
+    for k in (1, 2, 3, 4, 5, 6):
+        for run, m, n, shift in ((256, 4096, 3000, 0), (1024, 3500, 4100, 100),
+                                 (5000, 20_000, 12_000, 2500)):
+            add(tied_run(m, run, k), tied_run(n, run, k, shift))
+    return cases
 
 
 #: block sizes of the block kernels' edge grid: every group width of the

@@ -24,5 +24,5 @@ for tree in parent change change parent; do
     (cd "$dir" && python3 chip_smoke.py) > "$log" 2>&1 || {
         echo "run $n ($tree) failed:"; tail -n 30 "$log"; exit 1; }
     echo "== run $n: $tree"
-    grep -E '^(card|main|stream: (base|delta|spans|compact_all|block_expand))|^kernel |^kernels:' "$log" || true
+    grep -E '^(card|main|stream: (base|delta|spans|compact_all|block_expand|profiled))|^kernel |^kernels:' "$log" || true
 done

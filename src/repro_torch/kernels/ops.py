@@ -147,37 +147,66 @@ def bsearch(lanes: torch.Tensor, queries: torch.Tensor, lo: torch.Tensor,
     return pos
 
 
+def _records_layout(keys: torch.Tensor, weights: torch.Tensor) -> bool:
+    """Whether ``keys`` [N, K] and ``weights`` [N] are the columns of one
+    contiguous [N, K + 1] int64 matrix, keys first, as
+    ``suffix_sigma.make_records`` lays the job's records out, with K <= 4 and
+    a 16-byte aligned base: the layout of the tiled ``hash_combine``."""
+    k = keys.shape[1]
+    return (1 <= k <= 4 and keys.stride() == (k + 1, 1)
+            and weights.stride(0) == k + 1
+            and weights.data_ptr() == keys.data_ptr() + 8 * k
+            and keys.data_ptr() % 16 == 0)
+
+
 def hash_combine(keys: torch.Tensor, weights: torch.Tensor, *,
-                 block: int = 256) -> torch.Tensor:
+                 block: int = 256, out: torch.Tensor | None = None) -> torch.Tensor:
     """Redistributed weights [N] int64 of the block-local hash-slot combiner
     (``block`` rows per block, ``2 * block`` slots).
 
     ``keys`` may be a row-strided view (its last dimension contiguous) and
-    ``weights`` a strided vector: the kernel reads the job's records in place.
+    ``weights`` a strided vector.  With ``out``, an int64 [N] vector on the
+    keys' device, the weights are written there and ``out`` is returned;
+    ``out`` may be ``weights`` itself (the records' weight column: the
+    combiner then rewrites the records in place), and shares no other memory
+    with the inputs.  The records layout (``_records_layout``) takes the tiled
+    kernel, any other layout the generic one.
     """
+    n = keys.shape[0]
+    if out is not None:
+        _check(out, "hash_combine out", torch.int64, 1)
+        if out.shape[0] != n or out.device != keys.device:
+            raise ValueError(f"hash_combine: out must be a [{n}] vector on the keys' device")
+        same = out.untyped_storage().data_ptr()
+        if (same in (keys.untyped_storage().data_ptr(), weights.untyped_storage().data_ptr())
+                and (out.data_ptr() != weights.data_ptr()
+                     or (n > 1 and out.stride(0) != weights.stride(0)))):
+            raise ValueError("hash_combine: out may alias the weights, and nothing else "
+                             "of the inputs")
     if not keys.is_cuda:
-        return ref.hash_combine_ref(keys, weights, block=block)
+        return ref.hash_combine_ref(keys, weights, block=block, out=out)
     _check(keys, "hash_combine keys", torch.int64, 2)
     _check(weights, "hash_combine weights", torch.int64, 1)
-    if weights.shape[0] != keys.shape[0] or not weights.is_cuda:
+    if weights.shape[0] != n or not weights.is_cuda:
         raise ValueError("hash_combine: weights must be a CUDA tensor, one per key row")
     if block not in (32, 64, 128, 256, 512, 1024):
         raise ValueError(f"hash_combine: block {block} is not a power of two in [32, 1024]")
     if keys.stride(1) != 1:
         keys = keys.contiguous()
-    n = keys.shape[0]
-    out = torch.empty((n,), dtype=torch.int64, device=keys.device)
+    if out is None:
+        out = torch.empty((n,), dtype=torch.int64, device=keys.device)
     if n:
         _launch("hash_combine", keys.device, keys.data_ptr(), keys.stride(0),
-                weights.data_ptr(), weights.stride(0), n, keys.shape[1],
-                2 * block, block, out.data_ptr())
+                weights.data_ptr(), weights.stride(0), n, keys.shape[1], block,
+                out.data_ptr(), out.stride(0), int(_records_layout(keys, weights)))
     return out
 
 
 def merge_path(a_keys: torch.Tensor, b_keys: torch.Tensor, a_vals: torch.Tensor,
                b_vals: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Stable merge of two sorted key matrices [M, K], [N, K] int64 (uint32
-    values) -> (keys [M+N, K], vals [M+N]); A rows first on ties."""
+    values) -> (keys [M+N, K], vals [M+N]); A rows first on ties.  K <= 5
+    takes the tiled kernel, wider keys the generic one."""
     m, n = a_keys.shape[0], b_keys.shape[0]
     if m == 0:
         return b_keys, b_vals

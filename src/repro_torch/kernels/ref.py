@@ -102,7 +102,8 @@ def bsearch_ref(lanes: torch.Tensor, queries: torch.Tensor, lo: torch.Tensor,
 
 
 def hash_combine_ref(keys: torch.Tensor, weights: torch.Tensor, *,
-                     block: int = 256) -> torch.Tensor:
+                     block: int = 256, out: torch.Tensor | None = None
+                     ) -> torch.Tensor:
     """Redistributed weights [N] int64 (uint32 values) of the block-local
     hash-slot combiner.
 
@@ -110,7 +111,8 @@ def hash_combine_ref(keys: torch.Tensor, weights: torch.Tensor, *,
     each row hashes its key lanes into one of ``2 * block`` slots; the
     smallest row index of a slot wins it (a scatter-min); rows whose key
     equals their winner's give it their weight, summed mod 2**32; slot losers
-    keep theirs.  Row order never changes.
+    keep theirs.  Row order never changes.  With ``out`` the result is
+    computed whole, then copied there (``out`` may be ``weights`` itself).
     """
     n, n_keys = keys.shape
     nb = max(1, -(-n // block))
@@ -131,8 +133,11 @@ def hash_combine_ref(keys: torch.Tensor, weights: torch.Tensor, *,
     match = (k[rep_row] == k).all(dim=1)
     contrib = torch.where(match, w, 0)
     totals = torch.zeros_like(w).index_add_(0, rep_row, contrib) & U32
-    out = torch.where(rep == ids, totals, torch.where(match, 0, w))
-    return out[:n]
+    res = torch.where(rep == ids, totals, torch.where(match, 0, w))[:n]
+    if out is None:
+        return res
+    out.copy_(res)
+    return out
 
 
 def merge_path_ref(a_keys: torch.Tensor, b_keys: torch.Tensor,

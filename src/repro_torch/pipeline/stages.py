@@ -48,10 +48,11 @@ def combine_hash(records: torch.Tensor, n_lanes: int, *,
     the ``shuffle_*`` counters count what survives, so the rule must match),
     rows whose key equals their slot winner's key donate their weight to the
     winner; slot losers keep theirs.  Row order never changes.  The weight
-    lane is rewritten in place: the records are the emit's own buffer.
+    lane is rewritten in place by the one kernel launch (``out=`` the weight
+    column): the records are the emit's own buffer.
     """
-    records[:, n_lanes] = kops.hash_combine(records[:, :n_lanes],
-                                            records[:, n_lanes], block=block)
+    weights = records[:, n_lanes]
+    kops.hash_combine(records[:, :n_lanes], weights, block=block, out=weights)
     return records
 
 

@@ -107,6 +107,37 @@ def test_hash_combiner_matches_repro(seed, pack):
     assert_same_stats(got, jcore.run_job(toks, JConfig(**kw, use_kernels=bool(seed % 2))))
 
 
+@pytest.mark.parametrize("seed", range(3))
+def test_hash_combine_stage_rewrites_only_the_weights_in_place(seed):
+    """``stages.combine_hash`` writes the combined weights into the records'
+    own weight column (``out=``): the same matrix comes back, keys and row
+    order untouched, the weights equal ``repro``'s combiner on ``repro``'s
+    records, and the hash-route job still equals ``repro.core.run_job``."""
+    import jax.numpy as jnp
+
+    from repro.core import suffix_sigma as jsuffix_sigma
+    from repro.kernels import ref as jref
+    from repro_torch.core import suffix_sigma
+    from repro_torch.mapreduce import pack
+    from repro_torch.pipeline import stages
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, 6, int(rng.integers(600, 3000))).astype(np.int32)
+    sigma, vocab = 4, 5
+    n_l = pack.n_lanes(sigma, vocab)
+    records, _ = suffix_sigma.make_records(torch.as_tensor(toks), sigma=sigma,
+                                           vocab_size=vocab)
+    before = records.clone()
+    assert stages.combine_hash(records, n_l) is records
+    np.testing.assert_array_equal(records[:, :n_l].numpy(), before[:, :n_l].numpy())
+    jrec, _ = jsuffix_sigma.make_records(jnp.asarray(toks), sigma=sigma, vocab_size=vocab)
+    want = jref.hash_combine_ref(jrec[:, :n_l], jrec[:, n_l], block=256)
+    np.testing.assert_array_equal(records[:, n_l].numpy(), np.asarray(want).astype(np.int64))
+    assert int(records[:, n_l].sum()) == int((toks != 0).sum())
+    kw = dict(sigma=sigma, tau=2, vocab_size=vocab, combine_route="hash")
+    assert_same_stats(run_job(toks, NGramConfig(**kw), device="cpu"),
+                      jcore.run_job(toks, JConfig(**kw)))
+
+
 def test_hash_combiner_zipf_corpus_matches_repro():
     """Blocks of 256 rows with many equal suffixes (a Zipf corpus of 6000
     terms): the combiner removes rows, and the counters still agree."""

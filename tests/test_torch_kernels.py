@@ -539,7 +539,133 @@ def _block_edges():
     return cases
 
 
-EDGE_CASES = {**_suffix_pack_edges(), **_bsearch_edges(), **_block_edges()}
+# --------------------------------------------------------------------------
+# Edge cases of the redesigned hash_combine and merge_path kernels.
+# hash_combine: the records instance (keys and weight the columns of one
+# contiguous [N, K + 1] matrix, K = 1-4, combined in place through ``out=``
+# the weight column, tiles of 1,024 rows) and the generic instance (K = 5, an
+# 8-byte offset base, separate tensors); N off the tile and the block, every
+# block size, all keys equal or all distinct, weights that wrap.  merge_path:
+# runs inside one tile of 512 output rows and across many, ties that
+# straddle tile edges, K = 1-5 (tiled) and 6 (generic), lanes >= 2**31.
+# --------------------------------------------------------------------------
+
+#: where the combined keys and weights lie: "records" one [N, K + 1] matrix
+#: combined in place; "offset" the same at an 8-byte offset (unaligned for
+#: 16-byte loads); "separate" two tensors and a fresh output
+COMBINE_LAYOUTS = ("records", "offset", "separate")
+
+
+def _hash_combine_edge(keys, weights, block, layout):
+    """``keys`` [N, K] and ``weights`` [N] uint32 values.  In the matrix
+    layouts the whole matrix is returned, so the keys and row order must come
+    back untouched beside the combined weight column."""
+    k = keys.shape[1]
+    rec = np.concatenate([keys, weights[:, None]], axis=1).astype(np.int64)
+
+    def port(dev):
+        if layout == "separate":
+            return ops.hash_combine(torch.as_tensor(keys.astype(np.int64), device=dev),
+                                    torch.as_tensor(weights.astype(np.int64), device=dev),
+                                    block=block)
+        off = int(layout == "offset")
+        flat = torch.zeros(rec.size + 2, dtype=torch.int64, device=dev)
+        r = flat[off:off + rec.size].view(rec.shape)
+        r.copy_(torch.as_tensor(rec))
+        w = r[:, k]
+        assert ops.hash_combine(r[:, :k], w, block=block, out=w) is w
+        return r
+
+    def want(jnp, jref):
+        got = np.asarray(jref.hash_combine_ref(jnp.asarray(keys), jnp.asarray(weights),
+                                               block=block)).astype(np.int64)
+        return got if layout == "separate" else np.concatenate([rec[:, :k], got[:, None]],
+                                                               axis=1)
+
+    return port, want
+
+
+def _hash_combine_edges():
+    rng = np.random.default_rng(17)
+    cases = {}
+
+    def keys_of(kind, n, k):
+        if kind == "equal":
+            return np.full((n, k), 2**31 + 5, np.uint32)
+        if kind == "distinct":          # row i's lanes spell i: no two rows equal
+            return ((np.arange(n)[:, None] + 7 * np.arange(k)[None, :]) % 2**32
+                    ).astype(np.uint32) | np.uint32(2**31) * (np.arange(k) == 0)
+        return rng.integers(0, 3, (n, k)).astype(np.uint32) + np.uint32(2**31)
+
+    grid = [(k, block) for k in (1, 2, 3, 4, 5) for block in (32, 64, 256, 1024)]
+    sizes = (1, 255, 1023, 1025, 3001)
+    for i, (k, block) in enumerate(grid):
+        n = sizes[i % len(sizes)] if block < 1024 or i % 2 else 2049
+        kind = ("dup", "equal", "distinct")[i % 3]
+        weights = rng.choice([0, 1, 3, 2**31 + 7, 2**32 - 1], n).astype(np.uint32)
+        cases[f"hash_combine-records-k{k}-block{block}-n{n}-{kind}"] = _hash_combine_edge(
+            keys_of(kind, n, k), weights, block, "records")
+    for k, block, n in ((3, 256, 3001), (2, 1024, 1025), (5, 64, 999)):
+        weights = rng.choice([0, 1, 2**32 - 1], n).astype(np.uint32)
+        for layout in COMBINE_LAYOUTS[1:]:
+            cases[f"hash_combine-{layout}-k{k}-block{block}-n{n}-dup"] = _hash_combine_edge(
+                keys_of("dup", n, k), weights, block, layout)
+    return cases
+
+
+def _merge_path_edge(a, b, av, bv):
+    """Sorted uint32 runs and their values; the merged keys and values come
+    back as one [M + N, K + 1] matrix."""
+    def port(dev):
+        t = [torch.as_tensor(x.astype(np.int64), device=dev) for x in (a, b, av, bv)]
+        keys, vals = ops.merge_path(*t)
+        return torch.cat([keys, vals[:, None]], dim=1)
+
+    def want(jnp, jref):
+        keys, vals = jref.merge_path_ref(*[jnp.asarray(x) for x in (a, b, av, bv)])
+        return np.concatenate([np.asarray(keys).astype(np.int64),
+                               np.asarray(vals).astype(np.int64)[:, None]], axis=1)
+
+    return port, want
+
+
+def _tied_run(n, run, k, shift=0):
+    """n sorted rows whose keys change every ``run`` rows (from row
+    ``shift``): long runs of equal keys, equal across runs built alike."""
+    ids = (np.arange(n) + shift) // run
+    # ids in base 3, most significant lane first (lane 0 unbounded)
+    lanes = [ids // 3 ** (k - 1 - c) % (3 if c else n + 1) for c in range(k)]
+    return (np.uint32(2**31) + np.stack(lanes, axis=1)).astype(np.uint32)
+
+
+def _merge_path_edges():
+    rng = np.random.default_rng(18)
+    cases = {}
+
+    def vals(n):
+        return rng.integers(0, 2**32, n).astype(np.uint32)
+
+    for m, n, k, vmax in ((1, 1, 4, 3), (1, 900, 4, 5), (900, 1, 3, 5), (3, 5, 1, 2),
+                          (300, 700, 2, 4), (3000, 2500, 4, 2**32), (5000, 1, 5, 3),
+                          (1, 3000, 1, 9), (2000, 2100, 6, 3), (700, 4, 6, 2)):
+        a = lex_sorted(rng, m, k, vmax=vmax).astype(np.uint32)
+        b = lex_sorted(rng, n, k, vmax=vmax).astype(np.uint32)
+        if vmax < 2**32:
+            a, b = a + np.uint32(2**31), b + np.uint32(2**31)
+        if m > 3 and n > 3:                       # sentinel tails on both runs
+            a[-2:], b[-3:] = 2**32 - 1, 2**32 - 1
+        cases[f"merge_path-k{k}-m{m}-n{n}"] = _merge_path_edge(a, b, vals(m), vals(n))
+    # ties across A and B at every multiple of 256 and 1,024 rows, straddling
+    # the tiles of 512 output rows, at every lane count
+    for k in (1, 2, 3, 4, 5, 6):
+        for run, (m, n), shift in ((256, (4096, 3000), 0), (1024, (3500, 4100), 100)):
+            a, b = _tied_run(m, run, k), _tied_run(n, run, k, shift)
+            cases[f"merge_path-ties{run}-k{k}-m{m}-n{n}"] = _merge_path_edge(a, b, vals(m), vals(n))
+    return cases
+
+
+EDGE_CASES = {**_suffix_pack_edges(), **_bsearch_edges(), **_block_edges(),
+              **_hash_combine_edges(), **_merge_path_edges()}
 
 
 def test_edge_case_registry_covers_every_lane_count_and_tile_edge():
@@ -557,6 +683,48 @@ def test_edge_case_registry_covers_the_block_grid():
             for off in (0, 1):
                 for kind in ("block_expand-out", "block_decode"):
                     assert f"{kind}-bs{bs}-sigma{sigma}-off{off}" in EDGE_CASES
+
+
+def test_edge_case_registry_covers_both_instances_of_the_stream_kernels():
+    names = "\n".join(EDGE_CASES)
+    for k in (1, 2, 3, 4, 5):
+        for block in (32, 64, 256, 1024):
+            assert f"hash_combine-records-k{k}-block{block}-" in names
+    for layout in COMBINE_LAYOUTS:
+        assert f"hash_combine-{layout}-" in names
+    for k in (1, 2, 3, 4, 5, 6):
+        for run in (256, 1024):
+            assert f"merge_path-ties{run}-k{k}-" in names
+    assert "merge_path-k4-m1-n1" in names
+
+
+def test_plain_hash_combine_in_place_equals_a_fresh_output():
+    """out= the weight column: the combined weights land there, the keys and
+    every other column stay, as the fresh output computes them."""
+    rng = np.random.default_rng(19)
+    rec = torch.as_tensor(np.concatenate([rng.integers(0, 4, (3001, 3)),
+                                          rng.integers(0, 2**32, (3001, 1))], axis=1))
+    fresh = ops.hash_combine(rec[:, :3], rec[:, 3], block=64)
+    before = rec.clone()
+    w = rec[:, 3]
+    assert ops.hash_combine(rec[:, :3], w, block=64, out=w) is w
+    assert torch.equal(rec[:, 3], fresh)
+    assert torch.equal(rec[:, :3], before[:, :3])
+
+
+def test_hash_combine_rejects_a_misplaced_out():
+    """out is an int64 [N] vector on the keys' device that may be the weights
+    themselves but shares no other memory with the inputs."""
+    rec = torch.zeros((10, 4), dtype=torch.int64)
+    keys, w = rec[:, :3], rec[:, 3]
+    for bad in (rec[:, 2],                                   # a key column
+                rec.view(-1)[1:11],                          # overlapping, not the weights
+                torch.zeros(9, dtype=torch.int64),           # length
+                torch.zeros(10, dtype=torch.int32),          # dtype
+                torch.zeros((10, 1), dtype=torch.int64),     # 2-d
+                torch.zeros(10, dtype=torch.int64, device="meta")):
+        with pytest.raises((ValueError, TypeError)):
+            ops.hash_combine(keys, w, out=bad)
 
 
 @pytest.mark.parametrize("case", sorted(EDGE_CASES))
