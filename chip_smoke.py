@@ -8,13 +8,23 @@ line):
 
   1. build    -- compile the eight CUDA kernels from ``src/repro_torch/kernels/csrc``;
   2. oracle   -- the paper's running example and ~50k NYT-profile tokens
-                 through ``run_job`` -> ``build_index`` -> ``lookup`` /
-                 ``continuations`` on the card, against the pure-Python oracle;
+                 through ``run_job`` of each of the four methods (APRIORI-INDEX
+                 with K = 2 on the larger corpus, so its posting-list join
+                 runs), then ``build_index`` -> ``lookup`` / ``continuations``
+                 on the card, against the pure-Python oracle;
   3. main path -- 2**25 NYT-profile terms, sigma=5, tau=10: the job, the index,
                  2**16 point lookups (half hits, half misses or malformed) and
                  2**14 top-8 continuation queries, each checked exactly; the
                  launch counters of the job's and the flat index's kernels
                  must move during this phase;
+  6. methods  -- the same corpus and sigma, tau through NAIVE, APRIORI-SCAN
+                 and APRIORI-INDEX (K = 4, the paper's value): each method's
+                 job cold and warm, its counters and peak memory (the paper's
+                 comparison of the methods, Figs. 4-5); each output must equal
+                 phase 3's SUFFIX-sigma output exactly, NAIVE's map records
+                 the closed form of its analysis, APRIORI-SCAN's at most
+                 NAIVE's in at most sigma jobs, and the ``suffix_pack`` and
+                 ``hash_partition`` launch counters must move;
   5. streaming -- the same corpus through ``StreamingNGramService`` (hash
                  combiner, compressed rungs, and the default merge-path
                  compaction route): a 60 %
@@ -32,7 +42,8 @@ line):
                  and the least time the card could take (``bound_ms``, from
                  the uint32 values' bytes; ``bound_ms_as_stored`` from the
                  int64 lanes the port keeps them in).  ``launches`` is the count on the path whose
-                 shapes the row was timed at; ``launches_by_path`` has both.
+                 shapes the row was timed at; ``launches_by_path`` has every
+                 path's (main, methods, stream).
                  ``bsearch`` also gets its latency floor (``floor_ms``): the
                  round trips of its longest query times one dependent L2
                  load, plus an empty kernel, both measured here by
@@ -40,6 +51,9 @@ line):
                  ``hash_combine`` runs in place, as the combine stage calls
                  it; the stage itself (every kernel one
                  ``stages.combine_hash`` call launches) gets its own line.
+                 ``suffix_pack`` and ``hash_partition`` are also measured at
+                 the shapes phase 6 gives them (``methods_shape``: the lanes
+                 alone, and NAIVE's keys, one a record).
 
 The last lines are one JSON object describing each kernel, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.  The
@@ -61,7 +75,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core import NGramConfig, oracle, run_job  # noqa: E402
-from repro_torch.core import suffix_sigma  # noqa: E402
+from repro_torch.core import naive, suffix_sigma  # noqa: E402
 from repro_torch.core.stats import NGramStats  # noqa: E402
 from repro_torch.data import corpus  # noqa: E402
 from repro_torch.index import build_index, continuations, lookup  # noqa: E402
@@ -85,6 +99,9 @@ SCALAR_OPS_PER_S = 67e12
 
 MAIN_TERMS = 1 << 25
 SIGMA, TAU = 5, 10
+#: phase 6: the paper's three other methods, and APRIORI-INDEX's K (its value)
+METHODS = ("naive", "apriori_scan", "apriori_index")
+APRIORI_INDEX_K = 4
 N_LOOKUPS, N_PREFIXES, TOP_K = 1 << 16, 1 << 14, 8
 
 KERNELS = {
@@ -101,6 +118,8 @@ KERNELS = {
 PROBE_SRC = Path(__file__).resolve().parent / "scripts" / "latency_probe.cu"
 #: the kernels of the job and the flat index, which phase 3 drives
 MAIN_KERNELS = ("suffix_pack", "hash_partition", "lcp_boundary", "bsearch")
+#: the kernels of the whole-gram methods' jobs, which phase 6 drives
+METHOD_KERNELS = ("suffix_pack", "hash_partition")
 N_DELTAS = 4
 
 
@@ -276,12 +295,17 @@ def phase_oracle(dev) -> None:
     """Small corpora end to end on ``dev`` against the pure-Python oracle."""
     paper = np.asarray([1, 3, 2, 3, 3, 0, 2, 1, 3, 2, 3, 0, 3, 2, 1, 3, 2], np.int32)
     small = corpus.zipf_corpus(50_000, corpus.NYT, seed=1, duplicate_frac=0.05)
-    for toks, sigma, tau, vocab in ((paper, 3, 3, 3),
-                                    (small, 4, 4, corpus.NYT.vocab_size)):
+    for toks, sigma, tau, vocab, k_index in ((paper, 3, 3, 3, 4),
+                                             (small, 4, 4, corpus.NYT.vocab_size, 2)):
+        exp = oracle.ngram_counts(toks, sigma, tau)
+        for method in METHODS:
+            got = run_job(toks, NGramConfig(sigma=sigma, tau=tau, vocab_size=vocab,
+                                            method=method, apriori_index_k=k_index),
+                          device=dev)
+            check(got.to_dict() == exp, f"{method} job == oracle ({len(exp)} grams)")
         stats = run_job(toks, NGramConfig(sigma=sigma, tau=tau, vocab_size=vocab),
                         device=dev)
-        exp = oracle.ngram_counts(toks, sigma, tau)
-        check(stats.to_dict() == exp, f"job == oracle ({len(exp)} grams)")
+        check(stats.to_dict() == exp, f"suffix_sigma job == oracle ({len(exp)} grams)")
         idx = build_index(stats, vocab_size=vocab, device=dev)
         grams = sorted(exp)
         g, ln = grams_matrix(grams, sigma)
@@ -303,7 +327,8 @@ def phase_oracle(dev) -> None:
             check(all(ext[int(t)] == int(c) for t, c in zip(terms[i], counts[i]) if c),
                   f"top-4 pairs of {p}")
         print(f"oracle: {len(toks)} tokens sigma={sigma} tau={tau}: "
-              f"{len(exp)} grams, lookups and continuations equal the oracle")
+              f"{len(exp)} grams; the four methods' jobs (APRIORI-INDEX K={k_index}), "
+              "lookups and continuations equal the oracle")
 
 
 # --------------------------------------------------------------------- phase 3
@@ -365,9 +390,10 @@ def check_continuations(stats, idx, pg, pl, out) -> None:
     check(np.array_equal(got, counts[qi, kj]), "top-k pairs == point lookups")
 
 
-def profile_job(tokens, cfg, dev) -> None:
+def profile_job(tokens, cfg, dev, label: str = "profile") -> None:
     """One more run of the job under ``torch.profiler``: device busy time by
-    kernel, and the share of the wall time the card sat idle."""
+    kernel, and the share of the wall time the card sat idle; lines start
+    with ``label``."""
     if not tokens.is_cuda:
         return
     from torch.profiler import ProfilerActivity, profile
@@ -382,13 +408,13 @@ def profile_job(tokens, cfg, dev) -> None:
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
     busy_ms = sum(by_name.values())
-    print(f"profile: job under torch.profiler {wall_ms:.1f} ms wall, device busy "
+    print(f"{label}: job under torch.profiler {wall_ms:.1f} ms wall, device busy "
           f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"profile:   device {ms:9.3f} ms  {name[:90]}")
+        print(f"{label}:   device {ms:9.3f} ms  {name[:90]}")
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:8]
     for ev in host:
-        print(f"profile:   host {ev.self_cpu_time_total / 1e3:9.3f} ms self  "
+        print(f"{label}:   host {ev.self_cpu_time_total / 1e3:9.3f} ms self  "
               f"{ev.key[:60]} x{ev.count}")
 
 
@@ -411,6 +437,7 @@ def phase_main_path(dev, n_terms: int = MAIN_TERMS) -> dict:
     stats = run_job(tokens, cfg, device=dev)            # cold: allocator grows
     job_cold_s = time.perf_counter() - t0
     job_s = wall_times(lambda: run_job(tokens, cfg, device=dev), sync, 5)
+    job_peak = device_peak()
     tracer = trace.enable_tracing()
     again = run_job(tokens, cfg, device=dev)
     trace.disable_tracing()
@@ -473,13 +500,81 @@ def phase_main_path(dev, n_terms: int = MAIN_TERMS) -> dict:
         med = float(np.median(times))
         print(f"main: {what}: batch of {n_q} median {med * 1e3:.3f} ms "
               f"(max {max(times) * 1e3:.3f}, n={len(times)}) = {n_q / med:,.0f} q/s")
-    print(f"main: peak device memory {peak / 2**30:.2f} GiB; kernel launches "
-          f"{launches}")
+    print(f"main: peak device memory {peak / 2**30:.2f} GiB (the jobs alone "
+          f"{job_peak / 2**30:.2f} GiB); kernel launches {launches}")
     print("main: checks passed (unigrams == bincount, hits, misses/malformed, "
           "continuation mass and top-k pairs, repeated job)")
     return dict(tokens=tokens, toks=toks, stats=stats, idx=idx,
                 queries=(g_dev, ln_dev), prefixes=(pg_dev, pl_dev),
                 launches=launches)
+
+
+# --------------------------------------------------------------------- phase 6
+def naive_map_records(toks: np.ndarray, sigma: int) -> int:
+    """``oracle.expected_map_records(toks, sigma, "naive")`` in closed form,
+    vectorised: each position starts min(sigma, tokens from it to the next
+    PAD) grams, and a PAD starts none."""
+    pos = np.arange(toks.size)
+    pad = np.flatnonzero(toks == 0)
+    next_pad = np.append(pad, toks.size)[np.searchsorted(pad, pos)]
+    return int(np.minimum(next_pad - pos, sigma).sum())
+
+
+def phase_methods(dev, main: dict) -> dict:
+    """NAIVE, APRIORI-SCAN and APRIORI-INDEX through ``run_job`` at phase 3's
+    corpus and configuration, each held against phase 3's SUFFIX-sigma output."""
+    vocab = corpus.NYT.vocab_size
+    tokens, toks, want = main["tokens"], main["toks"], main["stats"]
+    sync = torch.cuda.synchronize if tokens.is_cuda else (lambda: None)
+    launches: dict[str, int] = {}
+    counters = {}
+    for method in METHODS:
+        cfg = NGramConfig(sigma=SIGMA, tau=TAU, vocab_size=vocab, method=method,
+                          apriori_index_k=APRIORI_INDEX_K)
+        if tokens.is_cuda:
+            torch.cuda.empty_cache()
+        reset_peak()
+        ops.launches.clear()
+        t0 = time.perf_counter()
+        stats = run_job(tokens, cfg, device=dev)
+        sync()
+        cold_s = time.perf_counter() - t0
+        per_job = dict(ops.launches)
+        warm = wall_times(lambda: run_job(tokens, cfg, device=dev), sync, 3)
+        peak = device_peak()
+        for name, n in ops.launches.items():
+            launches[name] = launches.get(name, 0) + n
+        tracer = trace.enable_tracing()
+        run_job(tokens, cfg, device=dev)
+        trace.disable_tracing()
+        spans: dict[str, float] = {}
+        for ev in tracer.events:
+            spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"] / 1e3
+        c = stats.counters
+        counters[method] = c
+        print(f"methods: {method}: jobs {c['jobs']}, map_records {c['map_records']:,}, "
+              f"shuffle_records {c['shuffle_records']:,}, shuffle_bytes "
+              f"{c['shuffle_bytes']:,}; job cold {cold_s:.3f} s, warm median "
+              f"{np.median(warm):.3f} s (min {min(warm):.3f}, max {max(warm):.3f}, "
+              f"n={len(warm)}); peak device memory {peak / 2**30:.2f} GiB; launches "
+              f"a job: suffix_pack {per_job.get('suffix_pack', 0)}, hash_partition "
+              f"{per_job.get('hash_partition', 0)}")
+        print(f"methods: {method}: spans of a traced warm run (ms, synced) "
+              + ", ".join(f"{k} {v:.1f}" for k, v in spans.items()))
+        check(all(np.array_equal(getattr(stats, f), getattr(want, f))
+                  for f in ("grams", "lengths", "counts")),
+              f"{method} output == SUFFIX-sigma output ({len(want)} n-grams)")
+        profile_job(tokens, cfg, dev, label=f"methods: {method}: profile")
+        del stats
+    closed = naive_map_records(toks, SIGMA)
+    check(counters["naive"]["map_records"] == closed,
+          f"NAIVE map_records == closed form ({closed:,})")
+    check(counters["apriori_scan"]["map_records"] <= counters["naive"]["map_records"]
+          and counters["apriori_scan"]["jobs"] <= SIGMA,
+          "APRIORI-SCAN emits at most NAIVE's records in at most sigma jobs")
+    print(f"methods: checks passed (each output == SUFFIX-sigma's, NAIVE map_records "
+          f"== closed form {closed:,}, APRIORI-SCAN pruned); kernel launches {launches}")
+    return dict(launches=launches, counters=counters)
 
 
 # --------------------------------------------------------------------- phase 5
@@ -821,7 +916,8 @@ def edge_cases(dev):
     return cases
 
 
-def phase_kernels(dev, main: dict, stream: dict, probe: ctypes.CDLL) -> list[dict]:
+def phase_kernels(dev, main: dict, methods: dict, stream: dict,
+                  probe: ctypes.CDLL) -> list[dict]:
     """Each kernel against its plain version at the main paths' shapes."""
     vocab = corpus.NYT.vocab_size
     n_l = pack.n_lanes(SIGMA, vocab)
@@ -829,6 +925,7 @@ def phase_kernels(dev, main: dict, stream: dict, probe: ctypes.CDLL) -> list[dic
     n = tokens.shape[0]
     rows = []
     by_path = {k: {"main": main["launches"].get(k, 0),
+                   "methods": methods["launches"].get(k, 0),
                    "stream": stream["launches"].get(k, 0)} for k in KERNELS}
 
     def measure(name, path, kernel, plain, bytes_u32, bytes_stored, ops_done, shape):
@@ -851,7 +948,14 @@ def phase_kernels(dev, main: dict, stream: dict, probe: ctypes.CDLL) -> list[dic
                     replaces=KERNELS[name], launches=by_path[name][path],
                     launches_by_path=by_path[name], max_abs_err=err, ms=ms,
                     kernel_ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                    bound_ms_as_stored=stored_ms, library_ms=None)
+                    bound_ms_as_stored=stored_ms, library_ms=None, shape=shape)
+
+    def at_methods_shape(row: dict, other: dict) -> None:
+        """Attach to ``row`` the measurement ``other`` at the shape phase 6's
+        jobs give the kernel."""
+        row["methods_shape"] = {k: other[k] for k in (
+            "shape", "max_abs_err", "ms", "kernel_ms", "plain_ms", "bound_ms",
+            "bound_by", "bound_ms_as_stored")}
 
     # the main path's own intermediates, rebuilt stage by stage; suffix_pack
     # as the map emit (suffix_sigma.make_records) calls it: whole records
@@ -864,13 +968,13 @@ def phase_kernels(dev, main: dict, stream: dict, probe: ctypes.CDLL) -> list[dic
         n * (4 + 4 * (n_l + 1)), n * (4 + 8 * (n_l + 1)), 6 * SIGMA * n,
         f"tokens [{n}] -> records [{n}, {n_l + 1}] (lanes | weight)"))
     del plain_out
-    if tokens.is_cuda:          # the lanes alone, [N, n_lanes], for comparison
-        lanes_only = lambda: ops.suffix_pack(tokens, sigma=SIGMA, vocab_size=vocab)  # noqa: E731
-        k_ms = kernel_ms(lanes_only, "suffix_pack_kernel")
-        print(f"kernel suffix_pack lanes alone [{n}, {n_l}]: {cuda_ms(lanes_only):.4f} ms "
-              f"a call, kernel {fmt_ms(k_ms)} ms on the device; "
-              f"bound {bound(n * (4 + 4 * n_l), 0)[0]:.4f} ms (uint32 values), "
-              f"{bound(n * (4 + 8 * n_l), 0)[0]:.4f} ms as stored")
+    # the lanes alone, [N, n_lanes], as every round of phase 6 emits them
+    at_methods_shape(rows[-1], measure(
+        "suffix_pack", "methods",
+        lambda: ops.suffix_pack(tokens, sigma=SIGMA, vocab_size=vocab),
+        lambda: ref.suffix_pack_ref(tokens, sigma=SIGMA, vocab_size=vocab),
+        n * (4 + 4 * n_l), n * (4 + 8 * n_l), 6 * SIGMA * n,
+        f"tokens [{n}] -> lanes alone [{n}, {n_l}] (the methods' emit)"))
     records = stages.combine(records, n_l)
     live = records[:, n_l] > 0
     key = stages.partition_keys(records, n_l, kind="lead", vocab_size=vocab)
@@ -880,6 +984,19 @@ def phase_kernels(dev, main: dict, stream: dict, probe: ctypes.CDLL) -> list[dic
         lambda: ref.hash_partition_ref(key, live, 64),
         n * (4 + 1 + 4) + 64 * 4, n * (8 + 1 + 4) + 64 * 4, 10 * n,
         f"keys [{n}], 64 parts"))
+    del key, live
+    # the largest call of phase 6: NAIVE's whole-gram keys, one a record
+    exploded, _ = naive._explode(tokens, SIGMA, vocab)
+    live = exploded[:, n_l] > 0
+    key = stages.partition_keys(exploded, n_l, kind="gram", vocab_size=vocab)
+    del exploded
+    r = key.shape[0]
+    at_methods_shape(rows[-1], measure(
+        "hash_partition", "methods",
+        lambda: ops.hash_partition(key, live, n_parts=64),
+        lambda: ref.hash_partition_ref(key, live, 64),
+        r * (4 + 1 + 4) + 64 * 4, r * (8 + 1 + 4) + 64 * 4, 10 * r,
+        f"NAIVE's gram keys [{r}], 64 parts"))
     del key, live
     terms = pack.unpack_terms(stages.sort_stage(records, n_keys=n_l)[:, :n_l],
                               vocab_size=vocab, sigma=SIGMA)
@@ -1385,10 +1502,14 @@ def main() -> int:
     main_run = phase_main_path(dev)                     # phase 3
     missing = [k for k in MAIN_KERNELS if main_run["launches"].get(k, 0) == 0]
     check(not missing, f"main path launched every kernel (missing {missing})")
+    methods = phase_methods(dev, main_run)              # phase 6
+    missing = [k for k in METHOD_KERNELS if methods["launches"].get(k, 0) == 0]
+    check(not missing, f"the methods launched every kernel (missing {missing})")
+    torch.cuda.empty_cache()
     stream = phase_streaming(dev, main_run)             # phase 5
     missing = [k for k in KERNELS if stream["launches"].get(k, 0) == 0]
     check(not missing, f"streaming path launched every kernel (missing {missing})")
-    rows = phase_kernels(dev, main_run, stream,         # phase 4
+    rows = phase_kernels(dev, main_run, methods, stream,  # phase 4
                          finish_nvcc(probe_nvcc, probe_lib))
 
     print(json.dumps({"kernels": rows}))

@@ -7,7 +7,9 @@ SUFFIX-sigma job -> ``NGramStats`` in canonical order -> flat ``NGramIndex``
 -> batched ``lookup`` and top-k ``continuations``.  The second is streaming
 ingest: ``serve.StreamingNGramService`` runs each document batch through the
 job (hash combiner included) into a ``GenerationalIndex`` whose merged rungs
-freeze to the compressed layout, and answers queries across its rungs.
+freeze to the compressed layout, and answers queries across its rungs.  The
+third brings the paper's other three methods (NAIVE, APRIORI-SCAN,
+APRIORI-INDEX), so ``core.run_job`` runs all four on one device.
 
 Lane representation.  ``repro`` keeps packed term lanes, record weights,
 hash values and index counts as ``uint32``.  torch has no ``>>``, ``<``,

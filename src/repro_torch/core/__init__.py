@@ -1,14 +1,28 @@
 """The paper's contribution on PyTorch: n-gram statistics jobs.
 
-``run_job`` dispatches on ``NGramConfig.method``; the port runs SUFFIX-sigma
-so far, and refuses the other methods until their slices land.
+``run_job`` dispatches on ``NGramConfig.method`` over the paper's four
+methods, each a single-device job; the multi-device jobs wait for a later
+slice.
 """
 from __future__ import annotations
 
-from . import oracle, suffix_sigma
+from . import apriori_index, apriori_scan, naive, oracle, suffix_sigma
 from .stats import NGramConfig, NGramStats
 
-METHODS = {"suffix_sigma": suffix_sigma.run}
+METHODS = {
+    "suffix_sigma": suffix_sigma.run,
+    "naive": naive.run,
+    "apriori_scan": apriori_scan.run,
+    "apriori_index": apriori_index.run,
+}
+
+# method name -> its JobPlan (a function of cfg), which the executor runs
+PLANS = {
+    "suffix_sigma": suffix_sigma.plan,
+    "naive": naive.plan,
+    "apriori_scan": apriori_scan.plan,
+    "apriori_index": apriori_index.plan,
+}
 
 
 def run_job(tokens, cfg: NGramConfig, *, device=None) -> NGramStats:
@@ -20,11 +34,10 @@ def run_job(tokens, cfg: NGramConfig, *, device=None) -> NGramStats:
     try:
         fn = METHODS[cfg.method]
     except KeyError:
-        raise NotImplementedError(
-            f"method {cfg.method!r} is not ported to repro_torch; options: "
-            f"{sorted(METHODS)}") from None
+        raise ValueError(f"unknown method {cfg.method!r}; "
+                         f"options: {sorted(METHODS)}") from None
     return fn(tokens, cfg, device=device)
 
 
-__all__ = ["NGramConfig", "NGramStats", "run_job", "METHODS", "oracle",
-           "suffix_sigma"]
+__all__ = ["NGramConfig", "NGramStats", "run_job", "METHODS", "PLANS", "oracle",
+           "suffix_sigma", "naive", "apriori_scan", "apriori_index"]

@@ -1,0 +1,135 @@
+"""Shared machinery of the baseline methods (NAIVE, APRIORI-SCAN, APRIORI-INDEX)
+(port of ``repro.core.common``).
+
+All three count *whole grams* (full-row equality runs after the sort), unlike
+SUFFIX-sigma, which counts every prefix of every suffix.  The helpers here
+emit k-gram records, count them exactly (with optional position payloads,
+which APRIORI-INDEX joins on), and keep the APRIORI dictionary: a sorted
+array of gram hashes probed by binary search.
+
+The emit runs no ``[N, sigma]`` window tensor.  The ``suffix_pack`` kernel
+packs each position's sigma-truncated, PAD-masked suffix into lanes; the
+k-gram at position ``p`` is those lanes AND ``prefix_lane_masks[k]``, and it
+exists exactly when term slot ``k - 1`` of the lanes is not PAD.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import U32, resolve_device
+from repro_torch.kernels import ops as kops
+from repro_torch.mapreduce import pack as packing
+from repro_torch.mapreduce.shuffle import fold_hash as gram_hash
+from repro_torch.pipeline import stages
+
+__all__ = ["run_single_device", "suffix_lanes", "prefix_masks", "term_present",
+           "kgram_records", "membership_hashes", "member", "count_exact_grams",
+           "gram_hash"]
+
+
+def run_single_device(tokens, cfg, plan, *, mesh=None, device=None):
+    """Run ``plan`` over the whole corpus on one device: the body of every
+    method's ``run``.  ``tokens``: 1-D, PAD(0)-separated documents.
+
+    Runs on the card unless ``device`` says otherwise (see
+    :func:`repro_torch.resolve_device`).
+    """
+    if mesh is not None:
+        raise NotImplementedError("the multi-device job is not ported to "
+                                  "repro_torch yet; call run without a mesh")
+    from repro_torch.pipeline.executor import run_plan
+    device = resolve_device(device)
+    if isinstance(tokens, torch.Tensor):
+        tokens = tokens.to(device=device, dtype=torch.int32)
+    else:
+        tokens = torch.as_tensor(np.asarray(tokens, np.int32), device=device)
+    return run_plan(tokens, cfg, plan=plan)
+
+
+def suffix_lanes(tokens: torch.Tensor, sigma: int, vocab_size: int) -> torch.Tensor:
+    """Packed sigma-truncated suffix lanes [N, n_lanes] int64 of every position."""
+    return kops.suffix_pack(tokens, sigma=sigma, vocab_size=vocab_size)
+
+
+def prefix_masks(sigma: int, vocab_size: int, device) -> torch.Tensor:
+    """``prefix_lane_masks`` [sigma + 1, n_lanes] as int64 on ``device``:
+    ``lanes & masks[l]`` packs the length-``l`` prefix."""
+    masks = packing.prefix_lane_masks(sigma, vocab_size).astype(np.int64)
+    return torch.as_tensor(masks, device=device)
+
+
+def term_present(lanes: torch.Tensor, sigma: int, vocab_size: int,
+                 slot: int | None = None) -> torch.Tensor:
+    """Whether term slot ``l`` (0-based) of each lane row holds a term.
+
+    ``slot``: one slot -> bool [N]; None -> every slot, bool [N, sigma].
+    Suffix lanes are PAD-masked, so slot ``l`` holds a term exactly when the
+    position's suffix is longer than ``l``.
+    """
+    masks = packing.prefix_lane_masks(sigma, vocab_size).astype(np.int64)
+    field = masks[1:] ^ masks[:-1]            # [sigma, n_lanes]: slot l's bits
+    lane = field.argmax(axis=1)               # the one lane each slot lies in
+    bits = field[np.arange(sigma), lane]
+    if slot is not None:
+        return (lanes[:, int(lane[slot])] & int(bits[slot])) != 0
+    lane = torch.as_tensor(lane, device=lanes.device)
+    bits = torch.as_tensor(bits, device=lanes.device)
+    return (lanes[:, lane] & bits) != 0
+
+
+def kgram_records(tokens: torch.Tensor, k: int, sigma: int, vocab_size: int,
+                  weight_mask: torch.Tensor | None = None,
+                  with_positions: bool = False, *,
+                  lanes: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Records for the k-grams starting at every position (sigma-lane packing).
+
+    Returns (records [N, n_lanes + 1 (+ 1)] int64 = lanes | weight | (pos),
+    valid [N] bool).  ``weight_mask``: optional bool [N] further restricting
+    which positions emit; invalid rows have zero lanes and weight and, with
+    positions, keep their own position.  ``lanes``: the tokens' suffix lanes
+    when the caller has them already (one ``suffix_pack`` launch a round).
+    """
+    if lanes is None:
+        lanes = suffix_lanes(tokens, sigma, vocab_size)
+    n, n_l = lanes.shape
+    valid = term_present(lanes, sigma, vocab_size, k - 1)
+    if weight_mask is not None:
+        valid &= weight_mask
+    records = torch.empty((n, n_l + 1 + int(with_positions)), dtype=torch.int64,
+                          device=lanes.device)
+    torch.bitwise_and(lanes, prefix_masks(sigma, vocab_size, lanes.device)[k],
+                      out=records[:, :n_l])
+    records[:, :n_l] *= valid[:, None]
+    records[:, n_l] = valid
+    if with_positions:
+        records[:, n_l + 1] = torch.arange(n, device=lanes.device)
+    return records, valid
+
+
+def membership_hashes(lanes: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Sorted hash set (uint32 values, int64) of the valid grams -- the APRIORI
+    dictionary; invalid rows hash to ``0xFFFFFFFF``.
+
+    Hash collisions only ever *weaken pruning* (extra candidates), never drop
+    a frequent gram: the round's exact count filters them again.
+    """
+    h = torch.where(valid, gram_hash(lanes), U32)
+    return torch.sort(h).values
+
+
+def member(sorted_hashes: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """Whether each query hash lies in ``sorted_hashes`` (binary search)."""
+    idx = torch.searchsorted(sorted_hashes, queries)
+    idx = idx.clamp_(max=sorted_hashes.shape[0] - 1)
+    return sorted_hashes[idx] == queries
+
+
+def count_exact_grams(records: torch.Tensor, *, sigma: int, vocab_size: int,
+                      with_positions: bool = False):
+    """Sort + count identical grams in ``records`` = [N, lanes | weight | (pos)]:
+    ``stages.sort_stage`` then ``stages.reduce_exact``."""
+    rec = stages.sort_stage(records, n_keys=packing.n_lanes(sigma, vocab_size))
+    return stages.reduce_exact(rec, sigma=sigma, vocab_size=vocab_size,
+                               with_positions=with_positions)

@@ -17,14 +17,13 @@ The distributed job, ``sigma_split`` and bucketed series wait for later slices.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from repro_torch import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import suffix_windows
 from repro_torch.mapreduce import pack as packing
 from repro_torch.pipeline import plan as plan_mod
+from .common import run_single_device
 from .stats import NGramConfig, NGramStats
 
 __all__ = ["suffix_windows", "make_records", "plan", "run"]
@@ -80,13 +79,4 @@ def run(tokens, cfg: NGramConfig, mesh=None, *, device=None) -> NGramStats:
     Runs on the card unless ``device`` says otherwise (see
     :func:`repro_torch.resolve_device`).
     """
-    if mesh is not None:
-        raise NotImplementedError("the multi-device job is not ported to "
-                                  "repro_torch yet; call run without a mesh")
-    from repro_torch.pipeline.executor import run_plan
-    device = resolve_device(device)
-    if isinstance(tokens, torch.Tensor):
-        tokens = tokens.to(device=device, dtype=torch.int32)
-    else:
-        tokens = torch.as_tensor(np.asarray(tokens, np.int32), device=device)
-    return run_plan(tokens, cfg, plan=plan(cfg))
+    return run_single_device(tokens, cfg, plan(cfg), mesh=mesh, device=device)

@@ -6,12 +6,13 @@ whole corpus at once, on the device the tokens lie on: every round's map
 emit, then the stage core (combine -> shuffle key and skew histogram -> sort
 -> reduce), then a host materialize into ``NGramStats``.  Output rows are in
 canonical order (``stages.canonical_stats``) and the counters are exactly
-``repro``'s.  The wave engine waits for a later slice.
+``repro``'s.  The multi-round plans (APRIORI-SCAN/-INDEX) hand each round's
+carry to the next here.  The wave engine waits for a later slice.
 
-Spans ``plan.run`` and ``round.{emit,stages,materialize}`` mark the phases.
-PyTorch launches asynchronously, so with tracing on the ``round.emit`` and
-``round.stages`` spans synchronize the card at their close: their durations
-then cover the device work they launched.
+Spans ``plan.run`` and ``round.{emit,stages,materialize}`` mark the phases;
+``round.materialize`` also covers the next round's carry.  PyTorch launches
+asynchronously, so with tracing on the spans synchronize the card at their
+close: their durations then cover the device work they launched.
 """
 from __future__ import annotations
 
@@ -29,16 +30,16 @@ _SKEW_BUCKETS = 64   # nominal reducer count for the shuffle-skew counter
 
 def _stage_core_impl(records, valid, *, n_lanes: int,
                      combine_route: str | None, sigma: int, lane_vocab: int,
-                     shuffle_key: str, reduce_kind: str, n_buckets: int = 0):
+                     shuffle_key: str, reduce_kind: str,
+                     with_positions: bool = False, n_buckets: int = 0):
     """combine -> shuffle-key -> sort -> reduce over one round's records.
 
     Returns (dense reducer outputs, map-record count, post-combine live-record
     count, partition histogram over ``_SKEW_BUCKETS`` nominal reducers); the
-    counts stay device tensors until the caller's materialize.
+    counts stay device tensors until the caller's materialize.  The dense
+    outputs of the ``"exact"`` reducer with ``with_positions`` end with the
+    run total of every position.
     """
-    if reduce_kind != "suffix":
-        raise NotImplementedError(f"reduce kind {reduce_kind!r} is not ported "
-                                  "to repro_torch yet")
     map_rec = valid.sum()
     if combine_route is not None:
         records = stages.combine(records, n_lanes, route=combine_route)
@@ -50,8 +51,12 @@ def _stage_core_impl(records, valid, *, n_lanes: int,
     # skew counter measures realized reducer load, not raw-key spread
     _, hist = kops.hash_partition(key, live, n_parts=_SKEW_BUCKETS)
     rec = stages.sort_stage(records, n_keys=n_lanes)
-    dense = stages.reduce_suffix(rec, sigma=sigma, vocab_size=lane_vocab,
-                                 n_buckets=n_buckets)
+    if reduce_kind == "suffix":
+        dense = stages.reduce_suffix(rec, sigma=sigma, vocab_size=lane_vocab,
+                                     n_buckets=n_buckets)
+    else:
+        dense = stages.reduce_exact(rec, sigma=sigma, vocab_size=lane_vocab,
+                                    with_positions=with_positions)
     return dense, map_rec, shuffled, hist
 
 
@@ -96,6 +101,7 @@ def _run_rounds(tok_ext, aux_ext, n_live: int, cfg, plan: JobPlan,
                 records, valid, n_lanes=n_l, combine_route=combine_route,
                 sigma=cfg.sigma, lane_vocab=lane_vocab,
                 shuffle_key=plan.shuffle.key, reduce_kind=plan.reduce.kind,
+                with_positions=plan.reduce.with_positions,
                 n_buckets=cfg.n_buckets)
             del records, valid
             if sp:
@@ -104,8 +110,19 @@ def _run_rounds(tok_ext, aux_ext, n_live: int, cfg, plan: JobPlan,
         with obs_trace.span("round.materialize") as sp:
             if sp:
                 sp.set(round=k)
-            stats_k = _materialize(dense, tau_eff)
+            stats_k = _materialize(dense[:3], tau_eff)
+            reduce_extras = ({"totals_pos": dense[3]}
+                             if plan.reduce.with_positions else {})
             del dense
+            last = k == plan.rounds or (plan.stop_on_empty and len(stats_k) == 0)
+            if not last and plan.update_carry is not None:
+                # the next round's carry; APRIORI-SCAN's copies this round's
+                # frequent grams from the host back to the device, as repro does
+                carry = plan.update_carry(cfg, tau_eff, k, tok_ext, stats_k,
+                                          reduce_extras, emit_extras, carry)
+                if sp:
+                    sp.sync(carry)
+            del reduce_extras, emit_extras
         map_rec = int(map_rec)
         shuffled = int(shuffled)
         hist = hist.cpu().numpy()
@@ -117,11 +134,8 @@ def _run_rounds(tok_ext, aux_ext, n_live: int, cfg, plan: JobPlan,
             counters["shuffle_skew"] = max(counters.get("shuffle_skew", 0.0),
                                            skew)
         out = stats_k if out is None else out.merged_with(stats_k)
-        if plan.stop_on_empty and len(stats_k) == 0:
+        if last:
             break
-        if k < plan.rounds and plan.update_carry is not None:
-            carry = plan.update_carry(cfg, tau_eff, k, tok_ext, stats_k, {},
-                                      emit_extras, carry)
     out.counters = counters
     return out
 

@@ -5,7 +5,8 @@ A :class:`JobPlan` is the declarative form of one of the paper's algorithms:
 how the map phase emits records from a token window, whether a map-side
 combiner runs, what the shuffle partitions by, and which reducer interprets
 the sorted runs.  ``rounds`` and ``update_carry`` chain the multi-job methods
-(APRIORI-SCAN/-INDEX); the port's first slice runs SUFFIX-sigma only.
+(APRIORI-SCAN/-INDEX): the carry is the state one job hands the next (the
+frequent-gram dictionary, the posting-list occurrence mask).
 """
 from __future__ import annotations
 
@@ -21,9 +22,6 @@ EmitFn = Callable[..., tuple]
 # carry update: (cfg, tau_eff, k, tok_ext, stats_k, reduce_extras,
 #                emit_extras, carry) -> new carry
 CarryFn = Callable[..., Any]
-
-# methods of ``repro`` that later slices of the port bring over
-_NOT_PORTED = ("naive", "apriori_scan", "apriori_index")
 
 
 @dataclass(frozen=True)
@@ -71,13 +69,12 @@ class JobPlan:
 
 
 def plan_for(cfg: NGramConfig) -> JobPlan:
-    """The :class:`JobPlan` of ``cfg.method`` (SUFFIX-sigma only, for now)."""
-    if cfg.method == "suffix_sigma":
-        from repro_torch.core import suffix_sigma
-        return suffix_sigma.plan(cfg)
-    if cfg.method in _NOT_PORTED:
-        raise NotImplementedError(
-            f"method {cfg.method!r} is not ported to repro_torch yet; "
-            "only 'suffix_sigma' runs")
-    raise ValueError(f"no JobPlan for method {cfg.method!r}; "
-                     f"options: {sorted(('suffix_sigma',) + _NOT_PORTED)}")
+    """The registered :class:`JobPlan` of ``cfg.method``."""
+    from repro_torch.core import PLANS
+    try:
+        build = PLANS[cfg.method]
+    except KeyError:
+        raise ValueError(
+            f"no JobPlan registered for method {cfg.method!r}; "
+            f"options: {sorted(PLANS)}") from None
+    return build(cfg)

@@ -8,9 +8,10 @@
   shuffle -- partition-key computation (``mapreduce.shuffle.record_key``).
   sort    -- multi-key lexicographic sort of the packed lanes.
   reduce  -- ``reduce_suffix``: LCP runs, every prefix of every suffix
-             (Algorithm 4), through the ``lcp_boundary`` kernel.
+             (Algorithm 4), through the ``lcp_boundary`` kernel;
+             ``reduce_exact``: whole-gram runs (NAIVE, APRIORI-SCAN/-INDEX).
 
-Records are ``[N, W]`` int64 (packed lanes | weight); shapes stay static, and
+Records are ``[N, W]`` int64 (packed lanes | weight | meta); shapes stay static, and
 token id 0 reads as "no token" throughout, as in ``repro``.
 """
 from __future__ import annotations
@@ -96,6 +97,42 @@ def reduce_suffix(rec: torch.Tensor, *, sigma: int, vocab_size: int,
     counts = segment.run_counts(flags, terms != 0, rec[:, n_l],
                                 max_segments=rec.shape[0])
     return terms, flags, counts
+
+
+def reduce_exact(rec: torch.Tensor, *, sigma: int, vocab_size: int,
+                 with_positions: bool = False):
+    """Whole-gram reducer over a *sorted* record block (NAIVE / APRIORI-*).
+
+    rec: [N, W] sorted = lanes | weight | (pos).  Returns (terms, flags,
+    counts) shaped like :func:`reduce_suffix`; flags mark the first row of
+    each run at the row's own gram length.  With ``with_positions`` it also
+    returns the run total of every original position [N] int32, scattered
+    back through the position lane (the APRIORI-INDEX posting-list join).
+    Every row holds a distinct position (invalid rows keep theirs), so the
+    scatter writes each index once.
+    """
+    n = rec.shape[0]
+    n_l = packing.n_lanes(sigma, vocab_size)
+    lanes = rec[:, :n_l]
+    weight = rec[:, n_l].to(torch.int32)
+    terms = packing.unpack_terms(lanes, vocab_size=vocab_size, sigma=sigma)
+
+    first = (lanes != torch.roll(lanes, 1, dims=0)).any(dim=1)
+    first[:1] = True
+    seg = (torch.cumsum(first, dim=0) - 1).clamp_(min=0)
+    totals = torch.zeros(n, dtype=torch.int32, device=rec.device)
+    totals = totals.index_add_(0, seg, weight)[seg]
+
+    length = (terms != 0).sum(dim=1)                   # gram length per row
+    row_flags = first & (length > 0) & (weight >= 0) & (totals > 0)
+    slot = torch.arange(sigma, device=rec.device)
+    flags = (slot[None, :] == (length - 1)[:, None]) & row_flags[:, None]
+    counts = flags * totals[:, None]
+    if not with_positions:
+        return terms, flags, counts
+    totals_at_pos = torch.zeros(n, dtype=torch.int32, device=rec.device)
+    totals_at_pos[rec[:, n_l + 1]] = totals
+    return terms, flags, counts, totals_at_pos
 
 
 # ----------------------------------------------------------- canonical output

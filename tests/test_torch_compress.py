@@ -8,11 +8,13 @@ and on a ``repro`` index carried across by ``compressed_index_from_arrays``.
 Every output is an integer, so every comparison is exact.  ``repro`` runs
 through its jnp path.
 """
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+pytest.importorskip("jax")      # a GPU host without JAX skips this file
+
+import jax.numpy as jnp
 import repro.core as jcore
 import repro.index as jindex
 from repro.core.stats import NGramConfig as JConfig
@@ -27,7 +29,7 @@ from repro_torch.index import compress as tcompress
 from repro_torch.kernels import bitpack
 from repro_torch.kernels import ops, ref
 from repro_torch.mapreduce import pack
-from tests.test_compress import CORPUS_DRAWS, make_corpus, query_batches
+from test_compress import CORPUS_DRAWS, make_corpus, query_batches
 
 # The tensors here are small, and a parallel test run shares the host's cores
 # between its workers: intra-op threads (which spin between parallel regions)

@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+pytest.importorskip("jax")      # a GPU host without JAX skips this file
+
 import repro.core as jcore
 import repro.index as jindex
 from repro.core.stats import NGramConfig as JConfig

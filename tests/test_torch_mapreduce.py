@@ -5,11 +5,13 @@ output is an integer, so every comparison is exact.  Vocabularies range from
 2 to 2**30 and lanes carry bit 31, the cases where the port's int64 lane
 representation could part from uint32.
 """
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+pytest.importorskip("jax")      # a GPU host without JAX skips this file
+
+import jax.numpy as jnp
 from repro.core import suffix_sigma as j_suffix
 from repro.mapreduce import pack as jpack
 from repro.mapreduce import segment as jseg

@@ -7,9 +7,13 @@ uint32 overflow guard must raise; and a generational index fed the same job
 deltas must make the same merges, hold rungs of the same sizes and kinds, and
 answer lookups and continuations as ``repro``'s does.  Exact throughout.
 """
+import sys
+
 import numpy as np
 import pytest
 import torch
+
+pytest.importorskip("jax")      # a GPU host without JAX skips this file
 
 import repro.index as jindex
 from repro.core import run_job as jrun
@@ -24,8 +28,13 @@ from repro_torch.index import (CompressedNGramIndex, GenerationalIndex,
                                segment_to_stats, stats_union)
 from repro_torch.index import compress as tcompress
 from repro_torch.index import merge as tmerge
-from tests.test_compress import make_corpus
-from tests.test_merge import MERGE_DRAWS
+import test_compress
+from test_compress import make_corpus
+
+# ``test_merge`` imports ``tests.test_compress``; where an installed package
+# named ``tests`` shadows this folder, that name is bound to the module above
+sys.modules.setdefault("tests.test_compress", test_compress)
+from test_merge import MERGE_DRAWS
 
 # The tensors here are small, and a parallel test run shares the host's cores
 # between its workers: intra-op threads (which spin between parallel regions)

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+pytest.importorskip("jax")      # a GPU host without JAX skips this file
+
 from repro.core import run_job as jrun
 from repro.core.stats import NGramConfig as JConfig
 from repro.index import stats_union as jstats_union
@@ -19,7 +21,7 @@ from repro.serve.service import StreamingNGramService as JService
 from repro.serve.service import make_query_stream as jmake_query_stream
 from repro_torch.core import NGramConfig, run_job
 from repro_torch.serve import LRUQueryCache, StreamingNGramService, make_query_stream
-from tests.test_compress import make_corpus
+from test_compress import make_corpus
 
 # The tensors here are small, and a parallel test run shares the host's cores
 # between its workers: intra-op threads (which spin between parallel regions)
@@ -115,8 +117,8 @@ def test_default_route_compacts_on_the_merge_route_as_kway_and_repro():
     the port folds on the host); a default service's compacted rung equals an
     explicit ``kway`` service's and ``repro``'s default service's."""
     from repro_torch.index import GenerationalIndex
-    from tests.test_torch_compress import assert_same_compressed
-    from tests.test_torch_merge import assert_tensors_equal
+    from test_torch_compress import assert_same_compressed
+    from test_torch_merge import assert_tensors_equal
     vocab, sigma = 30, 3
     kw = dict(sigma=sigma, tau=1, vocab_size=vocab, combine_route="hash")
     assert GenerationalIndex(sigma=sigma, vocab_size=vocab, device="cpu").route == "merge"
