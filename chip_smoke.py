@@ -11,7 +11,10 @@ line):
                  through ``run_job`` of each of the four methods (APRIORI-INDEX
                  with K = 2 on the larger corpus, so its posting-list join
                  runs), then ``build_index`` -> ``lookup`` / ``continuations``
-                 on the card, against the pure-Python oracle;
+                 on the card, against the pure-Python oracle; and the
+                 extensions: the 21-bucket series job, document frequencies
+                 and postings on the 50k corpus, maximal and closed grams of
+                 a 6k-token job;
   3. main path -- 2**25 NYT-profile terms, sigma=5, tau=10: the job, the index,
                  2**16 point lookups (half hits, half misses or malformed) and
                  2**14 top-8 continuation queries, each checked exactly; the
@@ -34,6 +37,21 @@ line):
                  wholly from the cache; then ``compact_all``, whose single rung
                  must equal a compressed index built directly from the union.
                  Every one of the eight kernels' launch counters must move;
+  7. extensions -- phase 3's corpus with a year bucket a document (the
+                 same stream: the year draw takes no randomness) through the
+                 series job (``n_buckets=21``, sort route cold and 3 warm, and
+                 the hash route): its rows are phase 3's, every series sums to
+                 phase 3's count, map_records equal, shuffle_records at least
+                 phase 3's, shuffle_bytes a record of n_lanes + 2 words;
+                 ``filter_stats`` max and closed of phase 3's output, each
+                 equal to the same call on the CPU, maximal within closed;
+                 ``document_frequencies`` equal to ``df_suffix_lengths``, df
+                 <= cf on phase 3's grams; ``sigma_split`` (sigma 40, tau 10,
+                 head 16) equal to the whole sigma-40 job; ``postings`` at
+                 2**20 terms marginalizing to cf.  Each prints cold and warm
+                 seconds, peak memory, device busy and idle share, and its
+                 launches; ``suffix_pack``, ``hash_partition``,
+                 ``lcp_boundary`` and ``hash_combine`` must launch;
   4. kernels  -- run last, as it needs phase 5's shapes: each CUDA kernel
                  against its plain PyTorch version on the card, at the shapes
                  the main paths gave it and on edge cases (exact equality),
@@ -53,7 +71,10 @@ line):
                  ``stages.combine_hash`` call launches) gets its own line.
                  ``suffix_pack`` and ``hash_partition`` are also measured at
                  the shapes phase 6 gives them (``methods_shape``: the lanes
-                 alone, and NAIVE's keys, one a record).
+                 alone, and NAIVE's keys, one a record), and ``suffix_pack``,
+                 ``hash_combine`` and ``lcp_boundary`` at phase 7's
+                 (``ext_shape``: bucketed records [N, 5], the generic
+                 combiner on lanes | bucket keys, the sigma-40 terms).
 
 The last lines are one JSON object describing each kernel, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.  The
@@ -62,6 +83,7 @@ script needs one card; without CUDA it exits non-zero and prints no result.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import re
 import subprocess
@@ -75,7 +97,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core import NGramConfig, oracle, run_job  # noqa: E402
-from repro_torch.core import naive, suffix_sigma  # noqa: E402
+from repro_torch.core import aggregations, extensions_filter, naive, suffix_sigma  # noqa: E402
 from repro_torch.core.stats import NGramStats  # noqa: E402
 from repro_torch.data import corpus  # noqa: E402
 from repro_torch.index import build_index, continuations, lookup  # noqa: E402
@@ -103,6 +125,15 @@ SIGMA, TAU = 5, 10
 METHODS = ("naive", "apriori_scan", "apriori_index")
 APRIORI_INDEX_K = 4
 N_LOOKUPS, N_PREFIXES, TOP_K = 1 << 16, 1 << 14, 8
+#: phase 7: the paper's extensions.  The deployment of repro's
+#: ``ngram --series --filter`` (src/repro/launch/ngram.py: a year bucket a
+#: document, the NYT span 1987-2007 as 21 buckets), and the text-analytics
+#: case of benchmarks/paper_figures.py (sigma 40, tau 10) for the sigma split
+N_BUCKETS = 21
+SPLIT_SIGMA, SPLIT_TAU, SPLIT_HEAD, SPLIT_FRAC = 40, 10, 16, 1 / 64
+POSTINGS_TERMS = 1 << 20
+#: the kernels of the extensions' path, which phase 7 drives
+EXT_KERNELS = ("suffix_pack", "hash_partition", "lcp_boundary", "hash_combine")
 
 KERNELS = {
     "suffix_pack": "src/repro/kernels/suffix_pack.py:60",
@@ -329,6 +360,35 @@ def phase_oracle(dev) -> None:
         print(f"oracle: {len(toks)} tokens sigma={sigma} tau={tau}: "
               f"{len(exp)} grams; the four methods' jobs (APRIORI-INDEX K={k_index}), "
               "lookups and continuations equal the oracle")
+    # the extensions: the 50k corpus with a year bucket a document (the same
+    # stream) for the series, df and postings; 6k tokens for the maximal and
+    # closed grams, whose oracle compares every pair of grams
+    toks, years = corpus.zipf_corpus(50_000, corpus.NYT, seed=1, duplicate_frac=0.05,
+                                     with_years=True)
+    sigma, tau, vocab = 4, 4, corpus.NYT.vocab_size
+    cfg = NGramConfig(sigma=sigma, tau=tau, vocab_size=vocab)
+    got = run_job(toks, dataclasses.replace(cfg, n_buckets=N_BUCKETS), bucket_ids=years,
+                  device=dev).to_series_dict()
+    exp = oracle.ngram_series(toks, years, sigma, tau, N_BUCKETS)
+    check(got.keys() == exp.keys() and all(np.array_equal(got[g], c) for g, c in exp.items()),
+          f"series job == oracle ({len(exp)} grams x {N_BUCKETS} buckets)")
+    exp = oracle.ngram_document_frequencies(toks, sigma, tau)
+    check(aggregations.document_frequencies(toks, cfg, device=dev).to_dict() == exp
+          and aggregations.df_suffix_lengths(toks, cfg, device=dev).to_dict() == exp,
+          f"document frequencies (one job, and a job a length) == oracle ({len(exp)} grams)")
+    exp = oracle.ngram_postings(toks, sigma, tau)
+    check(aggregations.postings(toks, cfg, device=dev) == exp,
+          f"postings == oracle ({len(exp)} grams)")
+    small = corpus.zipf_corpus(6_000, corpus.NYT, seed=2, duplicate_frac=0.1)
+    stats = run_job(small, cfg, device=dev)
+    exp = oracle.ngram_counts(small, sigma, tau)
+    check(stats.to_dict() == exp, "6k-token job == oracle")
+    for mode, want in (("max", oracle.maximal_ngrams(exp)), ("closed", oracle.closed_ngrams(exp))):
+        check(extensions_filter(stats, mode, device=dev).to_dict() == want,
+              f"filter_stats {mode} == oracle ({len(want)} of {len(exp)} grams)")
+    print(f"oracle: extensions on {len(toks)} tokens (sigma={sigma}, tau={tau}): the "
+          f"{N_BUCKETS}-bucket series, document frequencies and postings; on "
+          f"{len(small)} tokens the maximal and closed grams: all equal the oracle")
 
 
 # --------------------------------------------------------------------- phase 3
@@ -390,17 +450,15 @@ def check_continuations(stats, idx, pg, pl, out) -> None:
     check(np.array_equal(got, counts[qi, kj]), "top-k pairs == point lookups")
 
 
-def profile_job(tokens, cfg, dev, label: str = "profile") -> None:
-    """One more run of the job under ``torch.profiler``: device busy time by
+def profile_call(fn, label: str, what: str = "job") -> tuple[float, float]:
+    """One more call of ``fn`` under ``torch.profiler``: device busy time by
     kernel, and the share of the wall time the card sat idle; lines start
-    with ``label``."""
-    if not tokens.is_cuda:
-        return
+    with ``label``.  Returns (wall ms, device busy ms)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_job(tokens, cfg, device=dev)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict[str, float] = {}
@@ -408,7 +466,7 @@ def profile_job(tokens, cfg, dev, label: str = "profile") -> None:
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
     busy_ms = sum(by_name.values())
-    print(f"{label}: job under torch.profiler {wall_ms:.1f} ms wall, device busy "
+    print(f"{label}: {what} under torch.profiler {wall_ms:.1f} ms wall, device busy "
           f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"{label}:   device {ms:9.3f} ms  {name[:90]}")
@@ -416,6 +474,13 @@ def profile_job(tokens, cfg, dev, label: str = "profile") -> None:
     for ev in host:
         print(f"{label}:   host {ev.self_cpu_time_total / 1e3:9.3f} ms self  "
               f"{ev.key[:60]} x{ev.count}")
+    return wall_ms, busy_ms
+
+
+def profile_job(tokens, cfg, dev, label: str = "profile") -> None:
+    """One more run of the job under ``torch.profiler`` (:func:`profile_call`)."""
+    if tokens.is_cuda:
+        profile_call(lambda: run_job(tokens, cfg, device=dev), label)
 
 
 def phase_main_path(dev, n_terms: int = MAIN_TERMS) -> dict:
@@ -504,7 +569,7 @@ def phase_main_path(dev, n_terms: int = MAIN_TERMS) -> dict:
           f"{job_peak / 2**30:.2f} GiB); kernel launches {launches}")
     print("main: checks passed (unigrams == bincount, hits, misses/malformed, "
           "continuation mass and top-k pairs, repeated job)")
-    return dict(tokens=tokens, toks=toks, stats=stats, idx=idx,
+    return dict(tokens=tokens, toks=toks, n_terms=n_terms, stats=stats, idx=idx,
                 queries=(g_dev, ln_dev), prefixes=(pg_dev, pl_dev),
                 launches=launches)
 
@@ -797,6 +862,158 @@ def phase_streaming(dev, main: dict) -> dict:
                 compact_inputs=compact_inputs, launches=launches)
 
 
+# --------------------------------------------------------------------- phase 7
+def drive(label: str, fn, dev, warm: int = 3):
+    """``fn`` on the card: one cold call, ``warm`` more, one under
+    torch.profiler.  Prints cold and warm seconds, peak device memory over
+    the calls, device busy ms, idle share and the kernel launches of one
+    call; returns the cold call's result."""
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    reset_peak()
+    before = dict(ops.launches)
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    cold = time.perf_counter() - t0
+    per_call = {k: v - before.get(k, 0) for k, v in ops.launches.items()
+                if v != before.get(k, 0)}
+    times = wall_times(fn, sync, warm)
+    peak = device_peak()
+    wall_ms, busy_ms = (profile_call(fn, f"ext: {label}: profile", "call")
+                        if dev.type == "cuda" else (float("nan"), float("nan")))
+    print(f"ext: {label}: cold {cold:.3f} s; warm median {np.median(times):.3f} s (min "
+          f"{min(times):.3f}, max {max(times):.3f}, n={len(times)}); peak device memory "
+          f"{peak / 2**30:.2f} GiB; device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms "
+          f"(idle share {1 - busy_ms / wall_ms:.3f}); launches a call {per_call}")
+    return out
+
+
+def same_rows(a, b) -> bool:
+    return all(np.array_equal(getattr(a, f), getattr(b, f))
+               for f in ("grams", "lengths", "counts"))
+
+
+def phase_extensions(dev, main: dict, split_terms: int | None = None) -> dict:
+    """The paper's extensions at full width: the time-series job on both
+    combine routes, maximal / closed filtering and document frequencies on
+    phase 3's corpus and output; the two-phase sigma split against the
+    whole sigma-40 job at ``split_terms`` (phase 3's corpus unless given);
+    postings at POSTINGS_TERMS."""
+    vocab = corpus.NYT.vocab_size
+    n_l = pack.n_lanes(SIGMA, vocab)
+    t0 = time.perf_counter()
+    toks, years = corpus.zipf_corpus(main["n_terms"], corpus.NYT, seed=0,
+                                     duplicate_frac=0.02, with_years=True)
+    check(np.array_equal(toks, main["toks"]), "the corpus with years is phase 3's stream")
+    tokens, want = main["tokens"], main["stats"]
+    years_dev = torch.as_tensor(years, device=dev)
+    print(f"ext: phase 3's corpus with a year bucket a document ({N_BUCKETS} buckets), "
+          f"made in {time.perf_counter() - t0:.1f} s")
+    ops.launches.clear()
+
+    # time series (SSVI-B): repro's ngram --series deployment
+    cfg = NGramConfig(sigma=SIGMA, tau=TAU, vocab_size=vocab, n_buckets=N_BUCKETS)
+    series = drive("series job (sort route)",
+                   lambda: run_job(tokens, cfg, bucket_ids=years_dev, device=dev), dev)
+    c, w = series.counters, want.counters
+    check(np.array_equal(series.grams, want.grams)
+          and np.array_equal(series.lengths, want.lengths),
+          f"series rows == phase 3's SUFFIX-sigma rows ({len(want)})")
+    check(series.counts.shape == (len(want), N_BUCKETS)
+          and np.array_equal(series.counts.sum(axis=1), want.counts),
+          "every series sums to phase 3's count")
+    check(c["map_records"] == w["map_records"], "series map_records == phase 3's")
+    check(c["shuffle_records"] >= w["shuffle_records"],
+          "series shuffle_records >= phase 3's (the combiner keeps buckets apart)")
+    check(c["shuffle_bytes"] == c["shuffle_records"] * 4 * (n_l + 2),
+          "series shuffle_bytes == shuffle_records x (n_lanes + 2) uint32 words")
+    print(f"ext: series counters {c} (phase 3: map_records {w['map_records']:,}, "
+          f"shuffle_records {w['shuffle_records']:,}, shuffle_bytes {w['shuffle_bytes']:,})")
+    hcfg = dataclasses.replace(cfg, combine_route="hash")
+    hseries = drive("series job (hash route)",
+                    lambda: run_job(tokens, hcfg, bucket_ids=years_dev, device=dev), dev)
+    check(same_rows(hseries, series), "hash-route series == sort-route series")
+    print(f"ext: hash-route series counters {hseries.counters}")
+    del hseries
+
+    # maximal and closed n-grams (SSVI-A) of phase 3's output
+    filtered = {}
+    for mode in ("max", "closed"):
+        got = drive(f"filter_stats {mode}",
+                    lambda mode=mode: extensions_filter(want, mode, device=dev), dev)
+        t0 = time.perf_counter()
+        on_cpu = extensions_filter(want, mode, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        check(same_rows(got, on_cpu) and got.counters == on_cpu.counters,
+              f"filter_stats {mode} on the card == device='cpu'")
+        print(f"ext: filter_stats {mode}: {len(got):,} of {len(want):,} grams; the same "
+              f"call with device='cpu' {cpu_s:.3f} s (host)")
+        filtered[mode] = got
+    check(np.isin(row_keys(filtered["max"].lengths, filtered["max"].grams),
+                  row_keys(filtered["closed"].lengths, filtered["closed"].grams)).all(),
+          "maximal grams are closed")
+
+    # document frequencies (SSII): one job, and one job a length
+    pcfg = NGramConfig(sigma=SIGMA, tau=TAU, vocab_size=vocab)
+    df = drive("document_frequencies",
+               lambda: aggregations.document_frequencies(tokens, pcfg, device=dev), dev)
+    dfl = drive("df_suffix_lengths",
+                lambda: aggregations.df_suffix_lengths(tokens, pcfg, device=dev), dev, warm=1)
+    df = stages.canonical_stats(df)
+    check(same_rows(df, stages.canonical_stats(dfl)),
+          "document_frequencies == df_suffix_lengths")
+    keys = row_keys(want.lengths, want.grams)
+    q = row_keys(df.lengths, df.grams)
+    pos = np.minimum(np.searchsorted(keys, q), len(keys) - 1)
+    check(np.array_equal(keys[pos], q), "df's grams are phase 3's grams")
+    check(np.all(df.counts <= want.counts[pos]), "df <= cf")
+    print(f"ext: df: {len(df):,} grams with df >= {TAU} (of {len(want):,} with cf >= "
+          f"{TAU}); counters {df.counters}, per length {dfl.counters}")
+    del df, dfl
+
+    # the two-phase sigma split at the text-analytics case, against the job
+    split_tokens = (tokens if split_terms in (None, main["n_terms"]) else torch.as_tensor(
+        corpus.zipf_corpus(split_terms, corpus.NYT, seed=0, duplicate_frac=0.02),
+        device=dev))
+    scfg = NGramConfig(sigma=SPLIT_SIGMA, tau=SPLIT_TAU, vocab_size=vocab)
+    full = drive(f"SUFFIX-sigma sigma={SPLIT_SIGMA} (the reference)",
+                 lambda: run_job(split_tokens, scfg, device=dev), dev, warm=1)
+    split = drive(f"sigma_split head {SPLIT_HEAD}, survivors 1/{round(1 / SPLIT_FRAC)}",
+                  lambda: suffix_sigma.sigma_split(split_tokens, scfg, SPLIT_HEAD,
+                                                   SPLIT_FRAC, device=dev), dev, warm=1)
+    # with no frequent head, the split is phase A's output, grams sigma_head wide
+    split = stages.canonical_stats(NGramStats(
+        np.pad(split.grams, ((0, 0), (0, SPLIT_SIGMA - split.grams.shape[1]))),
+        split.lengths, split.counts, split.counters))
+    check(same_rows(split, full),
+          f"sigma_split == the sigma-{SPLIT_SIGMA} job ({len(full):,} grams)")
+    n = split_tokens.shape[0]
+    survivors = split.counters.get("phase_b_records", 0)
+    print(f"ext: sigma_split at {n:,} positions: {int(survivors):,} "
+          f"survivors ({survivors / n:.5f} of the positions; buffer "
+          f"{max(64, int(n * SPLIT_FRAC)):,}); {len(full):,} grams, "
+          f"{int((full.lengths > SPLIT_HEAD).sum()):,} longer than {SPLIT_HEAD}; counters "
+          f"{split.counters}")
+    del full, split
+
+    # postings (SSVI-B's inverted index), at POSTINGS_TERMS: the host dict
+    ptoks = torch.as_tensor(corpus.zipf_corpus(POSTINGS_TERMS, corpus.NYT, seed=0,
+                                               duplicate_frac=0.02), device=dev)
+    post = drive(f"postings at {POSTINGS_TERMS} terms",
+                 lambda: aggregations.postings(ptoks, pcfg, device=dev), dev, warm=1)
+    cf = run_job(ptoks, pcfg, device=dev).to_dict()
+    check({g: sum(p.values()) for g, p in post.items()} == cf,
+          f"postings marginalize to cf ({len(cf):,} grams)")
+    print(f"ext: postings: {len(post):,} grams, {sum(map(len, post.values())):,} "
+          "(gram, document) pairs")
+
+    launches = dict(ops.launches)
+    print(f"ext: checks passed; kernel launches {launches}")
+    return dict(launches=launches, years=years_dev, split_tokens=split_tokens)
+
+
 # --------------------------------------------------------------------- phase 4
 def _probes(lo, hi, pos, steps: int) -> tuple[int, int, torch.Tensor]:
     """(total probes, distinct rows probed, probes [Q] of each query) of a
@@ -913,10 +1130,28 @@ def edge_cases(dev):
         args = (view, t(queries), t(lo.astype(np.int32)), t(hi.astype(np.int32)))
         cases.append(("bsearch", lambda a=args, u=upper: ops.bsearch(*a, upper=u),
                       lambda a=args, u=upper: ref.bsearch_ref(*a, upper=u)))
+    # suffix_pack's bucketed records (lanes | weight | meta) for every tiled
+    # lane count (1-4; 4 twice: the widest tile, 6 columns in dynamic shared
+    # memory, with sigma 8 and with the widest halo, sigma 128) and the
+    # generic instance (sigma 40, 20 lanes), at the tile edges, into a
+    # matrix of -1; meta words >= 2**31
+    for sigma, vocab in ((2, 20_000), (3, 20_000), (5, 20_000), (8, 20_000), (128, 1),
+                         (40, 20_000)):
+        for n in (1, 1023, 1025, 3001):
+            x = t(rng.integers(0, min(vocab, 300) + 1, n).astype(np.int32))
+            m = t(rng.integers(0, 2**32, n).astype(np.uint32).view(np.int32))
+
+            def run(fn, x=x, m=m, s=sigma, v=vocab):
+                rec = torch.full((x.shape[0], pack.n_lanes(s, v) + 2), -1,
+                                 dtype=torch.int64, device=x.device)
+                fn(x, sigma=s, vocab_size=v, out=rec, meta=m)
+                return rec
+            cases.append(("suffix_pack", lambda run=run: run(ops.suffix_pack),
+                          lambda run=run: run(ref.suffix_pack_ref)))
     return cases
 
 
-def phase_kernels(dev, main: dict, methods: dict, stream: dict,
+def phase_kernels(dev, main: dict, methods: dict, stream: dict, ext: dict,
                   probe: ctypes.CDLL) -> list[dict]:
     """Each kernel against its plain version at the main paths' shapes."""
     vocab = corpus.NYT.vocab_size
@@ -926,7 +1161,8 @@ def phase_kernels(dev, main: dict, methods: dict, stream: dict,
     rows = []
     by_path = {k: {"main": main["launches"].get(k, 0),
                    "methods": methods["launches"].get(k, 0),
-                   "stream": stream["launches"].get(k, 0)} for k in KERNELS}
+                   "stream": stream["launches"].get(k, 0),
+                   "ext": ext["launches"].get(k, 0)} for k in KERNELS}
 
     def measure(name, path, kernel, plain, bytes_u32, bytes_stored, ops_done, shape):
         """One row; ``bytes_u32`` counts uint32 values at 4 bytes, ``bytes_stored``
@@ -950,10 +1186,11 @@ def phase_kernels(dev, main: dict, methods: dict, stream: dict,
                     kernel_ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                     bound_ms_as_stored=stored_ms, library_ms=None, shape=shape)
 
-    def at_methods_shape(row: dict, other: dict) -> None:
-        """Attach to ``row`` the measurement ``other`` at the shape phase 6's
-        jobs give the kernel."""
-        row["methods_shape"] = {k: other[k] for k in (
+    def at_shape(row: dict, other: dict, key: str = "methods_shape") -> None:
+        """Attach to ``row`` the measurement ``other`` at the shape another
+        path gives the kernel: phase 6's jobs (``methods_shape``), phase 7's
+        (``ext_shape``)."""
+        row[key] = {k: other[k] for k in (
             "shape", "max_abs_err", "ms", "kernel_ms", "plain_ms", "bound_ms",
             "bound_by", "bound_ms_as_stored")}
 
@@ -969,12 +1206,27 @@ def phase_kernels(dev, main: dict, methods: dict, stream: dict,
         f"tokens [{n}] -> records [{n}, {n_l + 1}] (lanes | weight)"))
     del plain_out
     # the lanes alone, [N, n_lanes], as every round of phase 6 emits them
-    at_methods_shape(rows[-1], measure(
+    at_shape(rows[-1], measure(
         "suffix_pack", "methods",
         lambda: ops.suffix_pack(tokens, sigma=SIGMA, vocab_size=vocab),
         lambda: ref.suffix_pack_ref(tokens, sigma=SIGMA, vocab_size=vocab),
         n * (4 + 4 * n_l), n * (4 + 8 * n_l), 6 * SIGMA * n,
         f"tokens [{n}] -> lanes alone [{n}, {n_l}] (the methods' emit)"))
+    # whole bucketed records, [N, n_lanes + 2], as the series job emits them:
+    # the meta column adds 4 B read and 8 B written a position as stored
+    years = ext["years"]
+    bucketed = torch.empty((n, n_l + 2), dtype=torch.int64, device=tokens.device)
+    plain_out = torch.empty_like(bucketed)
+    at_shape(rows[0], measure(
+        "suffix_pack", "ext",
+        lambda: ops.suffix_pack(tokens, sigma=SIGMA, vocab_size=vocab, out=bucketed,
+                                meta=years),
+        lambda: ref.suffix_pack_ref(tokens, sigma=SIGMA, vocab_size=vocab, out=plain_out,
+                                    meta=years),
+        n * (4 + 4 + 4 * (n_l + 2)), n * (4 + 4 + 8 * (n_l + 2)), 6 * SIGMA * n,
+        f"tokens [{n}] + years [{n}] -> records [{n}, {n_l + 2}] (lanes | weight | bucket)"),
+        "ext_shape")
+    del bucketed, plain_out
     records = stages.combine(records, n_l)
     live = records[:, n_l] > 0
     key = stages.partition_keys(records, n_l, kind="lead", vocab_size=vocab)
@@ -991,7 +1243,7 @@ def phase_kernels(dev, main: dict, methods: dict, stream: dict,
     key = stages.partition_keys(exploded, n_l, kind="gram", vocab_size=vocab)
     del exploded
     r = key.shape[0]
-    at_methods_shape(rows[-1], measure(
+    at_shape(rows[-1], measure(
         "hash_partition", "methods",
         lambda: ops.hash_partition(key, live, n_parts=64),
         lambda: ref.hash_partition_ref(key, live, 64),
@@ -1061,14 +1313,15 @@ def phase_kernels(dev, main: dict, methods: dict, stream: dict,
         if label == "lookup":
             rows.append(row)
     rows += stream_kernel_rows(dev, stream, measure)
+    ext_kernel_rows(dev, main, ext, measure, at_shape, {r["name"]: r for r in rows})
 
     cases = edge_cases(dev) + stream_edge_cases(dev)
     for name, kernel, plain in cases:
         check(max_abs_err(kernel(), plain()) == 0, f"{name} edge case")
     print(f"kernels: {len(cases)} edge cases equal their plain versions "
           "(N=1, ragged N, keys >= 2**31, lo == hi, empty brackets, upper, "
-          "strided lanes, sigma=64; suffix_pack tile edges, sigma 65-300, lanes "
-          "and records; bsearch lane counts 1-4 and 6 in four layouts, bracket "
+          "strided lanes, sigma=64; suffix_pack tile edges, sigma 65-300, lanes, "
+          "records, and bucketed records for lane counts 1-4 and 20; bsearch lane counts 1-4 and 6 in four layouts, bracket "
           "widths 0, 1, 2**d - 1, 2**d and R, truncated steps, int32 and int64 brackets; "
           "strided records, M=0, N=0, all-equal keys across runs, sentinel "
           "tails, sigma=15, block id nb-1; hash_combine K 1-5 x blocks 32-1024 in "
@@ -1081,20 +1334,65 @@ def phase_kernels(dev, main: dict, methods: dict, stream: dict,
     return rows
 
 
-def combine_stage(records: torch.Tensor, n_lanes: int, reps: int = 10) -> int:
-    """Print the device time of one ``stages.combine_hash(records, n_lanes)``
-    call, every kernel it launches summed, and return its launches.  Each
-    kernel's mean time counts once for each launch a call makes, so a launch
-    the profiler missed at its window's start moves nothing.  The call
-    rewrites the weights in place; the keys, and so the work, stay."""
-    times = device_launches(lambda: stages.combine_hash(records, n_lanes), reps)
+def ext_kernel_rows(dev, main: dict, ext: dict, measure, at_shape, rows: dict) -> None:
+    """The shapes phase 7 gives ``hash_combine`` (the series job's lanes |
+    bucket keys, the generic instance) and ``lcp_boundary`` (the sigma-40
+    job's terms), attached to their rows as ``ext_shape``."""
+    vocab = corpus.NYT.vocab_size
+    n_l = pack.n_lanes(SIGMA, vocab)
+    tokens, years = main["tokens"], ext["years"]
+    records, _ = suffix_sigma.make_records(tokens, sigma=SIGMA, vocab_size=vocab,
+                                           bucket_ids=years)
+    plain_rec = records.clone()
+    keys = stages._keys(records, n_l, True)                     # as combine_hash keys them
+    n, k = keys.shape
+
+    def in_place(fn, rec):
+        w = rec[:, n_l]
+        fn(keys, w, out=w)
+        return rec
+    at_shape(rows["hash_combine"], measure(
+        "hash_combine", "ext", lambda: in_place(ops.hash_combine, records),
+        lambda: in_place(ref.hash_combine_ref, plain_rec),
+        n * (4 * k + 8), n * (8 * k + 16), n * (12 * k + 12),
+        f"keys [{n}, {k}] = lanes | bucket (the generic instance), weights in place in "
+        f"records [{n}, {n_l + 2}], blocks of 256 rows, 512 slots"), "ext_shape")
+    del plain_rec, keys
+    if dev.type == "cuda":
+        combine_stage(records, n_l, has_bucket=True)
+    del records
+    sigma = SPLIT_SIGMA
+    n_w = pack.n_lanes(sigma, vocab)
+    rec, _ = suffix_sigma.make_records(ext["split_tokens"], sigma=sigma, vocab_size=vocab)
+    terms = pack.unpack_terms(stages.sort_stage(rec, n_keys=n_w)[:, :n_w], vocab_size=vocab,
+                              sigma=sigma)
+    del rec
+    n = terms.shape[0]
+    at_shape(rows["lcp_boundary"], measure(
+        "lcp_boundary", "ext", lambda: ops.lcp_boundary(terms),
+        lambda: ref.lcp_boundary_ref(terms),
+        n * (4 * sigma + 4 + sigma), n * (4 * sigma + 4 + sigma), 3 * sigma * n,
+        f"terms [{n}, {sigma}] (the sigma-{sigma} job's reducer)"), "ext_shape")
+
+
+def combine_stage(records: torch.Tensor, n_lanes: int, reps: int = 10,
+                  has_bucket: bool = False) -> int:
+    """Print the device time of one ``stages.combine_hash(records, n_lanes,
+    has_bucket)`` call, every kernel it launches summed, and return its
+    launches.  Each kernel's mean time counts once for each launch a call
+    makes, so a launch the profiler missed at its window's start moves
+    nothing.  The call rewrites the weights in place; the keys, and so the
+    work, stay."""
+    times = device_launches(lambda: stages.combine_hash(records, n_lanes, has_bucket),
+                            reps)
     per_call = {name: max(1, round(len(t) / reps)) for name, t in times.items()}
     ms = sum(float(np.mean(t)) * per_call[name] for name, t in times.items()) / 1e3
     n, cols = records.shape
     moved = 2 * n * cols * 8             # every row read, its sectors written back
     launches = sum(per_call.values())
     names = "; ".join(f"{name[:60]} x{k}" for name, k in per_call.items())
-    print(f"kernel hash_combine stage: stages.combine_hash on records [{n}, {cols}]: "
+    print(f"kernel hash_combine stage: stages.combine_hash on records [{n}, {cols}]"
+          f"{' keyed on lanes | bucket' if has_bucket else ''}: "
           f"{launches} kernel launches a call ({names}), {ms:.4f} ms on the device; "
           f"in place every row read and written back whole, {moved:,} bytes: "
           f"{bound(moved, 0)[0]:.4f} ms at 3.35 TB/s")
@@ -1498,19 +1796,33 @@ def main() -> int:
         used = [ln.strip() for ln in report.splitlines() if "Used" in ln]
         print(f"build: {name}: {'; '.join(used)}")
 
+    t_start = time.perf_counter()
+
+    def done(phase: str) -> None:
+        print(f"time: {phase} done at {time.perf_counter() - t_start:.1f} s")
     phase_oracle(dev)                                   # phase 2
+    done("phase 2 (oracle)")
     main_run = phase_main_path(dev)                     # phase 3
     missing = [k for k in MAIN_KERNELS if main_run["launches"].get(k, 0) == 0]
     check(not missing, f"main path launched every kernel (missing {missing})")
+    done("phase 3 (main path)")
     methods = phase_methods(dev, main_run)              # phase 6
     missing = [k for k in METHOD_KERNELS if methods["launches"].get(k, 0) == 0]
     check(not missing, f"the methods launched every kernel (missing {missing})")
+    done("phase 6 (methods)")
     torch.cuda.empty_cache()
     stream = phase_streaming(dev, main_run)             # phase 5
     missing = [k for k in KERNELS if stream["launches"].get(k, 0) == 0]
     check(not missing, f"streaming path launched every kernel (missing {missing})")
-    rows = phase_kernels(dev, main_run, methods, stream,  # phase 4
+    done("phase 5 (streaming)")
+    torch.cuda.empty_cache()
+    ext = phase_extensions(dev, main_run)               # phase 7
+    missing = [k for k in EXT_KERNELS if ext["launches"].get(k, 0) == 0]
+    check(not missing, f"the extensions launched every kernel of their path (missing {missing})")
+    done("phase 7 (extensions)")
+    rows = phase_kernels(dev, main_run, methods, stream, ext,  # phase 4
                          finish_nvcc(probe_nvcc, probe_lib))
+    done("phase 4 (kernels)")
 
     print(json.dumps({"kernels": rows}))
     print(card)

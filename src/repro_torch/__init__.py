@@ -42,9 +42,22 @@ the plain PyTorch version on a CPU tensor.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 U32 = 0xFFFFFFFF
+
+
+def u32_words(values, device) -> torch.Tensor:
+    """``values`` (an array or a tensor of integers) read as uint32, as
+    ``repro``'s ``astype(uint32)`` reads them (a negative value wraps), held
+    as an int32 tensor of the same bit patterns on ``device``: the word
+    vectors the kernels take."""
+    if isinstance(values, torch.Tensor):
+        words = values.to(device=device, dtype=torch.int64) & U32
+        return torch.where(words > 0x7FFFFFFF, words - (1 << 32), words).to(torch.int32)
+    return torch.as_tensor(np.asarray(values).astype(np.uint32).view(np.int32),
+                           device=device)
 
 
 def resolve_device(device=None) -> torch.device:

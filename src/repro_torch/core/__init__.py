@@ -1,12 +1,17 @@
 """The paper's contribution on PyTorch: n-gram statistics jobs.
 
 ``run_job`` dispatches on ``NGramConfig.method`` over the paper's four
-methods, each a single-device job; the multi-device jobs wait for a later
+methods, each a single-device job; SUFFIX-sigma also counts per-bucket time
+series (``bucket_ids=``).  ``extensions`` filters a job's output to its
+maximal or closed n-grams and ``aggregations`` counts beyond occurrences
+(document frequencies, postings).  The multi-device jobs wait for a later
 slice.
 """
 from __future__ import annotations
 
-from . import apriori_index, apriori_scan, naive, oracle, suffix_sigma
+from . import (aggregations, apriori_index, apriori_scan, extensions, naive,
+               oracle, suffix_sigma)
+from .extensions import filter_stats as extensions_filter
 from .stats import NGramConfig, NGramStats
 
 METHODS = {
@@ -25,19 +30,23 @@ PLANS = {
 }
 
 
-def run_job(tokens, cfg: NGramConfig, *, device=None) -> NGramStats:
+def run_job(tokens, cfg: NGramConfig, *, device=None, **kw) -> NGramStats:
     """Run the job ``cfg`` over a PAD-separated token stream.
 
-    Runs on the card unless ``device`` says otherwise; with no card and no
-    ``device`` it raises rather than running on the CPU.
+    ``kw`` goes to the method's ``run``: SUFFIX-sigma takes ``bucket_ids``
+    (a time-series bucket a position); the other methods take none and
+    raise ``TypeError``, as in ``repro``.  Runs on the card unless
+    ``device`` says otherwise; with no card and no ``device`` it raises
+    rather than running on the CPU.
     """
     try:
         fn = METHODS[cfg.method]
     except KeyError:
         raise ValueError(f"unknown method {cfg.method!r}; "
                          f"options: {sorted(METHODS)}") from None
-    return fn(tokens, cfg, device=device)
+    return fn(tokens, cfg, device=device, **kw)
 
 
 __all__ = ["NGramConfig", "NGramStats", "run_job", "METHODS", "PLANS", "oracle",
-           "suffix_sigma", "naive", "apriori_scan", "apriori_index"]
+           "suffix_sigma", "naive", "apriori_scan", "apriori_index",
+           "extensions", "extensions_filter", "aggregations"]

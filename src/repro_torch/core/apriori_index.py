@@ -40,8 +40,8 @@ def _plan_emit(tok_ext, aux_ext, n_live, cfg: NGramConfig, carry, k):
     the live mask) rides along for the ``tau_eff == 1`` carry.
     """
     if aux_ext is not None:
-        raise NotImplementedError("bucket ids (time series) are not ported to "
-                                  "repro_torch yet")
+        raise NotImplementedError("bucket ids (time series) belong to "
+                                  "SUFFIX-sigma alone, as in repro")
     records, valid = kgram_records(tok_ext, k, cfg.sigma, cfg.vocab_size,
                                    weight_mask=_join_mask(cfg, k, carry),
                                    with_positions=True)

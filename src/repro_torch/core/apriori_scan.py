@@ -48,8 +48,8 @@ def _plan_emit(tok_ext, aux_ext, n_live, cfg: NGramConfig, carry, k):
     ride along in ``emit_extras`` for the ``tau_eff == 1`` carry.
     """
     if aux_ext is not None:
-        raise NotImplementedError("bucket ids (time series) are not ported to "
-                                  "repro_torch yet")
+        raise NotImplementedError("bucket ids (time series) belong to "
+                                  "SUFFIX-sigma alone, as in repro")
     records, valid = _candidates(tok_ext, k, cfg, carry)
     live_records, live_valid = records, valid
     if n_live < records.shape[0]:

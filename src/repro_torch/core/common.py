@@ -23,14 +23,25 @@ from repro_torch.mapreduce import pack as packing
 from repro_torch.mapreduce.shuffle import fold_hash as gram_hash
 from repro_torch.pipeline import stages
 
-__all__ = ["run_single_device", "suffix_lanes", "prefix_masks", "term_present",
-           "kgram_records", "membership_hashes", "member", "count_exact_grams",
-           "gram_hash"]
+__all__ = ["as_tokens", "run_single_device", "suffix_lanes", "prefix_masks",
+           "term_present", "kgram_records", "membership_hashes", "member",
+           "count_exact_grams", "gram_hash"]
 
 
-def run_single_device(tokens, cfg, plan, *, mesh=None, device=None):
+def as_tokens(tokens, device) -> torch.Tensor:
+    """``tokens`` as a 1-D int32 tensor on ``device`` (see
+    :func:`repro_torch.resolve_device`: the card unless told otherwise)."""
+    device = resolve_device(device)
+    if isinstance(tokens, torch.Tensor):
+        return tokens.to(device=device, dtype=torch.int32)
+    return torch.as_tensor(np.asarray(tokens, np.int32), device=device)
+
+
+def run_single_device(tokens, cfg, plan, *, mesh=None, device=None,
+                      bucket_ids=None):
     """Run ``plan`` over the whole corpus on one device: the body of every
-    method's ``run``.  ``tokens``: 1-D, PAD(0)-separated documents.
+    method's ``run``.  ``tokens``: 1-D, PAD(0)-separated documents;
+    ``bucket_ids``: a time-series bucket a position (SUFFIX-sigma only).
 
     Runs on the card unless ``device`` says otherwise (see
     :func:`repro_torch.resolve_device`).
@@ -39,12 +50,8 @@ def run_single_device(tokens, cfg, plan, *, mesh=None, device=None):
         raise NotImplementedError("the multi-device job is not ported to "
                                   "repro_torch yet; call run without a mesh")
     from repro_torch.pipeline.executor import run_plan
-    device = resolve_device(device)
-    if isinstance(tokens, torch.Tensor):
-        tokens = tokens.to(device=device, dtype=torch.int32)
-    else:
-        tokens = torch.as_tensor(np.asarray(tokens, np.int32), device=device)
-    return run_plan(tokens, cfg, plan=plan)
+    return run_plan(as_tokens(tokens, device), cfg, bucket_ids=bucket_ids,
+                    plan=plan)
 
 
 def suffix_lanes(tokens: torch.Tensor, sigma: int, vocab_size: int) -> torch.Tensor:

@@ -46,8 +46,8 @@ def _plan_emit(tok_ext, aux_ext, n_live, cfg: NGramConfig, carry, k):
     """Map emit: every (position, length <= sigma) n-gram of the window.  Row
     ``i`` belongs to position ``i // sigma``; positions >= n_live emit nothing."""
     if aux_ext is not None:
-        raise NotImplementedError("bucket ids (time series) are not ported to "
-                                  "repro_torch yet")
+        raise NotImplementedError("bucket ids (time series) belong to "
+                                  "SUFFIX-sigma alone, as in repro")
     records, valid = _explode(tok_ext, cfg.sigma, cfg.vocab_size)
     if n_live < tok_ext.shape[0]:
         pos_ok = (torch.arange(records.shape[0], device=records.device)

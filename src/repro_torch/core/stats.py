@@ -89,7 +89,8 @@ class NGramStats:
 
     grams   : [R, sigma] int32, right-padded with PAD(0)
     lengths : [R] int32
-    counts  : [R] int64 collection frequencies
+    counts  : [R] int64 collection frequencies, or [R, B] int64 per-bucket
+              series (a job with ``n_buckets = B``, SSVI-B)
     counters: exact shuffle/record accounting per phase
     """
 
@@ -110,15 +111,26 @@ class NGramStats:
             out[key] = val if prev is None else prev + val
         return out
 
+    def to_series_dict(self) -> dict[tuple[int, ...], np.ndarray]:
+        """gram -> its [B] per-bucket counts, of a job run with n_buckets > 0."""
+        if self.counts.ndim != 2:
+            raise ValueError("to_series_dict: the job was not run with n_buckets > 0")
+        return {
+            tuple(int(x) for x in g[: int(l)]): c.copy()
+            for g, l, c in zip(self.grams, self.lengths, self.counts)
+        }
+
     @staticmethod
     def from_dense(sorted_terms: np.ndarray, flags: np.ndarray, counts: np.ndarray,
                    tau: int, counters: dict[str, float] | None = None) -> "NGramStats":
         """Extract (gram, count) rows from the dense reducer output.
 
         sorted_terms: [N, sigma]; flags: [N, sigma] boundary flags; counts:
-        [N, sigma] run totals at boundary positions.
+        [N, sigma] run totals at boundary positions, or [N, sigma, B]
+        per-bucket totals, kept where their sum reaches ``tau``.
         """
-        keep = flags & (counts >= tau)
+        total = counts.sum(axis=-1) if counts.ndim == 3 else counts
+        keep = flags & (total >= tau)
         rows, lens0 = np.nonzero(keep)
         sigma = sorted_terms.shape[1]
         lengths = (lens0 + 1).astype(np.int32)

@@ -4,54 +4,82 @@
 Phases (one MapReduce job, like the paper):
 
   map      -- per token position emit the sigma-truncated suffix as packed
-              lanes with weight 1 (the ``suffix_pack`` kernel); an optional
-              map-side combine merges equal suffixes.
+              lanes with weight 1, and its time-series bucket when the job
+              counts series (the ``suffix_pack`` kernel); an optional
+              map-side combine merges equal suffixes (of one bucket).
   shuffle  -- partition by hash(first term); on one device the partition
               histogram (the ``hash_partition`` kernel) feeds ``shuffle_skew``.
   sort     -- lexicographic multi-key sort of the packed lanes.
   reduce   -- LCP boundaries between adjacent sorted suffixes delimit the runs
               of every distinct prefix (the ``lcp_boundary`` kernel); run
-              totals are segmented sums of the weights.
+              totals are segmented sums of the weights, per bucket with
+              ``NGramConfig.n_buckets`` (SSVI-B).
 
-The distributed job, ``sigma_split`` and bucketed series wait for later slices.
+``sigma_split`` runs a large-sigma job in two phases: a SUFFIX-sigma job at
+a short head length, then the longer grams from the positions whose head is
+frequent.  The distributed job waits for the multi-device slice.
 """
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import suffix_windows
 from repro_torch.mapreduce import pack as packing
+from repro_torch.mapreduce.shuffle import GOLDEN, hash_u32
 from repro_torch.pipeline import plan as plan_mod
-from .common import run_single_device
-from .stats import NGramConfig, NGramStats
+from repro_torch.pipeline import stages
+from .common import (as_tokens, gram_hash, member, membership_hashes,
+                     run_single_device, term_present)
+from .stats import NGramConfig, NGramStats, add_counters
 
-__all__ = ["suffix_windows", "make_records", "plan", "run"]
+__all__ = ["suffix_windows", "make_records", "reduce_block", "plan", "run",
+           "sigma_split"]
 
 
-def make_records(tokens: torch.Tensor, *, sigma: int, vocab_size: int
+def make_records(tokens: torch.Tensor, *, sigma: int, vocab_size: int,
+                 bucket_ids: torch.Tensor | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Map emit: [N, n_lanes + 1] int64 records = packed lanes | weight.
+    """Map emit: [N, n_lanes + 1 (+ 1)] int64 records = packed lanes | weight
+    | (bucket), and the valid mask [N].
 
-    The ``suffix_pack`` kernel writes whole records, weight included, in one
-    pass: no lane matrix to copy, and no column written apart (a column
-    alone fills a part of each 32-byte memory sector, which costs the card a
-    read of the rest).
+    The ``suffix_pack`` kernel writes whole records, weight and bucket
+    included, in one pass: no lane matrix to copy, and no column written
+    apart (a column alone fills a part of each 32-byte memory sector, which
+    costs the card a read of the rest).  ``bucket_ids``: an int32 [N] tensor
+    of uint32 words on the tokens' device (``repro_torch.u32_words``).
     """
     n_l = packing.n_lanes(sigma, vocab_size)
-    records = torch.empty((tokens.shape[0], n_l + 1), dtype=torch.int64,
+    width = n_l + 1 + (bucket_ids is not None)
+    records = torch.empty((tokens.shape[0], width), dtype=torch.int64,
                           device=tokens.device)
-    kops.suffix_pack(tokens, sigma=sigma, vocab_size=vocab_size, out=records)
+    kops.suffix_pack(tokens, sigma=sigma, vocab_size=vocab_size, out=records,
+                     meta=bucket_ids)
     return records, tokens != 0
+
+
+def reduce_block(records: torch.Tensor, *, sigma: int, vocab_size: int,
+                 n_buckets: int = 0):
+    """Sort + count one reducer block: ``stages.sort_stage`` then
+    ``stages.reduce_suffix``.
+
+    records: [N, W] = lanes | weight | (bucket).  Returns (terms [N, sigma],
+    flags [N, sigma], counts [N, sigma] or [N, sigma, B]).
+    """
+    rec = stages.sort_stage(records, n_keys=packing.n_lanes(sigma, vocab_size))
+    return stages.reduce_suffix(rec, sigma=sigma, vocab_size=vocab_size,
+                                n_buckets=n_buckets)
 
 
 def _plan_emit(tok_ext, aux_ext, n_live, cfg: NGramConfig, carry, k):
     """Map emit over one token window; positions >= n_live carry no weight."""
-    if aux_ext is not None:
-        raise NotImplementedError("bucket ids (time series) are not ported to "
-                                  "repro_torch yet")
+    if cfg.n_buckets and aux_ext is None:
+        raise ValueError("n_buckets > 0 counts per bucket: pass bucket_ids")
     records, valid = make_records(tok_ext, sigma=cfg.sigma,
-                                  vocab_size=cfg.lane_vocab)
+                                  vocab_size=cfg.lane_vocab, bucket_ids=aux_ext)
     if n_live < records.shape[0]:
         pos_ok = torch.arange(records.shape[0], device=records.device) < n_live
         records = records * pos_ok[:, None]
@@ -73,10 +101,99 @@ def plan(cfg: NGramConfig) -> plan_mod.JobPlan:
     )
 
 
-def run(tokens, cfg: NGramConfig, mesh=None, *, device=None) -> NGramStats:
-    """Run a SUFFIX-sigma job.  ``tokens``: 1-D, PAD(0)-separated documents.
+def run(tokens, cfg: NGramConfig, mesh=None, *, bucket_ids=None,
+        device=None) -> NGramStats:
+    """Run a SUFFIX-sigma job.  ``tokens``: 1-D, PAD(0)-separated documents;
+    ``bucket_ids``: one time-series bucket a position (read as uint32), which
+    ``cfg.n_buckets > 0`` counts per bucket (``NGramStats.to_series_dict``).
 
     Runs on the card unless ``device`` says otherwise (see
     :func:`repro_torch.resolve_device`).
     """
-    return run_single_device(tokens, cfg, plan(cfg), mesh=mesh, device=device)
+    return run_single_device(tokens, cfg, plan(cfg), mesh=mesh, device=device,
+                             bucket_ids=bucket_ids)
+
+
+# --------------------------------------------------------- two-phase sigma split
+def _head_hash(head_lanes: torch.Tensor, n_lanes: int) -> torch.Tensor:
+    """``gram_hash`` of head grams packed at the full job's ``n_lanes``
+    lanes, from their first lanes alone: the lanes past the head are zero,
+    and the fold of a zero lane is ``hash_u32(h ^ GOLDEN)``."""
+    h = gram_hash(head_lanes)
+    for _ in range(n_lanes - head_lanes.shape[1]):
+        h = hash_u32(h ^ GOLDEN)
+    return h
+
+
+def sigma_split(tokens, cfg: NGramConfig, sigma_head: int = 16,
+                survivor_frac: float = 1 / 64, *, device=None) -> NGramStats:
+    """A large-sigma job in two phases (``repro``'s beyond-paper
+    optimization, exact):
+
+      phase A: SUFFIX-sigma at ``sigma_head`` counts every gram of length
+               <= sigma_head, with (sigma_head + 1)-lane records;
+      phase B: only the positions whose length-``sigma_head`` head gram is
+               frequent (APRIORI: every occurrence of a frequent longer gram
+               passes) emit full sigma-truncated suffixes, which count the
+               lengths in (sigma_head, sigma].
+
+    The head dictionary is ``common.membership_hashes`` of phase A's
+    full-length grams; a position's head hash comes from its
+    ``suffix_pack`` lanes at ``sigma_head``.  Survivor positions are
+    compacted before the wide records are built, into a buffer of
+    ``max(64, N * survivor_frac)`` rows; when more positions survive, the
+    fraction grows 4x until they fit (``repro`` reruns the whole split; its
+    counters are those of the run that fits, so the result is the same).
+    Counters: phase A's, plus ``phase_b_records`` (the survivors) and
+    ``phase_b_overflow`` (survivors past the buffer: 0 in the result).
+    Runs on the card unless ``device`` says otherwise.
+    """
+    tokens = as_tokens(tokens, device)
+    if sigma_head >= cfg.sigma:
+        return run(tokens, cfg, device=tokens.device)
+    stats_a = run(tokens, dataclasses.replace(cfg, sigma=sigma_head),
+                  device=tokens.device)
+    heads = stats_a.grams[stats_a.lengths == sigma_head]
+    if heads.shape[0] == 0:
+        return stats_a
+
+    vocab, n, dev = cfg.vocab_size, tokens.shape[0], tokens.device
+    n_wide = packing.n_lanes(cfg.sigma, vocab)
+    head_pad = torch.zeros((heads.shape[0], cfg.sigma), dtype=torch.int32, device=dev)
+    head_pad[:, :sigma_head] = torch.as_tensor(heads[:, :sigma_head], device=dev)
+    dict_hashes = membership_hashes(packing.pack_terms(head_pad, vocab_size=vocab),
+                                    torch.ones(heads.shape[0], dtype=torch.bool,
+                                               device=dev))
+
+    # phase B: positions whose full head is in the dictionary
+    head_lanes = kops.suffix_pack(tokens, sigma=sigma_head, vocab_size=vocab)
+    eligible = ((tokens != 0) & term_present(head_lanes, sigma_head, vocab, sigma_head - 1)
+                & member(dict_hashes, _head_hash(head_lanes, n_wide)))
+    del head_lanes
+    n_eligible = int(eligible.sum())
+    n_b = max(64, int(n * survivor_frac))
+    while n_eligible > n_b:                     # survivor buffer too small
+        survivor_frac = min(1.0, survivor_frac * 4)
+        n_b = max(64, int(n * survivor_frac))
+
+    # the wide records of the survivors alone, in a buffer of n_b rows
+    pos = eligible.nonzero().squeeze(1)
+    del eligible
+    padded = torch.cat([tokens, tokens.new_zeros(cfg.sigma)])
+    win = padded[pos[:, None] + torch.arange(cfg.sigma, device=dev)[None, :]]
+    win *= torch.cumprod(win != 0, dim=1, dtype=torch.int32)
+    records = torch.zeros((min(n_b, n), n_wide + 1), dtype=torch.int64, device=dev)
+    records[:n_eligible, :n_wide] = packing.pack_terms(win, vocab_size=vocab)
+    records[:n_eligible, n_wide] = 1
+    del win, padded, pos
+    terms, flags, counts = reduce_block(records, sigma=cfg.sigma, vocab_size=vocab)
+    flags[:, :sigma_head] = False               # phase A owns lengths <= sigma_head
+    from repro_torch.pipeline.executor import materialize
+    stats_b = materialize((terms, flags, counts), cfg.tau)
+
+    stats_a = NGramStats(
+        np.pad(stats_a.grams, ((0, 0), (0, cfg.sigma - sigma_head))),
+        stats_a.lengths, stats_a.counts, stats_a.counters)
+    out = stats_a.merged_with(stats_b)
+    add_counters(out.counters, phase_b_records=n_eligible, phase_b_overflow=0)
+    return out

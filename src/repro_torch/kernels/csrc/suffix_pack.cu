@@ -8,9 +8,10 @@
 // mod 2^32, as the TPU kernel does.
 //
 // What bounds it on the H100: bytes.  4 bytes in and 8 * n_lanes out per
-// position (8 more with the weight column), N * (4 + 8 * n_lanes) / 3.35e12 s
-// as stored; the arithmetic (a few integer operations per term) is far below
-// the integer peak.  The first port (one thread per position, straight from
+// position (8 more with the weight column, and 4 in and 8 out more with the
+// meta column), N * (4 + 8 * n_lanes) / 3.35e12 s as stored; the
+// arithmetic (a few integer operations per term) is far below the integer
+// peak.  The first port (one thread per position, straight from
 // global memory) reached about 1.2 TB/s: each thread stored its n_lanes lanes
 // at a stride of 8 * n_lanes bytes, so every warp-wide store touched n_lanes
 // times the sectors it filled, each token was loaded sigma times, and 137,543
@@ -33,6 +34,14 @@
 //    records in one pass.  Written as lanes alone into the records' columns,
 //    each 32-byte record would get 24 bytes, and such partial-sector stores
 //    ran at 0.89 ms against 0.375 ms dense at 2^25 terms on the H100.
+//  * Whole bucketed records: with `meta` (a per-position uint32 vector, the
+//    time-series bucket id of SSVI-B), each row gains one more column after
+//    the weight, read straight from global memory in the same pass, so the
+//    map writes [N, n_lanes + 2] records as `repro`'s make_records lays them
+//    out (lanes | weight | bucket), and no column is written apart.
+//  * The staged tile lives in dynamic shared memory, sized by the record's
+//    columns: at NL = 4 with the meta column it is 1024 x 6 x 8 B = 48 KiB
+//    plus the tokens, over the 48 KiB a block may hold statically.
 //  * Persistent grid: as many blocks as fit on the card walk the tiles in a
 //    grid-stride loop.
 // More lanes (n_lanes = 0 here, the generic instance) take any sigma: one
@@ -51,9 +60,23 @@ struct Args {
   const int32_t* tokens;
   long long n;
   int sigma, bits, per, n_lanes;
-  long long* out;            // [n, n_lanes + weight], dense
+  long long* out;            // [n, n_lanes + weight + (meta != null)], dense
   int weight;                // 1: column n_lanes gets the map weight (token != PAD)
+  const int32_t* meta;       // null, or [n] uint32 words for column n_lanes + 1
 };
+
+// the int64 value of meta word i: its uint32 bit pattern, as repro's
+// astype(uint32) gives it
+__device__ __forceinline__ long long meta_at(const Args& a, long long i) {
+  return (long long)(uint32_t)__ldg(a.meta + i);
+}
+
+// shared-memory bytes of a tile of NL lanes with `cols` columns: the staged
+// output rows, then the tokens with their halo
+template <int NL>
+constexpr size_t tile_bytes(int cols) {
+  return (size_t)kTile * cols * sizeof(long long) + (kTile + 32 * NL) * sizeof(int32_t);
+}
 
 // the packed window of position r, lane by lane, into row[0 .. nl); tok(j)
 // reads token r + j
@@ -76,7 +99,7 @@ __device__ __forceinline__ void pack_row(const Args& a, int nl, Tok tok,
 
 template <int NL>
 __global__ void __launch_bounds__(kThreads) suffix_pack_kernel(Args a) {
-  const int cols = a.n_lanes + a.weight;
+  const int cols = a.n_lanes + a.weight + (a.meta != nullptr);
   if constexpr (NL == 0) {
     for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < a.n;
          i += (long long)gridDim.x * kThreads) {
@@ -84,10 +107,14 @@ __global__ void __launch_bounds__(kThreads) suffix_pack_kernel(Args a) {
       long long* row = a.out + i * cols;
       pack_row(a, a.n_lanes, tok, row);
       if (a.weight) row[a.n_lanes] = tok(0) != 0 ? 1 : 0;
+      if (a.meta) row[a.n_lanes + 1] = meta_at(a, i);
     }
   } else {
-    __shared__ __align__(16) int32_t s_tok[kTile + 32 * NL];
-    __shared__ __align__(16) long long s_out[kTile * (NL + 1)];
+    // [kTile * cols] staged rows, then [kTile + 32 * NL] tokens; kTile * cols
+    // * 8 is a multiple of 16, so the tokens keep 16-byte alignment
+    extern __shared__ __align__(16) unsigned char smem[];
+    long long* s_out = (long long*)smem;
+    int32_t* s_tok = (int32_t*)(smem + (size_t)kTile * cols * sizeof(long long));
     const long long n_tiles = (a.n + kTile - 1) / kTile;
     const bool vec_in = ((uintptr_t)a.tokens & 15) == 0;
     // kTile * cols is even, so every tile starts as aligned as the output
@@ -115,6 +142,7 @@ __global__ void __launch_bounds__(kThreads) suffix_pack_kernel(Args a) {
       for (int r = threadIdx.x; r < rows; r += kThreads) {
         pack_row(a, NL, [&](int j) { return s_tok[r + j]; }, s_out + r * cols);
         if (a.weight) s_out[r * cols + NL] = s_tok[r] != 0 ? 1 : 0;
+        if (a.meta) s_out[r * cols + NL + 1] = meta_at(a, t0 + r);
       }
       __syncthreads();
       // 3. the tile in address order
@@ -139,28 +167,38 @@ __global__ void __launch_bounds__(kThreads) suffix_pack_kernel(Args a) {
 template <int NL>
 int launch(const Args& a, cudaStream_t stream) {
   const long long per_block = NL > 0 ? kTile : kThreads;
+  const size_t smem = NL > 0 ? tile_bytes<NL>(a.n_lanes + a.weight + (a.meta != nullptr)) : 0;
+  if (NL > 0) {
+    // the widest tile (lanes | weight | meta) may exceed the 48 KiB default
+    const cudaError_t attr = cudaFuncSetAttribute(
+        suffix_pack_kernel<NL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)tile_bytes<NL>(NL + 2));
+    if (attr != cudaSuccess) return (int)attr;
+  }
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, suffix_pack_kernel<NL>,
-                                                kThreads, 0);
+                                                kThreads, smem);
   const long long needed = (a.n + per_block - 1) / per_block;
   long long blocks = (long long)sms * (per_sm > 0 ? per_sm : 1);
   if (blocks > needed) blocks = needed;
-  suffix_pack_kernel<NL><<<(unsigned int)blocks, kThreads, 0, stream>>>(a);
+  suffix_pack_kernel<NL><<<(unsigned int)blocks, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// out: [n, n_lanes + (weight != 0)] int64, dense
+// out: [n, n_lanes + (weight != 0) + (meta != null)] int64, dense; meta
+// (null, or [n] uint32 words) needs the weight column
 extern "C" int suffix_pack_launch(const void* tokens, long long n, int sigma,
                                   int bits, int per, int n_lanes, void* out,
-                                  int weight, void* stream) {
-  if (sigma < 1 || per < 1 || n_lanes != (sigma + per - 1) / per)
+                                  int weight, const void* meta, void* stream) {
+  if (sigma < 1 || per < 1 || n_lanes != (sigma + per - 1) / per ||
+      (meta != nullptr && weight == 0))
     return (int)cudaErrorInvalidValue;
   const Args a{(const int32_t*)tokens, n, sigma, bits, per, n_lanes,
-               (long long*)out, weight != 0};
+               (long long*)out, weight != 0, (const int32_t*)meta};
   cudaStream_t s = (cudaStream_t)stream;
   switch (n_lanes) {
     case 1: return launch<1>(a, s);

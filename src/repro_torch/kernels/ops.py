@@ -39,35 +39,48 @@ def _launch(name: str, device: torch.device, *args) -> None:
 
 
 def suffix_pack(tokens: torch.Tensor, *, sigma: int, vocab_size: int,
-                out: torch.Tensor | None = None) -> torch.Tensor:
+                out: torch.Tensor | None = None,
+                meta: torch.Tensor | None = None) -> torch.Tensor:
     """Packed sigma-truncated suffix lanes [N, n_lanes] int64 of a token stream.
 
     With ``out``, a contiguous [N, n_lanes + 1] int64 tensor on the tokens'
     device, the map's records are written there in one pass and returned:
-    the lanes, then the weight, 1 for a real token and 0 for PAD.  Any
+    the lanes, then the weight, 1 for a real token and 0 for PAD.  With
+    ``meta`` too, an int32 [N] vector on that device (uint32 words, such as
+    time-series bucket ids), ``out`` is [N, n_lanes + 2] and each row ends
+    with its position's meta word as a uint32 value, in the same pass.  Any
     sigma >= 1 (as ``NGramConfig`` takes).
     """
     n_l = packing.n_lanes(sigma, vocab_size)
+    n = tokens.shape[0]
+    if meta is not None:
+        if out is None:
+            raise ValueError("suffix_pack: meta is a records column; pass out too")
+        _check(meta, "suffix_pack meta", torch.int32, 1)
+        if meta.shape[0] != n or meta.device != tokens.device:
+            raise ValueError(f"suffix_pack: meta must be a [{n}] vector on the tokens' device")
     if out is not None:
+        cols = n_l + 1 + (meta is not None)
         _check(out, "suffix_pack out", torch.int64, 2)
-        if out.shape != (tokens.shape[0], n_l + 1) or out.device != tokens.device \
+        if out.shape != (n, cols) or out.device != tokens.device \
                 or not out.is_contiguous():
-            raise ValueError(f"suffix_pack: out must be a contiguous [{tokens.shape[0]}, "
-                             f"{n_l + 1}] tensor on the tokens' device")
+            raise ValueError(f"suffix_pack: out must be a contiguous [{n}, "
+                             f"{cols}] tensor on the tokens' device")
     if not tokens.is_cuda:
         return ref.suffix_pack_ref(tokens, sigma=sigma, vocab_size=vocab_size,
-                                   out=out)
+                                   out=out, meta=meta)
     _check(tokens, "suffix_pack tokens", torch.int32, 1)
     tokens = tokens.contiguous()
-    n = tokens.shape[0]
     weight = out is not None
     if out is None:
         out = torch.empty((n, n_l), dtype=torch.int64, device=tokens.device)
+    if meta is not None:
+        meta = meta.contiguous()
     if n:
         _launch("suffix_pack", tokens.device, tokens.data_ptr(), n, sigma,
                 packing.bits_for_vocab(vocab_size),
                 packing.terms_per_lane(vocab_size), n_l, out.data_ptr(),
-                int(weight))
+                int(weight), None if meta is None else meta.data_ptr())
     return out
 
 

@@ -39,18 +39,24 @@ def suffix_windows(tokens: torch.Tensor, sigma: int
 
 
 def suffix_pack_ref(tokens: torch.Tensor, *, sigma: int, vocab_size: int,
-                    out: torch.Tensor | None = None) -> torch.Tensor:
+                    out: torch.Tensor | None = None,
+                    meta: torch.Tensor | None = None) -> torch.Tensor:
     """Packed sigma-truncated suffix lanes [N, n_lanes] int64 of a token stream.
 
     With ``out`` ([N, n_lanes + 1]) the map's records are written there:
-    the lanes, then the weight, 1 for a real token and 0 for PAD.
+    the lanes, then the weight, 1 for a real token and 0 for PAD; with
+    ``meta`` ([N] int32) too, ``out`` is [N, n_lanes + 2] and its last
+    column holds each meta word as a uint32 value.
     """
     windows, valid = suffix_windows(tokens, sigma)
     lanes = packing.pack_terms(windows, vocab_size=vocab_size)
     if out is None:
         return lanes
-    out[:, :-1] = lanes
-    out[:, -1] = valid
+    n_l = lanes.shape[1]
+    out[:, :n_l] = lanes
+    out[:, n_l] = valid
+    if meta is not None:
+        out[:, n_l + 1] = meta.to(torch.int64) & U32
     return out
 
 

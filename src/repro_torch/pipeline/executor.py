@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import u32_words
 from repro_torch.kernels import ops as kops
 from repro_torch.mapreduce import pack as packing
 from repro_torch.obs import metrics as obs_metrics
@@ -28,11 +29,14 @@ from repro_torch.pipeline.plan import JobPlan, plan_for
 _SKEW_BUCKETS = 64   # nominal reducer count for the shuffle-skew counter
 
 
-def _stage_core_impl(records, valid, *, n_lanes: int,
+def _stage_core_impl(records, valid, *, n_lanes: int, has_bucket: bool,
                      combine_route: str | None, sigma: int, lane_vocab: int,
                      shuffle_key: str, reduce_kind: str,
                      with_positions: bool = False, n_buckets: int = 0):
     """combine -> shuffle-key -> sort -> reduce over one round's records.
+
+    ``has_bucket``: the records end with a time-series bucket lane, which the
+    combiner keeps apart and ``n_buckets > 0`` counts per bucket.
 
     Returns (dense reducer outputs, map-record count, post-combine live-record
     count, partition histogram over ``_SKEW_BUCKETS`` nominal reducers); the
@@ -42,7 +46,8 @@ def _stage_core_impl(records, valid, *, n_lanes: int,
     """
     map_rec = valid.sum()
     if combine_route is not None:
-        records = stages.combine(records, n_lanes, route=combine_route)
+        records = stages.combine(records, n_lanes, has_bucket,
+                                 route=combine_route)
     live = records[:, n_lanes] > 0
     shuffled = live.sum()
     key = stages.partition_keys(records, n_lanes, kind=shuffle_key,
@@ -60,20 +65,25 @@ def _stage_core_impl(records, valid, *, n_lanes: int,
     return dense, map_rec, shuffled, hist
 
 
-def _materialize(dense, tau: int):
+def materialize(dense, tau: int):
     """Dense reducer output -> host ``NGramStats``.
 
-    Only rows holding a kept (flag, cf >= tau) cell leave the device; the row
-    subset keeps its order, so the result equals ``from_dense`` over the
-    whole dense output.
+    ``NGramStats.from_dense`` computed on the device, so that only the kept
+    (flag, cf >= tau) cells leave it: each cell's row of terms, cut to its
+    length, and its count, in ``from_dense``'s row-major order.  Series
+    counts [N, sigma, B] are kept by their sum over the buckets, taken in
+    int32 as the cells are: an int64 sum would first copy the whole
+    [N, sigma, B] tensor to int64.
     """
     from repro_torch.core.stats import NGramStats
     terms, flags, counts = dense
-    keep = flags & (counts >= tau)
-    rows = keep.any(dim=1).nonzero().squeeze(1)
-    return NGramStats.from_dense(terms[rows].cpu().numpy(),
-                                 keep[rows].cpu().numpy(),
-                                 counts[rows].cpu().numpy(), tau)
+    total = counts.sum(dim=-1, dtype=torch.int32) if counts.dim() == 3 else counts
+    rows, lens0 = (flags & (total >= tau)).nonzero().unbind(1)
+    lengths = (lens0 + 1).to(torch.int32)
+    grams = terms[rows] * (torch.arange(terms.shape[1], device=terms.device)
+                           < lengths[:, None])
+    return NGramStats(grams.to(torch.int32).cpu().numpy(), lengths.cpu().numpy(),
+                      counts[rows, lens0].to(torch.int64).cpu().numpy())
 
 
 def _run_rounds(tok_ext, aux_ext, n_live: int, cfg, plan: JobPlan,
@@ -83,7 +93,8 @@ def _run_rounds(tok_ext, aux_ext, n_live: int, cfg, plan: JobPlan,
 
     lane_vocab = plan.effective_lane_vocab(cfg)
     n_l = packing.n_lanes(cfg.sigma, lane_vocab)
-    n_meta = plan.map.n_meta + (1 if aux_ext is not None else 0)
+    has_bucket = aux_ext is not None
+    n_meta = plan.map.n_meta + (1 if has_bucket else 0)
     rec_bytes = packing.record_bytes(cfg.sigma, lane_vocab, n_meta=n_meta)
     combine_route = plan.combine.route if plan.combine is not None else None
 
@@ -98,7 +109,8 @@ def _run_rounds(tok_ext, aux_ext, n_live: int, cfg, plan: JobPlan,
                 sp.sync(records)
         with obs_trace.span("round.stages") as sp:
             dense, map_rec, shuffled, hist = _stage_core_impl(
-                records, valid, n_lanes=n_l, combine_route=combine_route,
+                records, valid, n_lanes=n_l, has_bucket=has_bucket,
+                combine_route=combine_route,
                 sigma=cfg.sigma, lane_vocab=lane_vocab,
                 shuffle_key=plan.shuffle.key, reduce_kind=plan.reduce.kind,
                 with_positions=plan.reduce.with_positions,
@@ -110,7 +122,7 @@ def _run_rounds(tok_ext, aux_ext, n_live: int, cfg, plan: JobPlan,
         with obs_trace.span("round.materialize") as sp:
             if sp:
                 sp.set(round=k)
-            stats_k = _materialize(dense[:3], tau_eff)
+            stats_k = materialize(dense[:3], tau_eff)
             reduce_extras = ({"totals_pos": dense[3]}
                              if plan.reduce.with_positions else {})
             del dense
@@ -140,21 +152,31 @@ def _run_rounds(tok_ext, aux_ext, n_live: int, cfg, plan: JobPlan,
     return out
 
 
-def run_plan(tokens: torch.Tensor, cfg, plan: JobPlan | None = None):
+def run_plan(tokens: torch.Tensor, cfg, bucket_ids=None,
+             plan: JobPlan | None = None):
     """One-wave (whole-corpus) plan execution -- the single-device job.
 
-    ``tokens`` is a 1-D int32 tensor; the job runs on its device.  Output rows
-    are in canonical segment order, counters as ``repro``'s ``run_plan``.
+    ``tokens`` is a 1-D int32 tensor; the job runs on its device.
+    ``bucket_ids``: one time-series bucket a position (SSVI-B), read as
+    uint32 as ``repro`` reads them; with ``cfg.n_buckets > 0`` the counts
+    are per-bucket series.  Output rows are in canonical segment order,
+    counters as ``repro``'s ``run_plan``.
     """
     plan = plan or plan_for(cfg)
     with obs_trace.span("plan.run") as sp:
         if sp:
             sp.set(method=cfg.method, rounds=plan.rounds)
+        aux = None
+        if bucket_ids is not None:
+            aux = u32_words(bucket_ids, tokens.device)
+            if aux.shape != tokens.shape:
+                raise ValueError(f"bucket_ids: one a position, {tuple(tokens.shape)}; "
+                                 f"got {tuple(aux.shape)}")
         counters = dict.fromkeys(
             ("jobs", "map_records", "shuffle_records", "shuffle_bytes",
              "retries", "overflow"), 0)
         counters["shuffle_skew"] = 0.0
-        out = _run_rounds(tokens, None, int(tokens.shape[0]), cfg, plan,
+        out = _run_rounds(tokens, aux, int(tokens.shape[0]), cfg, plan,
                           cfg.tau, counters)
         out.counters = obs_metrics.normalize_counters(out.counters)
         return stages.canonical_stats(out)

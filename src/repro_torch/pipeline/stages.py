@@ -11,8 +11,9 @@
              (Algorithm 4), through the ``lcp_boundary`` kernel;
              ``reduce_exact``: whole-gram runs (NAIVE, APRIORI-SCAN/-INDEX).
 
-Records are ``[N, W]`` int64 (packed lanes | weight | meta); shapes stay static, and
-token id 0 reads as "no token" throughout, as in ``repro``.
+Records are ``[N, W]`` int64 (packed lanes | weight | meta, where the meta
+lane is a position or a time-series bucket); shapes stay static, and token
+id 0 reads as "no token" throughout, as in ``repro``.
 """
 from __future__ import annotations
 
@@ -25,23 +26,38 @@ from repro_torch.mapreduce import segment, shuffle, sort
 
 
 # ------------------------------------------------------------------- combine
-def combine_sort(records: torch.Tensor, n_lanes: int) -> torch.Tensor:
-    """Sort-based map-side combiner: merge records with identical lanes.
+def _keys(records: torch.Tensor, n_lanes: int, has_bucket: bool) -> torch.Tensor:
+    """The combiner's key: the packed lanes (a view), or with a bucket lane
+    the lanes and the bucket, which the weight column parts, gathered into
+    one matrix, so that series buckets stay apart.  Of the gathers measured
+    on the card, indexing with a column list was the fastest (``torch.cat``
+    of the two slices and ``index_select`` ran slower)."""
+    if has_bucket:
+        return records[:, list(range(n_lanes)) + [n_lanes + 1]]
+    return records[:, :n_lanes]
 
-    Non-first rows of each run get weight 0 (dropped by the shuffle's
-    validity mask); shapes stay static.
+
+def combine_sort(records: torch.Tensor, n_lanes: int,
+                 has_bucket: bool = False) -> torch.Tensor:
+    """Sort-based map-side combiner: merge records with identical keys.
+
+    Keys are the packed lanes, plus the bucket lane if present.  Non-first
+    rows of each run get weight 0 (dropped by the shuffle's validity mask);
+    shapes stay static.  The records keep their layout, lanes | weight |
+    (bucket): the sort reads the key columns, and the rows move whole.
     """
-    rec = sort.sort_records(records, n_keys=n_lanes)
-    keys = rec[:, :n_lanes]
+    rec = records[sort.lex_order(_keys(records, n_lanes, has_bucket))]
+    keys = _keys(rec, n_lanes, has_bucket)
     first = (keys != torch.roll(keys, 1, dims=0)).any(dim=1)
     first[:1] = True
     seg = torch.cumsum(first, dim=0) - 1
-    wsum = torch.zeros_like(rec[:, -1]).index_add_(0, seg, rec[:, -1])
-    rec[:, -1] = torch.where(first, wsum[seg], 0)
+    weight = rec[:, n_lanes]
+    wsum = torch.zeros_like(weight).index_add_(0, seg, weight)
+    rec[:, n_lanes] = torch.where(first, wsum[seg], 0)
     return rec
 
 
-def combine_hash(records: torch.Tensor, n_lanes: int, *,
+def combine_hash(records: torch.Tensor, n_lanes: int, has_bucket: bool = False, *,
                  block: int = 256) -> torch.Tensor:
     """Sort-free hash-slot combiner: collapse duplicate keys without a sort.
 
@@ -50,19 +66,22 @@ def combine_hash(records: torch.Tensor, n_lanes: int, *,
     rows whose key equals their slot winner's key donate their weight to the
     winner; slot losers keep theirs.  Row order never changes.  The weight
     lane is rewritten in place by the one kernel launch (``out=`` the weight
-    column): the records are the emit's own buffer.
+    column): the records are the emit's own buffer.  Keys are the lanes,
+    read in place, or with a bucket lane a gathered lanes | bucket matrix
+    (which ``hash_combine`` takes to its generic instance).
     """
     weights = records[:, n_lanes]
-    kops.hash_combine(records[:, :n_lanes], weights, block=block, out=weights)
+    kops.hash_combine(_keys(records, n_lanes, has_bucket), weights, block=block,
+                      out=weights)
     return records
 
 
-def combine(records: torch.Tensor, n_lanes: int, *,
+def combine(records: torch.Tensor, n_lanes: int, has_bucket: bool = False, *,
             route: str = "sort") -> torch.Tensor:
     if route == "sort":
-        return combine_sort(records, n_lanes)
+        return combine_sort(records, n_lanes, has_bucket)
     if route == "hash":
-        return combine_hash(records, n_lanes)
+        return combine_hash(records, n_lanes, has_bucket)
     raise ValueError(f"unknown combine route {route!r}")
 
 
@@ -84,18 +103,21 @@ def reduce_suffix(rec: torch.Tensor, *, sigma: int, vocab_size: int,
                   n_buckets: int = 0):
     """LCP-run reducer over a *sorted* record block (SUFFIX-sigma).
 
-    rec: [N, W] sorted = lanes | weight.  Returns (terms [N, sigma] int32,
-    flags [N, sigma] bool, counts [N, sigma] int32).
+    rec: [N, W] sorted = lanes | weight | (bucket).  Returns (terms [N, sigma]
+    int32, flags [N, sigma] bool, counts [N, sigma] int32, or [N, sigma, B]
+    per-bucket totals with ``n_buckets = B``).
     """
-    if n_buckets:
-        raise NotImplementedError("n_buckets > 0 (time series) is not ported "
-                                  "to repro_torch yet")
     n_l = packing.n_lanes(sigma, vocab_size)
     terms = packing.unpack_terms(rec[:, :n_l], vocab_size=vocab_size,
                                  sigma=sigma)
     _, flags = kops.lcp_boundary(terms)
-    counts = segment.run_counts(flags, terms != 0, rec[:, n_l],
-                                max_segments=rec.shape[0])
+    if n_buckets:
+        counts = segment.run_counts_matrix(flags, terms != 0, rec[:, n_l],
+                                           rec[:, n_l + 1], n_buckets,
+                                           max_segments=rec.shape[0])
+    else:
+        counts = segment.run_counts(flags, terms != 0, rec[:, n_l],
+                                    max_segments=rec.shape[0])
     return terms, flags, counts
 
 
@@ -156,5 +178,7 @@ def canonical_stats(stats):
         (l_s != np.roll(l_s, 1))
     prev_diff[0] = True
     starts = np.flatnonzero(prev_diff)
+    if len(starts) == r:                  # every gram once (a job's output)
+        return NGramStats(g_s, l_s, c_s.astype(np.int64), dict(stats.counters))
     summed = np.add.reduceat(c_s.astype(np.int64), starts, axis=0)
     return NGramStats(g_s[starts], l_s[starts], summed, dict(stats.counters))

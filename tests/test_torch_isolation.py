@@ -97,3 +97,29 @@ def test_streaming_entry_points_refuse_cpu_without_a_device(monkeypatch):
     svc.ingest(toks)
     assert svc.lookup(np.asarray([[1, 2]], np.int32), np.asarray([2])).tolist() == [1]
     assert compress_index(idx, device="cpu").n_rows == idx.n_rows
+
+
+def test_extension_entry_points_refuse_cpu_without_a_device(monkeypatch):
+    """The series job, ``filter_stats``, the aggregations and ``sigma_split``
+    run on the card by default and raise without one; given
+    ``device="cpu"`` they run on the host."""
+    from repro_torch.core import (NGramConfig, aggregations, extensions_filter,
+                                  run_job, suffix_sigma)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    toks = np.asarray([1, 2, 0, 2, 1, 2, 0, 1, 2], np.int32)
+    years = np.asarray([0, 0, 0, 1, 1, 1, 1, 2, 2], np.int32)
+    cfg = NGramConfig(sigma=2, tau=1, vocab_size=3)
+    series = NGramConfig(sigma=2, tau=1, vocab_size=3, n_buckets=3)
+    stats = run_job(toks, cfg, device="cpu")
+    calls = (lambda **kw: run_job(toks, series, bucket_ids=years, **kw),
+             lambda **kw: extensions_filter(stats, "max", **kw),
+             lambda **kw: aggregations.document_frequencies(toks, cfg, **kw),
+             lambda **kw: aggregations.df_suffix_lengths(toks, cfg, **kw),
+             lambda **kw: aggregations.postings(toks, cfg, **kw),
+             lambda **kw: suffix_sigma.sigma_split(toks, cfg, 1, **kw))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+        call(device="cpu")
+    assert run_job(toks, series, bucket_ids=years, device="cpu").to_series_dict()[(1, 2)] \
+        .tolist() == [1, 1, 1]

@@ -185,7 +185,8 @@ def test_record_count_invariant():
 
 def test_unported_options_raise():
     toks = np.asarray([1, 2, 0, 2], np.int32)
-    with pytest.raises(NotImplementedError):
+    # series jobs run in the port; one without its bucket ids is refused
+    with pytest.raises(ValueError):
         run_job(toks, NGramConfig(sigma=2, tau=1, vocab_size=3, n_buckets=2),
                 device="cpu")
     from repro_torch.core import suffix_sigma

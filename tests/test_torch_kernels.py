@@ -50,18 +50,38 @@ def _case_lcp_boundary(rng, scale):
 
 
 def _case_suffix_pack(rng, scale):
+    """The lanes alone, or (half the draws) whole bucketed records: lanes |
+    weight | meta, ``repro``'s ``make_records(bucket_ids=)`` layout."""
     n = int(rng.integers(1, 120 * scale + 2))
     sigma = int(rng.integers(1, 65))
     vocab = int(rng.choice([1, 3, 300, 20_000, 70_000, 1 << 30]))
     toks = rng.integers(0, min(vocab, 1 << 20) + 1, n).astype(np.int32)
     block = int(rng.choice([b for b in (32, 256, 1024) if b >= sigma]))
-    return (lambda dev: ops.suffix_pack(torch.as_tensor(toks, device=dev),
-                                        sigma=sigma, vocab_size=vocab),
+    meta = (rng.integers(0, 2**32, n).astype(np.uint32) if rng.random() < 0.5
+            else None)
+
+    def port(dev):
+        t = torch.as_tensor(toks, device=dev)
+        if meta is None:
+            return ops.suffix_pack(t, sigma=sigma, vocab_size=vocab)
+        from repro_torch.mapreduce import pack
+        out = torch.empty((n, pack.n_lanes(sigma, vocab) + 2), dtype=torch.int64,
+                          device=dev)
+        return ops.suffix_pack(t, sigma=sigma, vocab_size=vocab, out=out,
+                               meta=torch.as_tensor(meta.view(np.int32), device=dev))
+
+    def records(jnp, lanes):
+        if meta is None:
+            return lanes
+        return jnp.concatenate([lanes, jnp.asarray(toks != 0, jnp.uint32)[:, None],
+                                jnp.asarray(meta)[:, None]], axis=1)
+
+    return (port,
             lambda jnp, jref, jops: (
-                jref.suffix_pack_ref(jnp.asarray(toks), sigma=sigma,
-                                     vocab_size=vocab),
-                jops.suffix_pack(jnp.asarray(toks), sigma=sigma,
-                                 vocab_size=vocab, block=block)))
+                records(jnp, jref.suffix_pack_ref(jnp.asarray(toks), sigma=sigma,
+                                                  vocab_size=vocab)),
+                records(jnp, jops.suffix_pack(jnp.asarray(toks), sigma=sigma,
+                                              vocab_size=vocab, block=block))))
 
 
 def _case_hash_partition(rng, scale):
@@ -310,20 +330,23 @@ def test_bsearch_plain_against_bisect():
 # card, kernel against plain version.
 # --------------------------------------------------------------------------
 
-def _suffix_pack_edge(toks, sigma, vocab, records):
+def _suffix_pack_edge(toks, sigma, vocab, records, meta=None):
     """Without ``records`` a fresh [N, n_lanes] lane matrix; with it the
     map's [N, n_lanes + 1] records (lanes | weight), written into a matrix
-    that held -1."""
+    that held -1; with ``meta`` (uint32 [N]) too, [N, n_lanes + 2] records
+    (lanes | weight | meta)."""
     from repro_torch.mapreduce import pack
     n_l = pack.n_lanes(sigma, vocab)
+    cols = n_l + 1 + (meta is not None)
 
     def port(dev):
         t = torch.as_tensor(toks, device=dev)
         if not records:
             return ops.suffix_pack(t, sigma=sigma, vocab_size=vocab)
-        rec = torch.full((len(toks), n_l + 1), -1, dtype=torch.int64, device=dev)
-        assert ops.suffix_pack(t, sigma=sigma, vocab_size=vocab,
-                               out=rec).data_ptr() == rec.data_ptr()
+        rec = torch.full((len(toks), cols), -1, dtype=torch.int64, device=dev)
+        m = None if meta is None else torch.as_tensor(meta.view(np.int32), device=dev)
+        assert ops.suffix_pack(t, sigma=sigma, vocab_size=vocab, out=rec,
+                               meta=m).data_ptr() == rec.data_ptr()
         return rec
 
     def want(jnp, jref):
@@ -331,6 +354,8 @@ def _suffix_pack_edge(toks, sigma, vocab, records):
                                                 vocab_size=vocab)).astype(np.int64)
         if records:
             lanes = np.concatenate([lanes, (toks != 0)[:, None]], axis=1)
+        if meta is not None:
+            lanes = np.concatenate([lanes, meta.astype(np.int64)[:, None]], axis=1)
         return lanes
 
     return port, want
@@ -361,6 +386,18 @@ def _suffix_pack_edges():
         for sigma, vocab in ((5, 20_000), (8, 300), (2, 3), (64, 1 << 30), *WIDE_SIGMAS):
             cases[f"suffix_pack-out-{out}-sigma{sigma}-vocab{vocab}"] = \
                 _suffix_pack_edge(big % (vocab + 1), sigma, vocab, out == "records")
+    # bucketed records (lanes | weight | meta) for every tiled lane count,
+    # the widest tile (NL = 4: 1024 x 6 columns, dynamic shared memory) with
+    # the widest halo, and the generic instance (sigma 40, 20 lanes; the
+    # sigma-split reference job), at the tile edges; meta words >= 2**31
+    for n_l, sigma, vocab in ((1, 2, 20_000), (2, 3, 20_000), (3, 5, 20_000),
+                              (4, 8, 20_000), (4, 128, 1), (20, 40, 20_000)):
+        for n in (1, 1023, 1025, 3001):
+            toks = rng.integers(0, min(vocab, 300) + 1, n).astype(np.int32)
+            meta = rng.integers(0, 2**32, n).astype(np.uint32)
+            meta[:2] = np.asarray([2**32 - 1, 2**31], np.uint32)[:n]
+            cases[f"suffix_pack-meta-nl{n_l}-n{n}-sigma{sigma}-vocab{vocab}"] = \
+                _suffix_pack_edge(toks, sigma, vocab, True, meta)
     return cases
 
 
@@ -675,6 +712,9 @@ def test_edge_case_registry_covers_every_lane_count_and_tile_edge():
             assert f"bsearch-nl{n_l}-{layout}-" in names
     for n in (1, 1023, 1024, 1025):
         assert f"suffix_pack-n{n}-sigma5" in names
+    for n_l in (1, 2, 3, 4, 20):                  # bucketed records, tiled and generic
+        for n in (1, 1023, 1025):
+            assert f"suffix_pack-meta-nl{n_l}-n{n}-" in names
 
 
 def test_edge_case_registry_covers_the_block_grid():
@@ -752,6 +792,20 @@ def test_plain_suffix_pack_writes_records_in_place(sigma, vocab):
         np.asarray(jref.suffix_pack_ref(jnp.asarray(toks), sigma=sigma,
                                         vocab_size=vocab)).astype(np.int64))
     np.testing.assert_array_equal(records[:, n_l].numpy(), toks != 0)
+
+
+def test_suffix_pack_rejects_a_misshapen_meta():
+    """meta is an int32 [N] vector on the tokens' device, and comes with an
+    out of n_lanes + 2 columns."""
+    toks = torch.ones(10, dtype=torch.int32)              # sigma 3 -> 2 lanes
+    meta = torch.zeros(10, dtype=torch.int32)
+    for out, bad in ((None, meta),                                          # no out
+                     (torch.empty((10, 3), dtype=torch.int64), meta),       # no meta column
+                     (torch.empty((10, 4), dtype=torch.int64), meta[:9]),   # length
+                     (torch.empty((10, 4), dtype=torch.int64), meta.long()),
+                     (torch.empty((10, 4), dtype=torch.int64), meta[:, None])):
+        with pytest.raises((ValueError, TypeError)):
+            ops.suffix_pack(toks, sigma=3, vocab_size=20_000, out=out, meta=bad)
 
 
 def test_suffix_pack_rejects_a_misshapen_out():
