@@ -74,7 +74,9 @@ line):
                  alone, and NAIVE's keys, one a record), and ``suffix_pack``,
                  ``hash_combine`` and ``lcp_boundary`` at phase 7's
                  (``ext_shape``: bucketed records [N, 5], the generic
-                 combiner on lanes | bucket keys, the sigma-40 terms).
+                 combiner on lanes | bucket keys, the sigma-40 terms), and
+                 ``lcp_boundary`` at ``sigma_split``'s phase A
+                 (``split_shape``: the sigma-16 terms).
 
 The last lines are one JSON object describing each kernel, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.  The
@@ -1040,6 +1042,58 @@ def bound(bytes_moved: float, ops_done: float) -> tuple[float, str]:
     return (float(t_bytes), "bytes") if t_bytes >= t_ops else (float(t_ops), "operations")
 
 
+#: lcp_boundary's edge lengths: the generic instance's short rows (1-5; 5
+#: is the main path's), the shortest tiled row, sigma_split's phase A (16)
+#: and the sigma-40 job (40), a warp's 32 terms and either side, 100, and
+#: the longest row that still gets a tile (16 rows)
+LCP_EDGE_LENGTHS = (1, 2, 3, 4, 5, 6, 16, 31, 32, 33, 40, 100, ops.LCP_MAX_TILED_LENGTH)
+
+
+def lcp_block_rows(length: int) -> int:
+    """Rows a block of the ``lcp_boundary`` kernel takes at rows of
+    ``length`` terms: its tile, or 256 (one a thread) in the generic
+    instance."""
+    return ops._lcp_tile_rows(length) or 256
+
+
+def lcp_sorted(rng, n: int, length: int) -> np.ndarray:
+    """n sorted int32 rows: each drawn row twice and once with only its last
+    term changed, a third with a PAD tail, and the first row of every block
+    of the ``lcp_boundary`` kernel equal to the row before it."""
+    base = rng.integers(1, 4, (-(-n // 3), length))
+    cut = np.where(rng.random(len(base)) < 1 / 3, rng.integers(0, length, len(base)), length)
+    base[np.arange(length)[None, :] >= cut[:, None]] = 0
+    last = base.copy()
+    last[:, -1] = (last[:, -1] + 1) % 4
+    rows = np.concatenate([base, base, last])[:n]
+    rows = rows[np.lexsort(rows.T[::-1])]
+    t = lcp_block_rows(length)
+    rows[t::t] = rows[t - 1::t][:len(rows[t::t])]
+    return rows.astype(np.int32)
+
+
+def lcp_edge_matrices(rng) -> list[tuple[str, np.ndarray, int]]:
+    """(name, terms, offset in words of the view into its storage) at the
+    edges of ``lcp_boundary``'s blocks, which tests/test_torch_kernels.py
+    also runs: N = 1, T - 1, T, T + 1 and 3T + 2 for the block of T rows
+    taken at each length, rows too long for a tile, all-zero matrices, views
+    that are not 16-byte aligned, and row 0 starting with INT_MIN."""
+    out = []
+    for length in LCP_EDGE_LENGTHS:
+        t = lcp_block_rows(length)
+        out += [(f"L{length}-n{n}", lcp_sorted(rng, n, length), 0)
+                for n in (1, t - 1, t, t + 1, 3 * t + 2)]
+    long_rows = ops.LCP_MAX_TILED_LENGTH + 1
+    out += [(f"L{long_rows}-n{n}", lcp_sorted(rng, n, long_rows), 0) for n in (1, 2, 257)]
+    out += [(f"zeros-L{length}-n{n}", np.zeros((n, length), np.int32), 0)
+            for length, n in ((1, 3), (5, 257), (6, 1169), (40, 578))]
+    out += [(f"L{length}-n{n}-off{offset}", lcp_sorted(rng, n, length), offset)
+            for length, n, offset in ((5, 770, 1), (6, 3506, 3), (7, 1025, 2), (16, 481, 1),
+                                      (40, 578, 2), (1, 257, 3), (long_rows, 2, 1))]
+    out.append(("intmin-row0", np.asarray([[-2**31, -2**31, 5], [-2**31, 3, 0]], np.int32), 0))
+    return out
+
+
 def edge_cases(dev):
     """(kernel name, kernel call, plain call) on ragged and corner inputs."""
     rng = np.random.default_rng(3)
@@ -1064,6 +1118,12 @@ def edge_cases(dev):
     for n, length, vmax in ((1, 5, 9), (1000, 1, 3), (999, 100, 2), (4097, 5, 4)):
         a = rng.integers(0, vmax, (n, length)).astype(np.int32)
         a = t(a[np.lexsort(a.T[::-1])])
+        cases.append(("lcp_boundary", lambda a=a: ops.lcp_boundary(a),
+                      lambda a=a: ref.lcp_boundary_ref(a)))
+    for _, terms, offset in lcp_edge_matrices(rng):
+        flat = torch.zeros(terms.size + offset, dtype=torch.int32, device=dev)
+        a = flat[offset:].view(terms.shape)
+        a.copy_(torch.as_tensor(terms))
         cases.append(("lcp_boundary", lambda a=a: ops.lcp_boundary(a),
                       lambda a=a: ref.lcp_boundary_ref(a)))
     # suffix_pack at its tile edges (T = 1024 positions for n_lanes <= 4;
@@ -1327,7 +1387,9 @@ def phase_kernels(dev, main: dict, methods: dict, stream: dict, ext: dict,
           "tails, sigma=15, block id nb-1; hash_combine K 1-5 x blocks 32-1024 in "
           "place, aligned and not, and on separate tensors, all keys equal or "
           "distinct; merge_path K 1-6, M=1, N=1, ties in runs of 256, 1024 and "
-          "5000 rows across tiles; block_expand and block_decode at block "
+          "5000 rows across tiles; lcp_boundary at N = 1, T - 1, T, T + 1 and 3T + 2 "
+          "for L 1-6, 16, 31-33, 40, 100 and 3072 (T = 256 rows a block at L <= 5), "
+          "L = 3073, zeros, unaligned views, INT_MIN in row 0; block_expand and block_decode at block "
           f"sizes {', '.join(map(str, BLOCK_SIZES))} x sigma 1, 5, 15 x both views, "
           "out= in place, "
           "empty id lists)")
@@ -1337,7 +1399,9 @@ def phase_kernels(dev, main: dict, methods: dict, stream: dict, ext: dict,
 def ext_kernel_rows(dev, main: dict, ext: dict, measure, at_shape, rows: dict) -> None:
     """The shapes phase 7 gives ``hash_combine`` (the series job's lanes |
     bucket keys, the generic instance) and ``lcp_boundary`` (the sigma-40
-    job's terms), attached to their rows as ``ext_shape``."""
+    job's terms), attached to their rows as ``ext_shape``; and
+    ``lcp_boundary`` at ``sigma_split``'s phase A (the sigma-16 job's
+    terms), as ``split_shape``."""
     vocab = corpus.NYT.vocab_size
     n_l = pack.n_lanes(SIGMA, vocab)
     tokens, years = main["tokens"], ext["years"]
@@ -1361,18 +1425,21 @@ def ext_kernel_rows(dev, main: dict, ext: dict, measure, at_shape, rows: dict) -
     if dev.type == "cuda":
         combine_stage(records, n_l, has_bucket=True)
     del records
-    sigma = SPLIT_SIGMA
-    n_w = pack.n_lanes(sigma, vocab)
-    rec, _ = suffix_sigma.make_records(ext["split_tokens"], sigma=sigma, vocab_size=vocab)
-    terms = pack.unpack_terms(stages.sort_stage(rec, n_keys=n_w)[:, :n_w], vocab_size=vocab,
-                              sigma=sigma)
-    del rec
-    n = terms.shape[0]
-    at_shape(rows["lcp_boundary"], measure(
-        "lcp_boundary", "ext", lambda: ops.lcp_boundary(terms),
-        lambda: ref.lcp_boundary_ref(terms),
-        n * (4 * sigma + 4 + sigma), n * (4 * sigma + 4 + sigma), 3 * sigma * n,
-        f"terms [{n}, {sigma}] (the sigma-{sigma} job's reducer)"), "ext_shape")
+    for sigma, key, what in (
+            (SPLIT_HEAD, "split_shape", f"sigma_split's phase A, a sigma-{SPLIT_HEAD} job"),
+            (SPLIT_SIGMA, "ext_shape", f"the sigma-{SPLIT_SIGMA} job's reducer")):
+        n_w = pack.n_lanes(sigma, vocab)
+        rec, _ = suffix_sigma.make_records(ext["split_tokens"], sigma=sigma, vocab_size=vocab)
+        terms = pack.unpack_terms(stages.sort_stage(rec, n_keys=n_w)[:, :n_w],
+                                  vocab_size=vocab, sigma=sigma)
+        del rec
+        n = terms.shape[0]
+        at_shape(rows["lcp_boundary"], measure(
+            "lcp_boundary", "ext", lambda: ops.lcp_boundary(terms),
+            lambda: ref.lcp_boundary_ref(terms),
+            n * (4 * sigma + 4 + sigma), n * (4 * sigma + 4 + sigma), 3 * sigma * n,
+            f"terms [{n}, {sigma}] ({what})"), key)
+        del terms
 
 
 def combine_stage(records: torch.Tensor, n_lanes: int, reps: int = 10,
@@ -1795,6 +1862,14 @@ def main() -> int:
     for name, report in info["ptxas"].items():
         used = [ln.strip() for ln in report.splitlines() if "Used" in ln]
         print(f"build: {name}: {'; '.join(used)}")
+    x = torch.randint(0, 3, (1 << 20, SIGMA), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ops.lcp_boundary(x)
+    torch.cuda.synchronize()
+    print(f"build: first lcp_boundary call {(time.perf_counter() - t0) * 1e3:.3f} ms "
+          f"at [{1 << 20}, {SIGMA}] (its module loaded by build.entries())")
+    del x
 
     t_start = time.perf_counter()
 

@@ -31,7 +31,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "suffix_pack": [_P, _L, _I, _I, _I, _I, _P, _I, _P, _P],
     "hash_partition": [_P, _P, _L, _I, _P, _P, _I, _P],
-    "lcp_boundary": [_P, _L, _I, _P, _P, _P],
+    "lcp_boundary": [_P, _L, _I, _I, _P, _P, _P],
     "bsearch": [_P, _L, _L, _I, _P, _L, _P, _P, _I, _I, _I, _P, _P],
     "hash_combine": [_P, _L, _P, _L, _L, _I, _I, _P, _L, _I, _P],
     "merge_path": [_P, _P, _P, _P, _L, _L, _I, _I, _P, _P, _P],

@@ -108,6 +108,26 @@ def hash_partition(keys: torch.Tensor, valid: torch.Tensor, *,
     return part, hist
 
 
+#: lcp_boundary: terms a tile of rows holds (32 KiB of int32); the shortest
+#: and the longest row that get a tile.  Rows of up to 5 terms take one
+#: thread a row: a warp's rows span at most 640 bytes of terms there, and
+#: that kernel runs as near its bound as a tile does (on the H100, PERF.md);
+#: 16 rows of 3,072 terms fill 192 KiB of shared memory
+LCP_TILE_TERMS = 8192
+LCP_MIN_TILED_LENGTH = 6
+LCP_MAX_TILED_LENGTH = 3072
+
+
+def _lcp_tile_rows(length: int) -> int:
+    """Rows a block of the ``lcp_boundary`` kernel stages for rows of
+    ``length`` terms: a multiple of 16, about ``LCP_TILE_TERMS`` terms and
+    their lcp words; 0 (one thread a row, the generic instance) outside
+    ``LCP_MIN_TILED_LENGTH`` to ``LCP_MAX_TILED_LENGTH``."""
+    if not LCP_MIN_TILED_LENGTH <= length <= LCP_MAX_TILED_LENGTH:
+        return 0
+    return max(16, LCP_TILE_TERMS // (length + 1) // 16 * 16)
+
+
 def lcp_boundary(sorted_terms: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(lcp [N] int32, flags [N, L] bool) of a lexicographically sorted matrix."""
     if not sorted_terms.is_cuda:
@@ -119,7 +139,7 @@ def lcp_boundary(sorted_terms: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor
     flags = torch.empty((n, length), dtype=torch.bool, device=sorted_terms.device)
     if n:
         _launch("lcp_boundary", sorted_terms.device, sorted_terms.data_ptr(), n,
-                length, lcp.data_ptr(), flags.data_ptr())
+                length, _lcp_tile_rows(length), lcp.data_ptr(), flags.data_ptr())
     return lcp, flags
 
 

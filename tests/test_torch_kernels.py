@@ -11,13 +11,18 @@ has no case.  JAX is imported on first use only: the ``cuda`` tests of this
 file run on a GPU host that has no JAX.
 """
 import inspect
+import sys
 import zlib
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (the lcp_boundary edge matrices)
 
 # The tensors here are small, and a parallel test run shares the host's cores
 # between its workers: intra-op threads (which spin between parallel regions)
@@ -701,8 +706,45 @@ def _merge_path_edges():
     return cases
 
 
+def _lcp_boundary_edge(terms, offset=0, pallas=True):
+    """``terms`` [N, L] int32 as a contiguous view ``offset`` words into its
+    storage (not 16-byte aligned for offset 1-3); lcp and flags come back as
+    one [N, L + 1] matrix.  ``repro``'s Pallas kernel (interpret mode) must
+    equal its reference unless ``pallas`` is False."""
+    n, length = terms.shape
+
+    def port(dev):
+        flat = torch.zeros(n * length + offset, dtype=torch.int32, device=dev)
+        x = flat[offset:].view(n, length)
+        x.copy_(torch.as_tensor(terms))
+        lcp, flags = ops.lcp_boundary(x)
+        return torch.cat([lcp[:, None], flags.to(torch.int32)], dim=1)
+
+    def want(jnp, jref):
+        def joined(out):
+            return np.concatenate([np.asarray(out[0])[:, None],
+                                   np.asarray(out[1]).astype(np.int32)], axis=1)
+        got = joined(jref.lcp_boundary_ref(jnp.asarray(terms)))
+        if pallas:
+            np.testing.assert_array_equal(joined(_jax()[2].lcp_boundary(jnp.asarray(terms))),
+                                          got)
+        return got
+
+    return port, want
+
+
+def _lcp_boundary_edges():
+    """``chip_smoke.py``'s edge matrices: every case is compared with
+    ``repro``'s reference and Pallas kernel, except the INT_MIN row 0 (its
+    kernel compares row 0 with an INT_MIN sentinel row; its reference, and
+    the port, give row 0 lcp 0), compared with the reference only."""
+    return {f"lcp_boundary-{name}": _lcp_boundary_edge(terms, offset,
+                                                        pallas=name != "intmin-row0")
+            for name, terms, offset in chip_smoke.lcp_edge_matrices(np.random.default_rng(20))}
+
+
 EDGE_CASES = {**_suffix_pack_edges(), **_bsearch_edges(), **_block_edges(),
-              **_hash_combine_edges(), **_merge_path_edges()}
+              **_hash_combine_edges(), **_merge_path_edges(), **_lcp_boundary_edges()}
 
 
 def test_edge_case_registry_covers_every_lane_count_and_tile_edge():
@@ -736,6 +778,28 @@ def test_edge_case_registry_covers_both_instances_of_the_stream_kernels():
         for run in (256, 1024):
             assert f"merge_path-ties{run}-k{k}-" in names
     assert "merge_path-k4-m1-n1" in names
+
+
+def test_edge_case_registry_covers_the_lcp_boundary_tiles():
+    """Every row length at N = 1, T - 1, T, T + 1 and 3T + 2 for the block of
+    T rows the kernel takes: its tile from L = 6, 256 rows of one thread each
+    at L <= 5; rows too long for a tile; zeros, unaligned views and the
+    INT_MIN row 0."""
+    for length in chip_smoke.LCP_EDGE_LENGTHS:
+        t = ops._lcp_tile_rows(length)
+        if length < ops.LCP_MIN_TILED_LENGTH:
+            assert t == 0 and chip_smoke.lcp_block_rows(length) == 256
+        else:
+            assert t >= 16 and t % 16 == 0 and chip_smoke.lcp_block_rows(length) == t
+        t = chip_smoke.lcp_block_rows(length)
+        for n in (1, t - 1, t, t + 1, 3 * t + 2):
+            assert f"lcp_boundary-L{length}-n{n}" in EDGE_CASES
+    assert ops.LCP_MIN_TILED_LENGTH in chip_smoke.LCP_EDGE_LENGTHS
+    long_rows = ops.LCP_MAX_TILED_LENGTH + 1
+    assert ops._lcp_tile_rows(long_rows) == 0
+    assert f"lcp_boundary-L{long_rows}-n257" in EDGE_CASES
+    for kind in ("zeros-", "-off1", "-off2", "-off3", "intmin"):
+        assert any(c.startswith("lcp_boundary") and kind in c for c in EDGE_CASES), kind
 
 
 def test_plain_hash_combine_in_place_equals_a_fresh_output():
