@@ -52,16 +52,18 @@ line):
                  seconds, peak memory, device busy and idle share, and its
                  launches; ``suffix_pack``, ``hash_partition``,
                  ``lcp_boundary`` and ``hash_combine`` must launch;
-  4. kernels  -- run last, as it needs phase 5's shapes: each CUDA kernel
-                 against its plain PyTorch version on the card, at the shapes
-                 the main paths gave it and on edge cases (exact equality),
-                 with its time a call (``ms``), its own device time from
-                 torch.profiler (``kernel_ms``), the plain version's time
+  4. kernels  -- after phase 7, as it needs phase 5's shapes: each CUDA
+                 kernel against its plain PyTorch version on the card, at
+                 the shapes the main paths gave it and on edge cases (exact
+                 equality), with its time a call (``ms``), its own device
+                 time from torch.profiler (``kernel_ms``), the device time
+                 of one call queued behind a spin between two CUDA events
+                 (``queued_ms``, no profiler), the plain version's time
                  and the least time the card could take (``bound_ms``, from
                  the uint32 values' bytes; ``bound_ms_as_stored`` from the
                  int64 lanes the port keeps them in).  ``launches`` is the count on the path whose
                  shapes the row was timed at; ``launches_by_path`` has every
-                 path's (main, methods, stream).
+                 path's (main, methods, stream, ext, waves).
                  ``bsearch`` also gets its latency floor (``floor_ms``): the
                  round trips of its longest query times one dependent L2
                  load, plus an empty kernel, both measured here by
@@ -76,7 +78,34 @@ line):
                  (``ext_shape``: bucketed records [N, 5], the generic
                  combiner on lanes | bucket keys, the sigma-40 terms), and
                  ``lcp_boundary`` at ``sigma_split``'s phase A
-                 (``split_shape``: the sigma-16 terms).
+                 (``split_shape``: the sigma-16 terms).  After phase 8:
+                 ``merge_path`` at the 2**27 fold's largest merge and its
+                 widest, both runs past 2**26 rows (``fold_shape``,
+                 ``fold_widest_shape``);
+  8. waves    -- the wave engine (``WaveExecutor``) on phase 3's corpus:
+                 SUFFIX-sigma in one wave and in waves of 2**25, 2**23 and
+                 2**21 positions, the tiered and pairwise folds, the sort
+                 route, the hash combiner, the fold without its thread, and
+                 NAIVE, APRIORI-SCAN and APRIORI-INDEX in waves of 2**23,
+                 each equal to phase 3's output (SUFFIX-sigma's map_records
+                 too), each with warm seconds (median of 3), peak memory and
+                 device busy and idle share; ``run_streaming(compress=True)``
+                 at tau 1, whose 2**16 lookups and 2**14 continuations must
+                 equal a flat index of the monolithic tau = 1 job's rows and
+                 whose ``compact_all`` rung must equal
+                 ``compress_index(build_index(...))`` of them; the service
+                 with ``wave_tokens`` on phase 5's batches, answering as
+                 phase 5's service, and ``lookup_pipelined`` over 8 batches
+                 as ``lookup``.  Then 2**27 terms: SUFFIX-sigma in waves of
+                 2**24 and NAIVE in waves of 2**23 must equal the monolithic
+                 SUFFIX-sigma job there, the SUFFIX-sigma wave run peaking
+                 below it, whose fold's widest and largest merges phase 4
+                 then times.  Device busy time is the union of the kernel
+                 and copy intervals over every stream.  Every one of the
+                 eight kernels must launch from the wave entry points
+                 (``WaveExecutor.run`` and ``run_streaming``, the queries and
+                 ``compact_all`` on its index, the wave service); the
+                 references' launches are not counted.
 
 The last lines are one JSON object describing each kernel, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.  The
@@ -84,6 +113,8 @@ script needs one card; without CUDA it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -112,7 +143,8 @@ from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.mapreduce import pack  # noqa: E402
 from repro_torch.obs import trace  # noqa: E402
-from repro_torch.pipeline import stages  # noqa: E402
+from repro_torch.pipeline import WaveExecutor, plan_for, stages  # noqa: E402
+from repro_torch.pipeline import executor as pipeline_executor  # noqa: E402
 from repro_torch.serve import StreamingNGramService  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bandwidth, and
@@ -236,6 +268,26 @@ def kernel_ms(fn, kernel: str, reps: int = 10) -> float:
     print(f"kernel_ms: the profiler saw {len(hits)} launches of {kernel} in "
           f"{reps} calls, three times: not measured")
     return None
+
+
+def queued_ms(fn, reps: int = 10, spin_cycles: int = 10_000_000) -> float:
+    """Mean device milliseconds of one call of ``fn``, without the profiler:
+    each call is enqueued behind a spin of ``spin_cycles`` clocks (about 5 ms
+    at the H100's boost clock), between two CUDA events, so the events
+    bracket the call's device work and not the host's launch of it."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin_cycles)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
 
 
 def fmt_ms(ms) -> str:
@@ -452,10 +504,25 @@ def check_continuations(stats, idx, pg, pl, out) -> None:
     check(np.array_equal(got, counts[qi, kj]), "top-k pairs == point lookups")
 
 
+def busy_union_ms(prof) -> float:
+    """Milliseconds in which the card ran at least one kernel or copy: the
+    union of the device events' [start, end) intervals over every stream
+    (a sum counts the time twice where streams overlap)."""
+    spans = sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, covered = 0.0, float("-inf")
+    for start, end in spans:
+        if end > covered:
+            busy_us += end - max(start, covered)
+            covered = end
+    return busy_us / 1e3
+
+
 def profile_call(fn, label: str, what: str = "job") -> tuple[float, float]:
-    """One more call of ``fn`` under ``torch.profiler``: device busy time by
-    kernel, and the share of the wall time the card sat idle; lines start
-    with ``label``.  Returns (wall ms, device busy ms)."""
+    """One more call of ``fn`` under ``torch.profiler``: device time by
+    kernel, and the share of the wall time the card sat idle (no kernel or
+    copy on any stream, :func:`busy_union_ms`); lines start with ``label``.
+    Returns (wall ms, device busy ms)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -467,9 +534,10 @@ def profile_call(fn, label: str, what: str = "job") -> tuple[float, float]:
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
-    busy_ms = sum(by_name.values())
+    busy_ms = busy_union_ms(prof)
     print(f"{label}: {what} under torch.profiler {wall_ms:.1f} ms wall, device busy "
-          f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
+          f"{busy_ms:.1f} ms (kernels and copies summed over streams "
+          f"{sum(by_name.values()):.1f} ms), idle share {1 - busy_ms / wall_ms:.3f}")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"{label}:   device {ms:9.3f} ms  {name[:90]}")
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:8]
@@ -699,8 +767,8 @@ def union_of(batches: list) -> NGramStats:
 
 
 def profile_ingest(svc, tokens) -> dict:
-    """One ingest under ``torch.profiler``: device busy time by kernel and the
-    share of the wall time the card sat idle."""
+    """One ingest under ``torch.profiler``: device time by kernel and the
+    share of the wall time the card sat idle (:func:`busy_union_ms`)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -714,7 +782,7 @@ def profile_ingest(svc, tokens) -> dict:
             acc = by_name.setdefault(ev.name, [0.0, 0])
             acc[0] += ev.time_range.elapsed_us() / 1e3
             acc[1] += 1
-    busy_ms = sum(ms for ms, _ in by_name.values())
+    busy_ms = busy_union_ms(prof)
     print(f"stream: profiled ingest {wall_ms:.1f} ms wall (job {rep['job_s'] * 1e3:.1f} ms, "
           f"ingest {rep['ingest_s'] * 1e3:.1f} ms, merges {rep['merges']}), device busy "
           f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}; "
@@ -860,20 +928,22 @@ def phase_streaming(dev, main: dict) -> dict:
         check(launches.get("block_expand", 0) == n_decodes,
               "one block_expand launch per compressed-rung decode")
     print(f"stream: peak device memory {peak / 2**30:.2f} GiB; kernel launches {launches}")
-    return dict(svc=svc, final=final, union=union, base_tokens=base,
+    return dict(svc=svc, final=final, union=union, base_tokens=base, batches=batches,
                 compact_inputs=compact_inputs, launches=launches)
 
 
 # --------------------------------------------------------------------- phase 7
-def drive(label: str, fn, dev, warm: int = 3):
+def drive(label: str, fn, dev, warm: int = 3, prefix: str = "ext"):
     """``fn`` on the card: one cold call, ``warm`` more, one under
     torch.profiler.  Prints cold and warm seconds, peak device memory over
-    the calls, device busy ms, idle share and the kernel launches of one
-    call; returns the cold call's result."""
+    the calls (and what was held before them), device busy ms, idle share
+    and the kernel launches of one call, on lines that start with
+    ``prefix``; returns (the cold call's result, a dict of those numbers)."""
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     reset_peak()
+    held = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
     before = dict(ops.launches)
     t0 = time.perf_counter()
     out = fn()
@@ -883,13 +953,15 @@ def drive(label: str, fn, dev, warm: int = 3):
                 if v != before.get(k, 0)}
     times = wall_times(fn, sync, warm)
     peak = device_peak()
-    wall_ms, busy_ms = (profile_call(fn, f"ext: {label}: profile", "call")
+    wall_ms, busy_ms = (profile_call(fn, f"{prefix}: {label}: profile", "call")
                         if dev.type == "cuda" else (float("nan"), float("nan")))
-    print(f"ext: {label}: cold {cold:.3f} s; warm median {np.median(times):.3f} s (min "
+    print(f"{prefix}: {label}: cold {cold:.3f} s; warm median {np.median(times):.3f} s (min "
           f"{min(times):.3f}, max {max(times):.3f}, n={len(times)}); peak device memory "
-          f"{peak / 2**30:.2f} GiB; device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms "
-          f"(idle share {1 - busy_ms / wall_ms:.3f}); launches a call {per_call}")
-    return out
+          f"{peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB held before); device busy "
+          f"{busy_ms:.1f} ms of {wall_ms:.1f} ms (idle share {1 - busy_ms / wall_ms:.3f}); "
+          f"launches a call {per_call}")
+    return out, dict(cold_s=cold, warm_s=float(np.median(times)), peak=peak, held=held,
+                     busy_ms=busy_ms, wall_ms=wall_ms)
 
 
 def same_rows(a, b) -> bool:
@@ -917,8 +989,8 @@ def phase_extensions(dev, main: dict, split_terms: int | None = None) -> dict:
 
     # time series (SSVI-B): repro's ngram --series deployment
     cfg = NGramConfig(sigma=SIGMA, tau=TAU, vocab_size=vocab, n_buckets=N_BUCKETS)
-    series = drive("series job (sort route)",
-                   lambda: run_job(tokens, cfg, bucket_ids=years_dev, device=dev), dev)
+    series, _ = drive("series job (sort route)",
+                      lambda: run_job(tokens, cfg, bucket_ids=years_dev, device=dev), dev)
     c, w = series.counters, want.counters
     check(np.array_equal(series.grams, want.grams)
           and np.array_equal(series.lengths, want.lengths),
@@ -934,8 +1006,8 @@ def phase_extensions(dev, main: dict, split_terms: int | None = None) -> dict:
     print(f"ext: series counters {c} (phase 3: map_records {w['map_records']:,}, "
           f"shuffle_records {w['shuffle_records']:,}, shuffle_bytes {w['shuffle_bytes']:,})")
     hcfg = dataclasses.replace(cfg, combine_route="hash")
-    hseries = drive("series job (hash route)",
-                    lambda: run_job(tokens, hcfg, bucket_ids=years_dev, device=dev), dev)
+    hseries, _ = drive("series job (hash route)",
+                       lambda: run_job(tokens, hcfg, bucket_ids=years_dev, device=dev), dev)
     check(same_rows(hseries, series), "hash-route series == sort-route series")
     print(f"ext: hash-route series counters {hseries.counters}")
     del hseries
@@ -943,8 +1015,8 @@ def phase_extensions(dev, main: dict, split_terms: int | None = None) -> dict:
     # maximal and closed n-grams (SSVI-A) of phase 3's output
     filtered = {}
     for mode in ("max", "closed"):
-        got = drive(f"filter_stats {mode}",
-                    lambda mode=mode: extensions_filter(want, mode, device=dev), dev)
+        got, _ = drive(f"filter_stats {mode}",
+                       lambda mode=mode: extensions_filter(want, mode, device=dev), dev)
         t0 = time.perf_counter()
         on_cpu = extensions_filter(want, mode, device="cpu")
         cpu_s = time.perf_counter() - t0
@@ -959,10 +1031,11 @@ def phase_extensions(dev, main: dict, split_terms: int | None = None) -> dict:
 
     # document frequencies (SSII): one job, and one job a length
     pcfg = NGramConfig(sigma=SIGMA, tau=TAU, vocab_size=vocab)
-    df = drive("document_frequencies",
-               lambda: aggregations.document_frequencies(tokens, pcfg, device=dev), dev)
-    dfl = drive("df_suffix_lengths",
-                lambda: aggregations.df_suffix_lengths(tokens, pcfg, device=dev), dev, warm=1)
+    df, _ = drive("document_frequencies",
+                  lambda: aggregations.document_frequencies(tokens, pcfg, device=dev), dev)
+    dfl, _ = drive("df_suffix_lengths",
+                   lambda: aggregations.df_suffix_lengths(tokens, pcfg, device=dev), dev,
+                   warm=1)
     df = stages.canonical_stats(df)
     check(same_rows(df, stages.canonical_stats(dfl)),
           "document_frequencies == df_suffix_lengths")
@@ -980,11 +1053,11 @@ def phase_extensions(dev, main: dict, split_terms: int | None = None) -> dict:
         corpus.zipf_corpus(split_terms, corpus.NYT, seed=0, duplicate_frac=0.02),
         device=dev))
     scfg = NGramConfig(sigma=SPLIT_SIGMA, tau=SPLIT_TAU, vocab_size=vocab)
-    full = drive(f"SUFFIX-sigma sigma={SPLIT_SIGMA} (the reference)",
-                 lambda: run_job(split_tokens, scfg, device=dev), dev, warm=1)
-    split = drive(f"sigma_split head {SPLIT_HEAD}, survivors 1/{round(1 / SPLIT_FRAC)}",
-                  lambda: suffix_sigma.sigma_split(split_tokens, scfg, SPLIT_HEAD,
-                                                   SPLIT_FRAC, device=dev), dev, warm=1)
+    full, _ = drive(f"SUFFIX-sigma sigma={SPLIT_SIGMA} (the reference)",
+                    lambda: run_job(split_tokens, scfg, device=dev), dev, warm=1)
+    split, _ = drive(f"sigma_split head {SPLIT_HEAD}, survivors 1/{round(1 / SPLIT_FRAC)}",
+                     lambda: suffix_sigma.sigma_split(split_tokens, scfg, SPLIT_HEAD,
+                                                      SPLIT_FRAC, device=dev), dev, warm=1)
     # with no frequent head, the split is phase A's output, grams sigma_head wide
     split = stages.canonical_stats(NGramStats(
         np.pad(split.grams, ((0, 0), (0, SPLIT_SIGMA - split.grams.shape[1]))),
@@ -1003,8 +1076,8 @@ def phase_extensions(dev, main: dict, split_terms: int | None = None) -> dict:
     # postings (SSVI-B's inverted index), at POSTINGS_TERMS: the host dict
     ptoks = torch.as_tensor(corpus.zipf_corpus(POSTINGS_TERMS, corpus.NYT, seed=0,
                                                duplicate_frac=0.02), device=dev)
-    post = drive(f"postings at {POSTINGS_TERMS} terms",
-                 lambda: aggregations.postings(ptoks, pcfg, device=dev), dev, warm=1)
+    post, _ = drive(f"postings at {POSTINGS_TERMS} terms",
+                    lambda: aggregations.postings(ptoks, pcfg, device=dev), dev, warm=1)
     cf = run_job(ptoks, pcfg, device=dev).to_dict()
     check({g: sum(p.values()) for g, p in post.items()} == cf,
           f"postings marginalize to cf ({len(cf):,} grams)")
@@ -1014,6 +1087,254 @@ def phase_extensions(dev, main: dict, split_terms: int | None = None) -> dict:
     launches = dict(ops.launches)
     print(f"ext: checks passed; kernel launches {launches}")
     return dict(launches=launches, years=years_dev, split_tokens=split_tokens)
+
+
+# --------------------------------------------------------------------- phase 8
+#: phase 8: wave sizes on phase 3's corpus (None: one wave, the corpus); the
+#: corpus past what one NAIVE job can hold, and the waves each method takes there
+WAVE_SIZES = (None, 1 << 25, 1 << 23, 1 << 21)
+BIG_TERMS = 1 << 27
+BIG_WAVES = {"suffix_sigma": 1 << 24, "naive": 1 << 23}
+N_PIPELINED = 8
+
+
+def wave_label(wave) -> str:
+    return "one wave" if wave is None else f"waves of 2**{wave.bit_length() - 1}"
+
+
+@contextlib.contextmanager
+def counted(into: collections.Counter):
+    """Add the kernel launches made inside the block to ``into``."""
+    before = collections.Counter(ops.launches)
+    try:
+        yield
+    finally:
+        into.update(ops.launches - before)
+
+
+@contextlib.contextmanager
+def captured_merges(min_rows: int):
+    """While active, ``ops.merge_path`` records every merge's (m, n) in
+    ``shapes``, and of the merges of at least ``min_rows`` rows in all
+    copies to the host the inputs (a keys, b keys, a counts, b counts) of
+    the largest so far (m + n) and of the widest (the largest diagonal
+    window, min(m, n)); ``copy_s`` is the time the copies took.  Yields
+    that dict."""
+    inner = ops.merge_path
+    out = dict(shapes=[], largest=None, widest=None, copy_s=0.0)
+    size = {"largest": lambda m, n: m + n, "widest": min}
+
+    def recording(ak, bk, av, bv):
+        m, n = ak.shape[0], bk.shape[0]
+        out["shapes"].append((m, n))
+        beat = [k for k, f in size.items() if m + n >= min_rows and (
+            out[k] is None or f(m, n) > f(out[k][0].shape[0], out[k][1].shape[0]))]
+        if beat:
+            t0 = time.perf_counter()
+            host = tuple(t.cpu() for t in (ak, bk, av, bv))
+            out["copy_s"] += time.perf_counter() - t0
+            out.update(dict.fromkeys(beat, host))
+        return inner(ak, bk, av, bv)
+
+    ops.merge_path = recording
+    try:
+        yield out
+    finally:
+        ops.merge_path = inner
+
+
+def phase_waves(dev, main: dict, stream: dict) -> dict:
+    """The wave engine at full width.  On phase 3's corpus: SUFFIX-sigma at
+    four wave sizes, the tiered and pairwise folds, the sort route, the hash
+    combiner and the fold without its thread, and the three other methods,
+    each equal to phase 3's output; ``run_streaming`` against a flat index of
+    the monolithic tau = 1 job; the wave service against phase 5's.  Then
+    BIG_TERMS: SUFFIX-sigma and NAIVE in waves against the monolithic
+    SUFFIX-sigma job there.  ``launches`` counts the wave entry points'
+    launches only: the references (the monolithic jobs, the flat index,
+    ``compress_index``, phase 5's service) are left out."""
+    vocab = corpus.NYT.vocab_size
+    toks, tokens, want = main["toks"], main["tokens"], main["stats"]
+    n = toks.size
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    cfg = NGramConfig(sigma=SIGMA, tau=TAU, vocab_size=vocab)
+    runs: dict[str, dict] = {}
+    launches: collections.Counter = collections.Counter()
+
+    def waves(label: str, c: NGramConfig, wave, **kw):
+        ex = WaveExecutor(c, wave_tokens=wave, device=dev, **kw)
+        with counted(launches):
+            out, nums = drive(label, lambda: ex.run(toks), dev, prefix="waves")
+        n_waves = 1 if wave is None else -(-n // wave)
+        check(same_rows(out, want), f"{label}: output == phase 3's ({len(want):,} n-grams)")
+        check(out.counters["waves"] == n_waves, f"{label}: {n_waves} waves")
+        print(f"waves: {label}: {n_waves} waves; counters {out.counters}")
+        runs[label] = dict(nums, counters=out.counters)
+        return out
+
+    for wave in WAVE_SIZES:
+        out = waves(f"SUFFIX-sigma, {wave_label(wave)}", cfg, wave)
+        check(out.counters["map_records"] == want.counters["map_records"],
+              f"{wave_label(wave)}: map_records == phase 3's")
+    mid, small = WAVE_SIZES[2], WAVE_SIZES[3]
+    for acc in ("tiered", "pairwise"):
+        waves(f"SUFFIX-sigma, {wave_label(small)}, {acc} fold", cfg, small, accumulator=acc)
+    waves(f"SUFFIX-sigma, {wave_label(mid)}, sort route", cfg, mid, merge_route="sort")
+    waves(f"SUFFIX-sigma, {wave_label(mid)}, hash combiner",
+          dataclasses.replace(cfg, combine_route="hash"), mid)
+    waves(f"SUFFIX-sigma, {wave_label(mid)}, no fold thread", cfg, mid, overlap=False)
+    for method in METHODS:
+        waves(f"{method}, {wave_label(mid)}", NGramConfig(
+            sigma=SIGMA, tau=TAU, vocab_size=vocab, method=method,
+            apriori_index_k=APRIORI_INDEX_K), mid)
+
+    # run_streaming into compressed rungs, against a flat index of one
+    # monolithic tau = 1 job: its rows straight from run_plan's rounds, as
+    # build_index sorts them on the card (the job's host canonical sort of
+    # every tau = 1 row would add minutes and change no index)
+    cfg1 = NGramConfig(sigma=SIGMA, tau=1, vocab_size=vocab)
+    rng = np.random.default_rng(8)
+    t0 = time.perf_counter()
+    rows1 = pipeline_executor._run_rounds(tokens, None, n, cfg1, plan_for(cfg1), 1, {})
+    flat = build_index(rows1, vocab_size=vocab, device=dev)
+    sync()
+    t_flat = time.perf_counter() - t0
+    g, ln, _ = lookup_batch(rows1, rng, N_LOOKUPS, vocab)
+    pg, pl = prefix_batch(rows1, rng, N_PREFIXES)
+    g_dev, ln_dev = torch.as_tensor(g, device=dev), torch.as_tensor(ln, device=dev)
+    pg_dev, pl_dev = torch.as_tensor(pg, device=dev), torch.as_tensor(pl, device=dev)
+    want_l = lookup(flat, g_dev, ln_dev)
+    want_c = continuations(flat, pg_dev, pl_dev, k=TOP_K)
+    t0 = time.perf_counter()
+    direct = compress_index(flat, block_size=4, device=dev)
+    t_direct = time.perf_counter() - t0
+    del flat
+    torch.cuda.empty_cache()
+    reset_peak()
+    with counted(launches):
+        t0 = time.perf_counter()
+        gen, reports = WaveExecutor(cfg1, wave_tokens=mid, device=dev).run_streaming(
+            toks, compress=True)
+        sync()
+        t_stream = time.perf_counter() - t0
+        stream_peak = device_peak()
+        got_l = lookup(gen, g_dev, ln_dev)
+        got_c = continuations(gen, pg_dev, pl_dev, k=TOP_K)
+    check(len(reports) == -(-n // mid), "run_streaming: one ingest a wave")
+    check(torch.equal(got_l, want_l),
+          "run_streaming: 2**16 lookups == the flat index of the tau = 1 job")
+    check(all(torch.equal(a, b) for a, b in zip(got_c, want_c)),
+          "run_streaming: 2**14 top-8 continuations == the flat index's")
+    rungs = [ix.n_rows for ix in gen.levels]
+    query_peak = device_peak()
+    with counted(launches):
+        t0 = time.perf_counter()
+        gen.compact_all()
+        (rung,) = gen.segments
+        sync()
+        t_compact = time.perf_counter() - t0
+    check(isinstance(rung, CompressedNGramIndex), "run_streaming: compact_all's rung is compressed")
+    for f in ("heads", "lcps", "payload", "block_base", "counts_packed",
+              "cont_heads", "cont_lcps", "cont_payload", "cont_block_base",
+              "cont_last_packed", "cont_counts_packed", "sec_cache",
+              "cumsum_cache", "fan_cache", "cont_fan_cache"):
+        check(torch.equal(getattr(rung, f), getattr(direct, f)),
+              f"run_streaming: compact_all's {f} == compress_index(build_index(tau = 1 job))")
+    print(f"waves: run_streaming at {wave_label(mid)}, tau 1: {len(reports)} ingests, rungs "
+          f"{rungs} before compact_all, {t_stream:.3f} s (peak device memory "
+          f"{stream_peak / 2**30:.2f} GiB; queries over the rungs {query_peak / 2**30:.2f} "
+          f"GiB); compact_all {t_compact:.3f} s -> {rung.n_rows:,} rows, equal to "
+          f"compress_index(build_index(...)) of the monolithic tau = 1 job's "
+          f"{len(rows1):,} rows (rows + flat index {t_flat:.3f} s, compress_index "
+          f"{t_direct:.3f} s); lookups and continuations equal the flat index's")
+    del gen, rung, direct, rows1, want_l, want_c, got_l, got_c
+    torch.cuda.empty_cache()
+
+    # the wave service against phase 5's: the same base and deltas
+    scfg = NGramConfig(sigma=SIGMA, tau=TAU, vocab_size=vocab, combine_route="hash")
+    union, ref_svc = stream["union"], stream["svc"]
+    g, ln, _ = lookup_batch(union, rng, N_LOOKUPS, vocab)
+    pg, pl = prefix_batch(union, rng, N_PREFIXES)
+    m = N_LOOKUPS // N_PIPELINED
+    batches = [lookup_batch(union, rng, m, vocab)[:2] for _ in range(N_PIPELINED)]
+    fresh = [lookup_batch(union, rng, m, vocab)[:2] for _ in range(N_PIPELINED)]
+    with counted(launches):
+        svc = StreamingNGramService(scfg, compress=True, block_size=4, wave_tokens=mid,
+                                    device=dev)
+        reports = [svc.ingest(b) for b in stream["batches"]]
+        got = svc.lookup(g, ln)
+        got_c = svc.continuations(pg, pl, k=TOP_K)
+        t0 = time.perf_counter()
+        piped = svc.lookup_pipelined(batches)
+        t_piped = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for bg, bl in fresh:
+            svc.lookup(bg, bl)
+        t_seq = time.perf_counter() - t0
+    print(f"waves: service with {wave_label(mid)}: ingests of " + ", ".join(
+        f"{r['waves']} waves in {r['job_s']:.3f} s" for r in reports))
+    check(np.array_equal(got, ref_svc.lookup(g, ln))
+          and np.array_equal(got, expected_lookups(union, g, ln, vocab)),
+          "wave service: 2**16 lookups == phase 5's service == the union")
+    check(np.array_equal(got_c, ref_svc.continuations(pg, pl, k=TOP_K)),
+          "wave service: 2**14 continuations == phase 5's service")
+    check(len(piped) == N_PIPELINED and all(
+        np.array_equal(a, ref_svc.lookup(bg, bl)) for (bg, bl), a in zip(batches, piped)),
+        f"wave service: lookup_pipelined over {N_PIPELINED} batches == lookup, batch by batch")
+    print(f"waves: service lookups of {N_PIPELINED} batches of {m} (cold cache): "
+          f"pipelined {t_piped:.4f} s, one by one {t_seq:.4f} s; checks passed")
+    del svc
+    torch.cuda.empty_cache()
+
+    # past what one NAIVE job can hold: the monolithic SUFFIX-sigma job is
+    # the reference; SUFFIX-sigma and NAIVE run in waves.  The SUFFIX-sigma
+    # run's fold hands its largest and widest merges of BIG_TERMS rows or
+    # more to phase 4.
+    t0 = time.perf_counter()
+    big = corpus.zipf_corpus(BIG_TERMS, corpus.NYT, seed=0, duplicate_frac=0.02)
+    print(f"waves: corpus of {BIG_TERMS} NYT-profile terms, {big.size:,} positions, "
+          f"made in {time.perf_counter() - t0:.1f} s")
+    big_dev = torch.as_tensor(big, device=dev)
+    reset_peak()
+    t0 = time.perf_counter()
+    ref = run_job(big_dev, cfg, device=dev)
+    sync()
+    mono_s, mono_peak = time.perf_counter() - t0, device_peak()
+    del big_dev
+    torch.cuda.empty_cache()
+    print(f"waves: {BIG_TERMS} terms: the monolithic SUFFIX-sigma job {mono_s:.3f} s (cold), peak "
+          f"device memory {mono_peak / 2**30:.2f} GiB; {len(ref):,} n-grams")
+    big_peaks, fold = {}, None
+    for method, wave in BIG_WAVES.items():
+        c = NGramConfig(sigma=SIGMA, tau=TAU, vocab_size=vocab, method=method)
+        torch.cuda.empty_cache()
+        reset_peak()
+        held = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+        with (captured_merges(BIG_TERMS) if fold is None else contextlib.nullcontext()) as cap, \
+                counted(launches):
+            t0 = time.perf_counter()
+            out = WaveExecutor(c, wave_tokens=wave, device=dev).run(big)
+            sync()
+            secs, big_peaks[method] = time.perf_counter() - t0, device_peak()
+        fold = fold or cap
+        copy_s = cap["copy_s"] if cap is not None else 0.0
+        check(same_rows(out, ref), f"{BIG_TERMS} terms: {method} in {wave_label(wave)} == "
+              "the monolithic SUFFIX-sigma job")
+        print(f"waves: {BIG_TERMS} terms: {method} in {wave_label(wave)}: {out.counters['waves']} "
+              f"waves, {secs - copy_s:.3f} s (cold"
+              + (f"; {secs:.3f} s with {copy_s:.3f} s of copying two merges' inputs to the "
+                 "host for phase 4" if cap is not None else "")
+              + f"), peak device memory {big_peaks[method] / 2**30:.2f} GiB "
+              f"({held / 2**30:.2f} GiB held before); fold_rows {out.counters['fold_rows']:,}; "
+              "equal to the monolithic job")
+        del out
+    check(dev.type != "cuda" or big_peaks["suffix_sigma"] < mono_peak,
+          f"{BIG_TERMS} terms: the SUFFIX-sigma wave run peaks below the monolithic job")
+    print(f"waves: {BIG_TERMS} terms, the SUFFIX-sigma fold's merges (m, n): {fold['shapes']}")
+    check(fold["largest"] is not None, f"the fold merged {BIG_TERMS} rows or more at once")
+    launches = dict(launches)
+    print(f"waves: checks passed; kernel launches of the wave entry points {launches}")
+    return dict(launches=launches, fold=fold, runs=runs)
 
 
 # --------------------------------------------------------------------- phase 4
@@ -1212,8 +1533,10 @@ def edge_cases(dev):
 
 
 def phase_kernels(dev, main: dict, methods: dict, stream: dict, ext: dict,
-                  probe: ctypes.CDLL) -> list[dict]:
-    """Each kernel against its plain version at the main paths' shapes."""
+                  probe: ctypes.CDLL):
+    """Each kernel against its plain version at the main paths' shapes.
+    Returns the rows and a function to run after phase 8, which adds its
+    launches to every row and ``merge_path`` at the fold's shapes."""
     vocab = corpus.NYT.vocab_size
     n_l = pack.n_lanes(SIGMA, vocab)
     tokens, idx = main["tokens"], main["idx"]
@@ -1224,18 +1547,22 @@ def phase_kernels(dev, main: dict, methods: dict, stream: dict, ext: dict,
                    "stream": stream["launches"].get(k, 0),
                    "ext": ext["launches"].get(k, 0)} for k in KERNELS}
 
-    def measure(name, path, kernel, plain, bytes_u32, bytes_stored, ops_done, shape):
+    def measure(name, path, kernel, plain, bytes_u32, bytes_stored, ops_done, shape,
+                plain_reps=10):
         """One row; ``bytes_u32`` counts uint32 values at 4 bytes, ``bytes_stored``
-        at the 8 bytes of the port's int64 lanes (equal where all is 32-bit)."""
+        at the 8 bytes of the port's int64 lanes (equal where all is 32-bit);
+        the plain version's time is a mean over ``plain_reps`` calls."""
         err = max_abs_err(kernel(), plain())
         check(err == 0, f"{name} kernel == plain version at {shape}")
         ms = cuda_ms(kernel) if tokens.is_cuda else float("nan")
         k_ms = kernel_ms(kernel, f"{name}_kernel") if tokens.is_cuda else float("nan")
-        plain_ms = cuda_ms(plain) if tokens.is_cuda else float("nan")
+        q_ms = queued_ms(kernel) if tokens.is_cuda else float("nan")
+        plain_ms = cuda_ms(plain, plain_reps) if tokens.is_cuda else float("nan")
         bound_ms, bound_by = bound(bytes_u32, ops_done)
         stored_ms, _ = bound(bytes_stored, ops_done)
         print(f"kernel {name} at {shape}: equal; {ms:.4f} ms a call, kernel "
-              f"{fmt_ms(k_ms)} ms on the device, plain {plain_ms:.4f} ms, "
+              f"{fmt_ms(k_ms)} ms on the device (profiler), a call queued "
+              f"{q_ms:.4f} ms on the device (events), plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}, uint32 values), "
               f"{stored_ms:.4f} ms as stored (int64 lanes); launches {by_path[name]}; "
               "library call: none")
@@ -1243,15 +1570,16 @@ def phase_kernels(dev, main: dict, methods: dict, stream: dict, ext: dict,
                     source=f"src/repro_torch/kernels/csrc/{name}.cu",
                     replaces=KERNELS[name], launches=by_path[name][path],
                     launches_by_path=by_path[name], max_abs_err=err, ms=ms,
-                    kernel_ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                    kernel_ms=k_ms, queued_ms=q_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by,
                     bound_ms_as_stored=stored_ms, library_ms=None, shape=shape)
 
     def at_shape(row: dict, other: dict, key: str = "methods_shape") -> None:
         """Attach to ``row`` the measurement ``other`` at the shape another
         path gives the kernel: phase 6's jobs (``methods_shape``), phase 7's
-        (``ext_shape``)."""
+        (``ext_shape``), phase 8's fold (``fold_shape``, ``fold_widest_shape``)."""
         row[key] = {k: other[k] for k in (
-            "shape", "max_abs_err", "ms", "kernel_ms", "plain_ms", "bound_ms",
+            "shape", "max_abs_err", "ms", "kernel_ms", "queued_ms", "plain_ms", "bound_ms",
             "bound_by", "bound_ms_as_stored")}
 
     # the main path's own intermediates, rebuilt stage by stage; suffix_pack
@@ -1374,7 +1702,6 @@ def phase_kernels(dev, main: dict, methods: dict, stream: dict, ext: dict,
             rows.append(row)
     rows += stream_kernel_rows(dev, stream, measure)
     ext_kernel_rows(dev, main, ext, measure, at_shape, {r["name"]: r for r in rows})
-
     cases = edge_cases(dev) + stream_edge_cases(dev)
     for name, kernel, plain in cases:
         check(max_abs_err(kernel(), plain()) == 0, f"{name} edge case")
@@ -1387,13 +1714,36 @@ def phase_kernels(dev, main: dict, methods: dict, stream: dict, ext: dict,
           "tails, sigma=15, block id nb-1; hash_combine K 1-5 x blocks 32-1024 in "
           "place, aligned and not, and on separate tensors, all keys equal or "
           "distinct; merge_path K 1-6, M=1, N=1, ties in runs of 256, 1024 and "
-          "5000 rows across tiles; lcp_boundary at N = 1, T - 1, T, T + 1 and 3T + 2 "
+          "5000 rows across tiles, M = N = 2**26 + 4,099; lcp_boundary at N = 1, T - 1, T, T + 1 and 3T + 2 "
           "for L 1-6, 16, 31-33, 40, 100 and 3072 (T = 256 rows a block at L <= 5), "
           "L = 3073, zeros, unaligned views, INT_MIN in row 0; block_expand and block_decode at block "
           f"sizes {', '.join(map(str, BLOCK_SIZES))} x sigma 1, 5, 15 x both views, "
           "out= in place, "
           "empty id lists)")
-    return rows
+
+    def after_waves(waves: dict) -> None:
+        """Phase 8's launches in every row, then ``merge_path`` at the 2**27
+        fold's widest and largest merges, whose inputs phase 8 kept."""
+        for k, paths in by_path.items():
+            paths["waves"] = waves["launches"].get(k, 0)
+        fold = waves.pop("fold")
+        merge_row = next(r for r in rows if r["name"] == "merge_path")
+        for key, what in (("widest", "fold_widest_shape"), ("largest", "fold_shape")):
+            torch.cuda.empty_cache()
+            ak, bk, av, bv = (t.to(dev) for t in fold.pop(key))
+            m, nn, k = ak.shape[0], bk.shape[0], ak.shape[1]
+            steps = ref.search_steps(min(m, nn) + 1)
+            at_shape(merge_row, measure(
+                "merge_path", "waves", lambda: ops.merge_path(ak, bk, av, bv),
+                lambda: ref.merge_path_ref(ak, bk, av, bv),
+                2 * (m + nn) * (4 * k + 4), 2 * (m + nn) * (8 * k + 8),
+                (m + nn) * steps * (2 * k + 6),
+                f"the {BIG_TERMS}-term deferred fold's {key} merge: runs [{m}, {k}] + "
+                f"[{nn}, {k}], {steps} steps", plain_reps=2), what)
+            del ak, bk, av, bv
+        torch.cuda.empty_cache()
+
+    return rows, after_waves
 
 
 def ext_kernel_rows(dev, main: dict, ext: dict, measure, at_shape, rows: dict) -> None:
@@ -1717,8 +2067,9 @@ def tied_run(n: int, run: int, k: int, shift: int = 0) -> np.ndarray:
 def merge_edge_cases(dev):
     """``merge_path``'s tiles (512 output rows, K = 1-5) and its generic
     instance (K = 6): runs inside one tile and across many, M = 1 and N = 1,
-    sentinel tails, lanes >= 2**31, and ties equal across A and B in runs of
-    256, 1,024 and 5,000 rows that straddle the tiles' edges."""
+    sentinel tails, lanes >= 2**31, ties equal across A and B in runs of
+    256, 1,024 and 5,000 rows that straddle the tiles' edges, and runs of
+    2**26 + 4,099 rows (diagonal windows past 2**26)."""
     rng = np.random.default_rng(9)
     t = lambda a: torch.as_tensor(np.asarray(a), device=dev)  # noqa: E731
     cases = []
@@ -1742,6 +2093,17 @@ def merge_edge_cases(dev):
         for run, m, n, shift in ((256, 4096, 3000, 0), (1024, 3500, 4100, 100),
                                  (5000, 20_000, 12_000, 2500)):
             add(tied_run(m, run, k), tied_run(n, run, k, shift))
+    # diagonal windows past 2**26 rows, where split_warp divides in 64 bits:
+    # two runs of 2**26 + 4,099 keys in [2**31, 2**31 + 2**20), ties across
+    # them, made on the card from a seed
+    gen = torch.Generator(device=dev).manual_seed(9)
+    big = (1 << 26) + 4099
+    a, b = ((torch.randint(0, 1 << 20, (big,), generator=gen, device=dev).sort().values
+             + 2**31)[:, None] for _ in range(2))
+    av = torch.arange(big, device=dev)
+    bv = av + big
+    cases.append(("merge_path", lambda: ops.merge_path(a, b, av, bv),
+                  lambda: ref.merge_path_ref(a, b, av, bv)))
     return cases
 
 
@@ -1895,9 +2257,17 @@ def main() -> int:
     missing = [k for k in EXT_KERNELS if ext["launches"].get(k, 0) == 0]
     check(not missing, f"the extensions launched every kernel of their path (missing {missing})")
     done("phase 7 (extensions)")
-    rows = phase_kernels(dev, main_run, methods, stream, ext,  # phase 4
-                         finish_nvcc(probe_nvcc, probe_lib))
+    torch.cuda.empty_cache()
+    rows, after_waves = phase_kernels(dev, main_run, methods, stream, ext,  # phase 4
+                                      finish_nvcc(probe_nvcc, probe_lib))
     done("phase 4 (kernels)")
+    torch.cuda.empty_cache()
+    wave = phase_waves(dev, main_run, stream)           # phase 8
+    missing = [k for k in KERNELS if wave["launches"].get(k, 0) == 0]
+    check(not missing, f"the wave path launched every kernel (missing {missing})")
+    done("phase 8 (waves)")
+    after_waves(wave)
+    done("phase 4 at the fold's merges")
 
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -9,7 +9,11 @@ ingest: ``serve.StreamingNGramService`` runs each document batch through the
 job (hash combiner included) into a ``GenerationalIndex`` whose merged rungs
 freeze to the compressed layout, and answers queries across its rungs.  The
 third brings the paper's other three methods (NAIVE, APRIORI-SCAN,
-APRIORI-INDEX), so ``core.run_job`` runs all four on one device.
+APRIORI-INDEX), so ``core.run_job`` runs all four on one device.  The
+wave engine (``WaveExecutor``, exported here) streams a host-resident
+corpus through the card in fixed-size waves and folds them into the
+monolithic job's output, so a corpus larger than one job can hold on the
+card still runs.
 
 Lane representation.  ``repro`` keeps packed term lanes, record weights,
 hash values and index counts as ``uint32``.  torch has no ``>>``, ``<``,
@@ -73,3 +77,10 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device: repro_torch entry points run on the GPU by "
             "default; pass device='cpu' to run on the host")
     return torch.device("cuda")
+
+
+from repro_torch.pipeline import (DoubleBufferedDriver, WaveExecutor,  # noqa: E402
+                                  WavePartial)
+
+__all__ = ["U32", "u32_words", "resolve_device", "WaveExecutor", "WavePartial",
+           "DoubleBufferedDriver"]

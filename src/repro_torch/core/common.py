@@ -14,6 +14,8 @@ exists exactly when term slot ``k - 1`` of the lanes is not PAD.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -59,11 +61,26 @@ def suffix_lanes(tokens: torch.Tensor, sigma: int, vocab_size: int) -> torch.Ten
     return kops.suffix_pack(tokens, sigma=sigma, vocab_size=vocab_size)
 
 
-def prefix_masks(sigma: int, vocab_size: int, device) -> torch.Tensor:
-    """``prefix_lane_masks`` [sigma + 1, n_lanes] as int64 on ``device``:
-    ``lanes & masks[l]`` packs the length-``l`` prefix."""
+@functools.lru_cache(maxsize=None)
+def _mask_tables(sigma: int, vocab_size: int, device: torch.device):
+    """(prefix masks [sigma + 1, n_lanes], the lane of each term slot
+    [sigma], the slot's bits in it [sigma]) as int64 on ``device``, and the
+    last two as numpy.  Made once per (sigma, vocab, device): a copy from
+    the host waits for the card, and a wave's dispatch makes none."""
     masks = packing.prefix_lane_masks(sigma, vocab_size).astype(np.int64)
-    return torch.as_tensor(masks, device=device)
+    field = masks[1:] ^ masks[:-1]            # [sigma, n_lanes]: slot l's bits
+    lane = field.argmax(axis=1)               # the one lane each slot lies in
+    bits = field[np.arange(sigma), lane]
+    return (torch.as_tensor(masks, device=device),
+            torch.as_tensor(lane, device=device),
+            torch.as_tensor(bits, device=device), lane, bits)
+
+
+def prefix_masks(sigma: int, vocab_size: int, device) -> torch.Tensor:
+    """``prefix_lane_masks`` [sigma + 1, n_lanes] as int64 on ``device`` (a
+    shared tensor: read it, never write it): ``lanes & masks[l]`` packs the
+    length-``l`` prefix."""
+    return _mask_tables(sigma, vocab_size, torch.device(device))[0]
 
 
 def term_present(lanes: torch.Tensor, sigma: int, vocab_size: int,
@@ -74,15 +91,10 @@ def term_present(lanes: torch.Tensor, sigma: int, vocab_size: int,
     Suffix lanes are PAD-masked, so slot ``l`` holds a term exactly when the
     position's suffix is longer than ``l``.
     """
-    masks = packing.prefix_lane_masks(sigma, vocab_size).astype(np.int64)
-    field = masks[1:] ^ masks[:-1]            # [sigma, n_lanes]: slot l's bits
-    lane = field.argmax(axis=1)               # the one lane each slot lies in
-    bits = field[np.arange(sigma), lane]
+    _, lane_t, bits_t, lane, bits = _mask_tables(sigma, vocab_size, lanes.device)
     if slot is not None:
         return (lanes[:, int(lane[slot])] & int(bits[slot])) != 0
-    lane = torch.as_tensor(lane, device=lanes.device)
-    bits = torch.as_tensor(bits, device=lanes.device)
-    return (lanes[:, lane] & bits) != 0
+    return (lanes[:, lane_t] & bits_t) != 0
 
 
 def kgram_records(tokens: torch.Tensor, k: int, sigma: int, vocab_size: int,

@@ -3,25 +3,31 @@ batched queries.
 
 ``build`` freezes a finished job's ``NGramStats`` into a sorted packed-lane
 ``NGramIndex``; ``compress`` re-encodes it as a front-coded + Elias-Fano
-``CompressedNGramIndex``; ``merge`` merges segments and keeps a
-``GenerationalIndex`` (LSM) under streaming ingest; ``query`` answers batched
-point-count and top-k-continuation queries against any of them.  Sharded
+``CompressedNGramIndex``; ``merge`` merges segments, folds a wave run's segments
+(the accumulators) and keeps a ``GenerationalIndex`` (LSM) under streaming
+ingest; ``query`` answers batched point-count and top-k-continuation queries
+against any of them.  Sharded
 serving waits for the multi-device slice.
 """
 from . import build, compress, merge, query
 from .build import (IndexSegment, NGramIndex, build_index, index_from_arrays,
-                    index_from_segment, segment_from_stats)
+                    index_from_segment, segment_from_stats,
+                    segment_from_wave_stats)
 from .compress import (CompressedNGramIndex, build_compressed_index,
                        compress_index, compressed_index_from_arrays,
                        decode_segment)
-from .merge import (GenerationalIndex, generational_from_stats, merge_indexes,
-                    merge_segments, segment_to_stats, stats_union)
+from .merge import (DeferredSegmentAccumulator, GenerationalIndex,
+                    PairwiseSegmentAccumulator, TieredSegmentAccumulator,
+                    generational_from_stats, merge_indexes, merge_segments,
+                    segment_to_stats, stats_union)
 from .query import continuations, lookup
 
 __all__ = ["build", "compress", "merge", "query", "IndexSegment", "NGramIndex",
            "build_index", "index_from_arrays", "index_from_segment",
-           "segment_from_stats", "CompressedNGramIndex", "build_compressed_index",
-           "compress_index", "compressed_index_from_arrays", "decode_segment",
-           "GenerationalIndex", "generational_from_stats", "merge_indexes",
-           "merge_segments", "segment_to_stats", "stats_union", "lookup",
-           "continuations"]
+           "segment_from_stats", "segment_from_wave_stats",
+           "CompressedNGramIndex", "build_compressed_index", "compress_index",
+           "compressed_index_from_arrays", "decode_segment",
+           "GenerationalIndex", "DeferredSegmentAccumulator",
+           "TieredSegmentAccumulator", "PairwiseSegmentAccumulator",
+           "generational_from_stats", "merge_indexes", "merge_segments",
+           "segment_to_stats", "stats_union", "lookup", "continuations"]

@@ -30,7 +30,7 @@ from repro_torch.mapreduce import sort
 from ._layout import SENTINEL, fanout_layout, pad_rows, round_capacity, row_offsets
 
 __all__ = ["IndexSegment", "NGramIndex", "segment_from_stats",
-           "index_from_segment", "build_index", "index_from_arrays",
+           "segment_from_wave_stats", "index_from_segment", "build_index", "index_from_arrays",
            "search_steps"]
 
 
@@ -130,6 +130,22 @@ class NGramIndex:
         return self.segment
 
 
+def _sorted_rows(stats: NGramStats, vocab_size: int, device
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A job's rows as sorted (length | packed lanes) keys and uint32 cf,
+    on ``device``; bucketed series counts marginalize to cf."""
+    counts = np.asarray(stats.counts)
+    if counts.ndim == 2:
+        counts = counts.sum(axis=1)
+    grams = torch.as_tensor(np.asarray(stats.grams, np.int32), device=device)
+    lengths = torch.as_tensor(np.asarray(stats.lengths, np.int64), device=device)
+    counts = torch.as_tensor(counts.astype(np.int64) & U32, device=device)
+    lanes = packing.pack_terms(grams, vocab_size=vocab_size)
+    keys = torch.cat([(lengths & U32)[:, None], lanes], dim=1)
+    keys_s, (counts_s,) = sort.sort_with_payload(keys, [counts])
+    return keys_s, counts_s
+
+
 def segment_from_stats(stats: NGramStats, *, vocab_size: int,
                        pad_to: int | None = None, device=None) -> IndexSegment:
     """Sort a finished job's rows into an :class:`IndexSegment` on ``device``.
@@ -137,22 +153,26 @@ def segment_from_stats(stats: NGramStats, *, vocab_size: int,
     ``pad_to`` fixes the padded capacity (default rounds R+1 up to 128).
     """
     device = resolve_device(device)
-    counts = np.asarray(stats.counts)
-    if counts.ndim == 2:                       # bucketed series: marginal cf
-        counts = counts.sum(axis=1)
-    grams = torch.as_tensor(np.asarray(stats.grams, np.int32), device=device)
-    lengths = torch.as_tensor(np.asarray(stats.lengths, np.int64), device=device)
-    counts = torch.as_tensor(counts.astype(np.int64) & U32, device=device)
-    r, sigma = grams.shape
+    r, sigma = np.asarray(stats.grams).shape
     size = pad_to if pad_to is not None else round_capacity(r)
     if size < r + 1:
         raise ValueError(f"pad_to={size} < n_rows+1={r + 1}")
-    lanes = packing.pack_terms(grams, vocab_size=vocab_size)
-    keys = torch.cat([(lengths & U32)[:, None], lanes], dim=1)
-    keys_s, (counts_s,) = sort.sort_with_payload(keys, [counts])
+    keys_s, counts_s = _sorted_rows(stats, vocab_size, device)
     return IndexSegment(keys=pad_rows(keys_s, size, SENTINEL),
                         counts=pad_rows(counts_s, size, 0),
                         sigma=sigma, vocab_size=vocab_size)
+
+
+def segment_from_wave_stats(stats: NGramStats, *, vocab_size: int,
+                            device=None) -> IndexSegment:
+    """Freeze one wave's partial into a sorted segment with no sentinel tail
+    (the wave engine's stats route, for plans whose lanes pack with another
+    vocabulary than the segment's).  Any route of ``merge_segments`` and
+    ``GenerationalIndex.ingest_segment`` take it as it is."""
+    keys_s, counts_s = _sorted_rows(stats, vocab_size, resolve_device(device))
+    return IndexSegment(keys=keys_s, counts=counts_s,
+                        sigma=int(np.asarray(stats.grams).shape[1]),
+                        vocab_size=vocab_size)
 
 
 def index_from_segment(seg: IndexSegment, *,

@@ -1,6 +1,6 @@
-"""Incremental index maintenance: k-way segment merge + generational (LSM) index
-(port of ``repro.index.merge``, without the wave engine's segment
-accumulators).
+"""Incremental index maintenance: k-way segment merge, the wave engine's
+segment accumulators, and the generational (LSM) index (port of
+``repro.index.merge``).
 
   * :func:`merge_segments` -- merge sorted segments into one, summing the
     counts of duplicate grams.  Routes: ``"merge"`` runs the ``merge_path``
@@ -8,15 +8,20 @@ accumulators).
     it: the port has no size ceiling that sends a device merge to the host),
     ``"sort"`` re-sorts the concatenation, and ``"kway"`` folds on the host
     exploiting the inputs' sortedness -- the one host route, taken only when
-    the caller names it.  On the device routes the dedup fold
-    is one int64 segment sum (exact for any run length: the port's counts are
-    int64, where ``repro`` needs two uint32 limbs).  Every route raises the
-    same ``ValueError`` as ``repro`` if a merged cf exceeds 2**32 - 1, and all
-    produce identical segments: ascending (length | packed lanes), a pure
-    function of the row set.
+    the caller names it.  On the device routes the dedup fold takes run
+    totals from one int64 running sum (exact for any run length: the port's
+    counts are int64, where ``repro`` needs two uint32 limbs).  Every route
+    raises the same ``ValueError`` as ``repro`` if a merged cf exceeds
+    2**32 - 1, and all produce identical segments: ascending (length |
+    packed lanes), a pure function of the row set.
   * :func:`merge_indexes` -- segments in, finished index out, re-compressed
     when the inputs were compressed; ``merge(build(A), build(B))`` equals
     ``build(A u B)`` array for array.
+  * :class:`DeferredSegmentAccumulator`, :class:`TieredSegmentAccumulator`,
+    :class:`PairwiseSegmentAccumulator` -- fold a stream of wave segments
+    into one (``pipeline.executor.WaveExecutor.run``): once at the end, as
+    size-tiered rungs, or into one segment every wave.  Each counts the rows
+    it feeds through merges (``fold_rows``) exactly as ``repro``'s does.
   * :class:`GenerationalIndex` -- L0..Ln immutable segments under size-ratio
     compaction.  Each ingest freezes a job delta into a fresh L0; merges
     cascade while the newest run has grown to within ``size_ratio`` of its
@@ -24,8 +29,9 @@ accumulators).
     layout and fresh L0 deltas stay flat; compaction stream-decodes
     compressed inputs chunk by chunk (``decode_segment``).
 
-Segments live on the index's device as int64 tensors of uint32 values; the
-host routes go through numpy and hand the result back to that device.
+Segments live on the index's device as int64 tensors of uint32 values (a
+wave's segment has no sentinel tail); the host routes go through numpy and
+hand the result back to that device.
 """
 from __future__ import annotations
 
@@ -53,10 +59,16 @@ def _overflow(count: int, row: int) -> ValueError:
 
 def _merged_run(segs: list[IndexSegment], *, route: str
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One sorted run (duplicates kept, sentinels at the tail) over all rows."""
+    """One sorted run (duplicates kept, sentinels at the tail) over all rows.
+
+    ``segs`` is emptied as it is read, and the merge tree drops each pair of
+    runs once merged: inputs that no caller holds are freed level by level,
+    so the tree holds at most its inputs and one merged pair at a time.
+    """
     if route == "sort":
         keys = torch.cat([s.keys for s in segs], dim=0)
         counts = torch.cat([s.counts for s in segs], dim=0)
+        segs.clear()
         keys, (counts,) = mr_sort.sort_with_payload(keys, [counts])
         return keys, counts
     if route in ("merge", "device"):
@@ -64,51 +76,50 @@ def _merged_run(segs: list[IndexSegment], *, route: str
         # pairwise merges, and adjacent pairing + the A-first tie rule keep
         # duplicates in generation order (moot: the fold sums them)
         runs = [(s.keys, s.counts) for s in segs]
+        segs.clear()
         while len(runs) > 1:
-            paired = [kops.merge_path(runs[i][0], runs[i + 1][0],
-                                      runs[i][1], runs[i + 1][1])
-                      for i in range(0, len(runs) - 1, 2)]
-            if len(runs) % 2:
-                paired.append(runs[-1])
-            runs = paired
+            level, runs = runs, []
+            while len(level) > 1:
+                (ak, av), (bk, bv) = level.pop(0), level.pop(0)
+                runs.append(kops.merge_path(ak, bk, av, bv))
+                del ak, av, bk, bv
+            runs += level
         return runs[0]
     raise ValueError(f"unknown merge route {route!r}")
 
 
-def _fold_runs_device(keys: torch.Tensor, counts: torch.Tensor, *,
-                      sigma: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Dedup-fold a sorted run on its device -> (real keys [R, C], int64
-    totals [R]): run starts by comparison with the previous row, one int64
-    segment sum, sentinel runs dropped (they sort last)."""
+def _fold_runs_device(keys: torch.Tensor, counts: torch.Tensor, *, sigma: int,
+                      pad_to: int | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dedup-fold a sorted run on its device -> (keys, int64 totals), padded
+    with sentinel rows to ``pad_to`` (default ``round_capacity``).
+
+    Run totals are differences of one running sum at the run ends, and the
+    real runs (sentinels sort last) are gathered straight into the padded
+    output: besides the run, the fold holds the sum and per-run vectors
+    only.  Raises ``ValueError`` if a total exceeds uint32.
+    """
     n = keys.shape[0]
     new_run = torch.ones((n,), dtype=torch.bool, device=keys.device)
     if n > 1:
         new_run[1:] = (keys[1:] != keys[:-1]).any(dim=1)
-    seg = torch.cumsum(new_run, dim=0) - 1
-    totals = torch.zeros((n,), dtype=torch.int64, device=keys.device)
-    totals.index_add_(0, seg, counts)
-    starts = torch.nonzero(new_run & (keys[:, 0] <= sigma)).squeeze(1)
-    return keys[starts], totals[seg[starts]]
-
-
-def _fold_runs_host(keys: np.ndarray, counts: np.ndarray, *,
-                    sigma: int) -> tuple[np.ndarray, np.ndarray]:
-    """Host int64 fold of a sorted run -- the bearer of the detailed overflow
-    diagnostic, replayed when the device fold finds a count past uint32."""
-    new_run = np.ones(keys.shape[0], bool)
-    new_run[1:] = np.any(keys[1:] != keys[:-1], axis=1)
-    starts = np.flatnonzero(new_run)
-    cs = np.concatenate([[0], np.cumsum(counts, dtype=np.int64)])
-    ends = np.append(starts[1:], keys.shape[0])
-    totals = cs[ends] - cs[starts]
-    run_keys = keys[starts]
-    real = run_keys[:, 0] <= sigma                # sentinel length sorts last
-    r_keys, r_tot = run_keys[real], totals[real]
+    starts = torch.nonzero(new_run).squeeze(1)
+    del new_run
+    r = int((keys[starts, 0] <= sigma).sum())
+    csum = torch.cumsum(counts, dim=0)
+    below = torch.where(starts[:r] > 0, csum[(starts[:r] - 1).clamp(min=0)], 0)
+    ends = torch.cat([starts[1:], starts.new_full((1,), n)])[:r] - 1
+    totals = csum[ends] - below
+    del csum, below, ends
     # a silently wrapped cf would serve plausible-looking garbage
-    if r_tot.size and int(r_tot.max()) > U32:
-        bad = int(np.argmax(r_tot))
-        raise _overflow(int(r_tot[bad]), bad)
-    return r_keys, r_tot
+    if r and int(totals.max()) > U32:
+        bad = int(totals.argmax())
+        raise _overflow(int(totals[bad]), bad)
+    size = pad_to if pad_to is not None else round_capacity(r)
+    if size < r + 1:
+        raise ValueError(f"pad_to={size} < n_rows+1={r + 1}")
+    out_keys = keys.new_full((size, keys.shape[1]), SENTINEL)
+    torch.index_select(keys, 0, starts[:r], out=out_keys[:r])
+    return out_keys, pad_rows(totals, size, 0)
 
 
 def _check_u32(totals: np.ndarray) -> np.ndarray:
@@ -195,7 +206,15 @@ def merge_segments(segments, *, route: str = "merge", pad_to: int | None = None,
     annotates the ``merge.segments`` span with the flat/compressed input mix.
     Raises ``ValueError`` if any merged count overflows uint32.
     """
-    segs = list(segments)
+    return _merge_owned(list(segments), route=route, pad_to=pad_to,
+                        n_compressed=n_compressed)
+
+
+def _merge_owned(segs: list, *, route: str, pad_to: int | None = None,
+                 n_compressed: int | None = None) -> IndexSegment:
+    """:func:`merge_segments` over a list it may empty: the device routes
+    free each input once merged, unless a caller still holds it (the
+    accumulators hand their segments over this way)."""
     if not segs:
         raise ValueError("cannot merge zero segments")
     sigma, vocab = segs[0].sigma, segs[0].vocab_size
@@ -213,23 +232,20 @@ def merge_segments(segments, *, route: str = "merge", pad_to: int | None = None,
             if n_compressed is not None:
                 sp.set(n_compressed=n_compressed,
                        n_flat=len(segs) - n_compressed)
-        if route == "kway":
-            r_keys, r_tot = _kway_fold_host(segs)
-            keys = torch.as_tensor(r_keys.astype(np.int64), device=dev)
-            counts = torch.as_tensor(r_tot, device=dev)
-        else:
-            run_keys, run_counts = _merged_run(
-                [IndexSegment(s.keys.to(dev), s.counts.to(dev), sigma, vocab)
-                 for s in segs], route=route)
-            keys, counts = _fold_runs_device(run_keys, run_counts, sigma=sigma)
-            if counts.numel() and int(counts.max()) > U32:
-                # replay on the host for the detailed diagnostic (it raises)
-                _fold_runs_host(run_keys.cpu().numpy(), run_counts.cpu().numpy(),
-                                sigma=sigma)
-        r = int(keys.shape[0])
+        if route != "kway":
+            segs[:] = [IndexSegment(s.keys.to(dev), s.counts.to(dev), sigma, vocab)
+                       for s in segs]
+            keys, counts = _fold_runs_device(*_merged_run(segs, route=route),
+                                             sigma=sigma, pad_to=pad_to)
+            return IndexSegment(keys=keys, counts=counts, sigma=sigma,
+                                vocab_size=vocab)
+        r_keys, r_tot = _kway_fold_host(segs)
+        r = int(r_keys.shape[0])
         size = pad_to if pad_to is not None else round_capacity(r)
         if size < r + 1:
             raise ValueError(f"pad_to={size} < n_rows+1={r + 1}")
+        keys = torch.as_tensor(r_keys.astype(np.int64), device=dev)
+        counts = torch.as_tensor(r_tot, device=dev)
         return IndexSegment(keys=pad_rows(keys, size, SENTINEL),
                             counts=pad_rows(counts, size, 0),
                             sigma=sigma, vocab_size=vocab)
@@ -352,6 +368,109 @@ def merge_continuation_results(per_seg, *, k: int):
     topk_t[rows, cols] = u_t[order][keep]
     topk_c[rows, cols] = sums[order][keep]
     return nd, total, topk_t, topk_c
+
+
+class TieredSegmentAccumulator:
+    """Size-tiered fold of a stream of sorted segments (a wave accumulator).
+
+    ``push`` stacks the new segment as the newest rung and merges while the
+    newest rung has grown to within ``size_ratio`` of its elder, so equal
+    waves amortize to O(total log waves) merge rows; ``result`` folds the
+    rungs left.  Merges are associative and their order is a pure function of
+    the row set, so the result equals every other accumulator's.
+    ``fold_rows`` counts every input row fed through a merge, as ``repro``'s.
+    """
+
+    def __init__(self, *, size_ratio: int = DEFAULT_SIZE_RATIO,
+                 route: str = "sort"):
+        if size_ratio < 1:
+            raise ValueError("size_ratio must be >= 1")
+        self.size_ratio = size_ratio
+        self.route = route
+        self.rungs: list[tuple[IndexSegment, int]] = []   # newest first
+        self.fold_rows = 0
+
+    def _merge_front(self, n: int) -> None:
+        segs = [s for s, _ in reversed(self.rungs[:n])]   # elder first
+        self.fold_rows += sum(r for _, r in self.rungs[:n])
+        del self.rungs[:n]
+        merged = _merge_owned(segs, route=self.route)
+        self.rungs.insert(0, (merged, merged.n_rows))
+
+    def push(self, seg: IndexSegment, *, n_rows: int | None = None) -> None:
+        """Stack one segment (of ``n_rows`` real rows, when the caller knows
+        them), then compact rungs under the size-ratio policy."""
+        self.rungs.insert(0, (seg, seg.n_rows if n_rows is None else n_rows))
+        while (len(self.rungs) >= 2 and
+               self.rungs[0][1] * self.size_ratio >= self.rungs[1][1]):
+            self._merge_front(2)
+
+    def result(self) -> IndexSegment:
+        """Fold the remaining rungs into the one final sorted segment."""
+        if not self.rungs:
+            raise ValueError("no segments accumulated")
+        if len(self.rungs) > 1:
+            self._merge_front(len(self.rungs))
+        return self.rungs[0][0]
+
+
+class DeferredSegmentAccumulator:
+    """Stack every wave segment; fold once, k-way, at :meth:`result` (the
+    wave engine's default): O(total) rows through one merge.
+
+    All partials stay live until ``result``, the same order of memory as the
+    merged segment itself.  ``route`` defaults to ``"merge"``, where
+    ``repro``'s defaults to ``"kway"``: the port's ``kway`` folds on the
+    host.  Same interface and result as the other accumulators.
+    """
+
+    def __init__(self, *, route: str = "merge", **_ignored):
+        self.route = route
+        self.segs: list[IndexSegment] = []
+        self._rows: list[int] = []
+        self.fold_rows = 0
+
+    def push(self, seg: IndexSegment, *, n_rows: int | None = None) -> None:
+        self.segs.append(seg)
+        self._rows.append(seg.n_rows if n_rows is None else n_rows)
+
+    def result(self) -> IndexSegment:
+        if not self.segs:
+            raise ValueError("no segments accumulated")
+        if len(self.segs) == 1:
+            return self.segs[0]
+        self.fold_rows += sum(self._rows)
+        segs, self.segs = self.segs, []
+        merged = _merge_owned(segs, route=self.route)
+        self.segs = [merged]
+        self._rows = [merged.n_rows]
+        return merged
+
+
+class PairwiseSegmentAccumulator:
+    """Fold every wave into one segment (O(waves x total)): the baseline, and
+    the option with exactly one live segment at all times."""
+
+    def __init__(self, *, route: str = "sort", **_ignored):
+        self.route = route
+        self._seg: IndexSegment | None = None
+        self._rows = 0
+        self.fold_rows = 0
+
+    def push(self, seg: IndexSegment, *, n_rows: int | None = None) -> None:
+        rows = seg.n_rows if n_rows is None else n_rows
+        if self._seg is None:
+            self._seg, self._rows = seg, rows
+            return
+        self.fold_rows += self._rows + rows
+        prev, self._seg = self._seg, None
+        self._seg = _merge_owned([prev, seg], route=self.route)
+        self._rows = self._seg.n_rows
+
+    def result(self) -> IndexSegment:
+        if self._seg is None:
+            raise ValueError("no segments accumulated")
+        return self._seg
 
 
 class GenerationalIndex:

@@ -93,14 +93,16 @@ def bsearch_ref(lanes: torch.Tensor, queries: torch.Tensor, lo: torch.Tensor,
     for _ in range(steps):
         mid = (lo + hi) // 2
         rows = lanes[mid.clamp(max=lanes.shape[0] - 1)]     # [Q, L]
-        eq = rows == queries
-        prefix_eq = torch.cat(
-            [torch.ones_like(eq[:, :1]),
-             torch.cumprod(eq[:, :-1].to(torch.int32), dim=1).to(torch.bool)],
-            dim=1)
-        go_right = (prefix_eq & (rows < queries)).any(dim=1)
+        # lexicographic row < query, lane by lane (a scan along the short
+        # lane axis of [Q, L] is slow on the card at Q in the hundreds of
+        # millions)
+        go_right = torch.zeros_like(lo, dtype=torch.bool)
+        prefix_eq = torch.ones_like(go_right)
+        for c in range(rows.shape[1]):
+            go_right |= prefix_eq & (rows[:, c] < queries[:, c])
+            prefix_eq &= rows[:, c] == queries[:, c]
         if upper:
-            go_right = go_right | eq.all(dim=1)
+            go_right |= prefix_eq
         open_ = lo < hi
         lo = torch.where(open_ & go_right, mid + 1, lo)
         hi = torch.where(open_ & ~go_right, mid, hi)

@@ -1,5 +1,6 @@
-"""Single-device job execution (port of ``run_plan`` and its stage core from
-``repro.pipeline.executor``).
+"""Job execution on one device (port of the single-device parts of
+``repro.pipeline.executor``): the monolithic ``run_plan`` and the wave
+engine ``WaveExecutor``.
 
 ``run_plan`` runs a :class:`~repro_torch.pipeline.plan.JobPlan` over the
 whole corpus at once, on the device the tokens lie on: every round's map
@@ -7,20 +8,34 @@ emit, then the stage core (combine -> shuffle key and skew histogram -> sort
 -> reduce), then a host materialize into ``NGramStats``.  Output rows are in
 canonical order (``stages.canonical_stats``) and the counters are exactly
 ``repro``'s.  The multi-round plans (APRIORI-SCAN/-INDEX) hand each round's
-carry to the next here.  The wave engine waits for a later slice.
+carry to the next here.
 
-Spans ``plan.run`` and ``round.{emit,stages,materialize}`` mark the phases;
-``round.materialize`` also covers the next round's carry.  PyTorch launches
-asynchronously, so with tracing on the spans synchronize the card at their
-close: their durations then cover the device work they launched.
+``WaveExecutor`` streams a host-resident corpus through the device in
+fixed-size waves, each with a sigma - 1 token halo, at ``tau = 1``, and
+folds the waves' sorted segments (``index.merge``'s accumulators) on a
+background thread while the next waves run; the global tau applies once at
+the end, so its output equals ``run_plan``'s array for array.
+``run_streaming`` ingests each wave into a ``GenerationalIndex`` instead.
+The multi-device (mesh) waves wait for the multi-device slice.
+
+Spans ``plan.run`` and ``round.{emit,stages,materialize}`` mark the
+monolithic job's phases; ``round.materialize`` also covers the next round's
+carry.  PyTorch launches asynchronously, so with tracing on these spans
+synchronize the card at their close: their durations then cover the device
+work they launched.  The wave spans (``wave.run``, ``wave.window.pad``,
+``wave.window.h2d``, ``wave.submit`` with one ``round.stages`` a wave,
+``wave.collect``, ``wave.fold``, ``wave.finalize``) do not: a wave's
+dispatch must not wait for the card, and its collect waits by itself.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from repro_torch import u32_words
+from repro_torch import resolve_device, u32_words
 from repro_torch.kernels import ops as kops
 from repro_torch.mapreduce import pack as packing
+from repro_torch.mapreduce import sort as mr_sort
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.pipeline import stages
@@ -39,7 +54,8 @@ def _stage_core_impl(records, valid, *, n_lanes: int, has_bucket: bool,
     combiner keeps apart and ``n_buckets > 0`` counts per bucket.
 
     Returns (dense reducer outputs, map-record count, post-combine live-record
-    count, partition histogram over ``_SKEW_BUCKETS`` nominal reducers); the
+    count, partition histogram over ``_SKEW_BUCKETS`` nominal reducers, the
+    sorted records' key lanes -- the segment collect's raw material); the
     counts stay device tensors until the caller's materialize.  The dense
     outputs of the ``"exact"`` reducer with ``with_positions`` end with the
     run total of every position.
@@ -62,7 +78,7 @@ def _stage_core_impl(records, valid, *, n_lanes: int, has_bucket: bool,
     else:
         dense = stages.reduce_exact(rec, sigma=sigma, vocab_size=lane_vocab,
                                     with_positions=with_positions)
-    return dense, map_rec, shuffled, hist
+    return dense, map_rec, shuffled, hist, rec[:, :n_lanes]
 
 
 def materialize(dense, tau: int):
@@ -108,7 +124,7 @@ def _run_rounds(tok_ext, aux_ext, n_live: int, cfg, plan: JobPlan,
                 sp.set(round=k)
                 sp.sync(records)
         with obs_trace.span("round.stages") as sp:
-            dense, map_rec, shuffled, hist = _stage_core_impl(
+            dense, map_rec, shuffled, hist, _ = _stage_core_impl(
                 records, valid, n_lanes=n_l, has_bucket=has_bucket,
                 combine_route=combine_route,
                 sigma=cfg.sigma, lane_vocab=lane_vocab,
@@ -180,3 +196,475 @@ def run_plan(tokens: torch.Tensor, cfg, bucket_ids=None,
                           cfg.tau, counters)
         out.counters = obs_metrics.normalize_counters(out.counters)
         return stages.canonical_stats(out)
+
+
+# ------------------------------------------------------------------ wave engine
+#: waves queued for the fold beyond the one being folded: bounds the device
+#: footprint of the overlapped fold at a small constant times a wave's
+_WAVES_IN_FLIGHT = 2
+
+#: reducer rows a collect turns into segment candidates at once: a suffix
+#: reducer's candidate table has sigma rows a reducer row, so a whole wave's
+#: at once would hold sigma x (1 + n_lanes) int64 words a position
+_COLLECT_ROWS = 1 << 22
+
+
+def _wave_rounds(cfg, plan: JobPlan, tok_ext: torch.Tensor, n_live: int) -> list:
+    """Enqueue one wave's whole round chain: every round's emit, stage core
+    and ``tau_eff == 1`` carry, with no host sync; returns per round (dense
+    (terms, flags, counts), map records, shuffled records, skew histogram,
+    sorted key lanes), all device tensors.  ``stop_on_empty`` is not taken:
+    a round with nothing to emit folds to nothing."""
+    lane_vocab = plan.effective_lane_vocab(cfg)
+    n_l = packing.n_lanes(cfg.sigma, lane_vocab)
+    combine_route = plan.combine.route if plan.combine is not None else None
+    carry = None
+    rounds = []
+    for k in range(1, plan.rounds + 1):
+        records, valid, emit_extras = plan.map.emit(tok_ext, None, n_live, cfg,
+                                                    carry, k)
+        # position payloads feed only the tau > 1 carries: not scattered here
+        dense, map_rec, shuffled, hist, lanes = _stage_core_impl(
+            records, valid, n_lanes=n_l, has_bucket=False,
+            combine_route=combine_route, sigma=cfg.sigma, lane_vocab=lane_vocab,
+            shuffle_key=plan.shuffle.key, reduce_kind=plan.reduce.kind)
+        del records, valid
+        rounds.append((dense[:3], map_rec, shuffled, hist, lanes))
+        if k < plan.rounds and plan.update_carry is not None:
+            carry = plan.update_carry(cfg, 1, k, tok_ext, None, {}, emit_extras,
+                                      carry)
+        del emit_extras
+    return rounds
+
+
+class DoubleBufferedDriver:
+    """Overlap host-side work with device execution.
+
+    ``submit`` dispatches batch i+1 (``answer`` returns its result
+    unmaterialized: device tensors, or a record holding them) and only then
+    materializes batch i's through ``collect``, so the host reads the old
+    batch while the card runs the new one.  ``submit`` returns (the previous
+    batch's collected result, its submit-time ``tag``); ``drain`` flushes
+    the last batch in flight.  The wave engine's ``iter_wave_stats`` and the
+    service's ``lookup_pipelined`` ride it.  Both batches share one CUDA
+    stream, so a collect that reads the card waits for the newer batch too:
+    the overlap is the host's dispatch, not the card's work.
+    """
+
+    def __init__(self, answer, collect=None):
+        self._answer = answer
+        self._collect = collect
+        self._pending = None
+
+    def _materialize(self, out):
+        if self._collect is not None:
+            return self._collect(out)
+        return out.cpu().numpy()
+
+    def submit(self, *args, tag=None):
+        out = self._answer(*args)
+        prev, self._pending = self._pending, (out, tag)
+        if prev is None:
+            return None, None
+        return self._materialize(prev[0]), prev[1]
+
+    def drain(self):
+        if self._pending is None:
+            return None, None
+        (out, tag), self._pending = self._pending, None
+        return self._materialize(out), tag
+
+
+class WavePartial:
+    """One collected wave: its sorted segment of exact ``tau = 1`` rows in
+    (length | packed lanes) order, on the executor's device with no sentinel
+    tail; ``n_rows`` its row count; ``counters`` the wave's job counters."""
+
+    __slots__ = ("segment", "n_rows", "counters")
+
+    def __init__(self, segment, n_rows: int, counters: dict):
+        self.segment = segment
+        self.n_rows = n_rows
+        self.counters = counters
+
+
+def _host_tokens(tokens) -> np.ndarray:
+    """The corpus as a host int32 array (a tensor is copied off its device):
+    the wave engine keeps the corpus on the host."""
+    if isinstance(tokens, torch.Tensor):
+        tokens = tokens.cpu().numpy()
+    return np.asarray(tokens, np.int32)
+
+
+def _mesh_size(mesh) -> int:
+    if mesh is None:
+        return 1
+    size = mesh.size
+    return int(size() if callable(size) else size)
+
+
+class WaveExecutor:
+    """Run a :class:`JobPlan` over fixed-size token waves (out of core).
+
+    The corpus stays on the host.  Each wave of ``wave_tokens`` positions
+    (``None``, or a wave at least the corpus, is one wave) and a sigma - 1
+    token halo from the next is copied to the device from pinned memory,
+    and its whole round chain is enqueued with no host sync
+    (:meth:`_submit_wave`); a fold thread then collects each wave on the
+    card into a sorted segment of its exact ``tau = 1`` rows (nothing may be
+    dropped early: a gram below tau in every wave can be frequent in all)
+    and folds it under ``accumulator``: ``"defer"`` stacks the partials and
+    merges once at the end (the default), ``"tiered"`` keeps size-tiered
+    rungs, ``"pairwise"`` folds every wave into one segment.
+    ``merge_route`` is ``merge_segments``'s: ``"merge"`` (the ``merge_path``
+    tree on the card, the default; ``repro`` defaults to ``"kway"``, which
+    in the port folds on the host), ``"device"``, ``"sort"`` or ``"kway"``.
+    :meth:`run` applies the global tau once at the end, so for any wave
+    size, accumulator and route its output equals the monolithic job's
+    (:func:`run_plan`) array for array, and its counters equal ``repro``'s
+    ``WaveExecutor.run``: ``jobs`` counts rounds x waves, ``waves`` and
+    ``fold_rows`` (the rows fed through merges) are added, and
+    ``shuffle_skew`` is the worst wave's.
+
+    Device memory: O(wave * sigma) records per wave in flight (at most
+    ``_WAVES_IN_FLIGHT`` queued beside the one folding), plus the running
+    segments, which hold the exact gram set seen so far.  Waves take no
+    bucketed series (``n_buckets``) and, until the multi-device slice, no
+    ``mesh`` of more than one device.  Runs on the card unless ``device``
+    says otherwise.
+    """
+
+    def __init__(self, cfg, *, wave_tokens: int | None = None,
+                 plan: JobPlan | None = None, merge_route: str = "merge",
+                 accumulator: str = "defer", mesh=None, overlap: bool = True,
+                 device=None):
+        if wave_tokens is not None and wave_tokens < 1:
+            raise ValueError("wave_tokens must be >= 1")
+        if cfg.n_buckets:
+            raise ValueError("wave execution does not support n_buckets "
+                             "(bucketed series need the bucket-carrying "
+                             "single job -- run_job / run_plan)")
+        if accumulator not in ("defer", "tiered", "pairwise"):
+            raise ValueError(f"unknown accumulator {accumulator!r} "
+                             "(options: 'defer', 'tiered', 'pairwise')")
+        if _mesh_size(mesh) > 1:
+            raise NotImplementedError(
+                "multi-device waves (mesh=) are not ported to repro_torch yet "
+                "(ROADMAP.md, Queue 1 item 3)")
+        self.cfg = cfg
+        self.wave_tokens = wave_tokens
+        self.plan = plan or plan_for(cfg)
+        self.merge_route = merge_route
+        self.accumulator = accumulator
+        # overlap: collect and fold each wave on a background thread (and,
+        # on the card, its own stream) while the next waves run; False
+        # serializes dispatch and fold on the calling thread
+        self.overlap = overlap
+        self.device = resolve_device(device)
+        # the direct segment collect needs the record lanes packed in the
+        # segment layout, i.e. at cfg.vocab_size; other plans take the
+        # stats route
+        self._direct = self.plan.effective_lane_vocab(cfg) == cfg.vocab_size
+
+    # --- wave iteration ---------------------------------------------------- #
+
+    def _windows(self, tokens: np.ndarray):
+        """Yield (host slab, tok_ext [wave + sigma - 1] on the device, n_live).
+
+        The corpus is padded once into pinned memory (on the card), and each
+        slab is copied with ``non_blocking``; the caller keeps the slab until
+        the wave's event has fired.  ``n_live`` is the wave's true token
+        count: the last wave of a corpus that is not a multiple of the wave
+        gets a partial one, so its emit masks the zero-padded tail.
+        """
+        n = int(tokens.shape[0])
+        wave = self.wave_tokens if self.wave_tokens is not None else n
+        wave = max(1, min(wave, n) if n else 1)
+        n_waves = max(1, -(-n // wave))
+        halo = self.cfg.sigma - 1
+        with obs_trace.span("wave.window.pad") as sp:
+            if sp:
+                sp.set(n_waves=n_waves, wave_tokens=wave)
+            padded = torch.zeros((n_waves * wave + halo,), dtype=torch.int32,
+                                 pin_memory=self.device.type == "cuda")
+            padded.numpy()[:n] = tokens
+        for w in range(n_waves):
+            n_live = max(0, min(wave, n - w * wave))
+            slab = padded[w * wave: (w + 1) * wave + halo]
+            with obs_trace.span("wave.window.h2d") as sp:
+                if sp:
+                    sp.set(wave=w)
+                tok_ext = slab.to(self.device, non_blocking=True)
+            yield slab, tok_ext, n_live
+
+    # --- dispatch and collect ---------------------------------------------- #
+
+    def _submit_wave(self, tok_ext: torch.Tensor, n_live: int, slab=None) -> dict:
+        """Enqueue one wave's round chain; nothing materializes here.
+
+        The wave runs at ``tau_eff = 1``, where every carry is a function of
+        the emit's own evidence, so rounds, carries and counters stay on the
+        device until :meth:`_collect_wave`.  On the card a CUDA event marks
+        the wave's end: the collect waits for it alone, not for the waves
+        enqueued after it.  ``slab``, the wave's pinned host tokens, rides
+        along until the collect.
+        """
+        cfg, plan = self.cfg, self.plan
+        with obs_trace.span("wave.submit") as sp:
+            if sp:
+                sp.set(n_live=n_live, rounds=plan.rounds)
+            # one span a wave, whatever the rounds: the chain is one dispatch
+            with obs_trace.span("round.stages") as sp_s:
+                if sp_s:
+                    sp_s.set(fused_rounds=plan.rounds)
+                rounds = _wave_rounds(cfg, plan, tok_ext, n_live)
+            done = None
+            if tok_ext.is_cuda:
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(tok_ext.device))
+            rec_bytes = packing.record_bytes(
+                cfg.sigma, plan.effective_lane_vocab(cfg), n_meta=plan.map.n_meta)
+            return {"rounds": rounds, "rec_bytes": rec_bytes, "done": done,
+                    "slab": slab}
+
+    @staticmethod
+    def _await(pend: dict) -> None:
+        """Order the current stream after the wave's event, and mark the
+        wave's tensors as in use there, so the caching allocator does not
+        hand their memory to the wave's own stream while this one reads it."""
+        done = pend["done"]
+        if done is None:
+            return
+        stream = torch.cuda.current_stream()
+        stream.wait_event(done)
+        for (terms, flags, counts), *rest in pend["rounds"]:
+            for t in (terms, flags, counts, *rest):
+                t.record_stream(stream)
+
+    @staticmethod
+    def _wave_counters(pend: dict) -> dict:
+        """The wave's job counters, read from the device in one copy."""
+        from repro_torch.core.stats import add_counters
+        rounds = pend["rounds"]
+        host = torch.stack([torch.cat([m.view(1), s.view(1), h.to(torch.int64)])
+                            for _, m, s, h, _ in rounds]).cpu().numpy()
+        counters: dict = {}
+        for row in host:
+            shuffled = int(row[1])
+            hist = row[2:]
+            add_counters(counters, jobs=1, map_records=int(row[0]),
+                         shuffle_records=shuffled,
+                         shuffle_bytes=shuffled * pend["rec_bytes"])
+            if shuffled:
+                skew = float(hist.max() * _SKEW_BUCKETS / max(hist.sum(), 1))
+                counters["shuffle_skew"] = max(counters.get("shuffle_skew", 0.0),
+                                               skew)
+        return counters
+
+    def _collect_wave(self, pend: dict):
+        """Materialize a submitted wave -> its exact ``NGramStats`` partial."""
+        with obs_trace.span("wave.collect") as sp:
+            self._await(pend)
+            counters = self._wave_counters(pend)
+            out = None
+            for dense, *_ in pend["rounds"]:
+                stats_k = materialize(dense, 1)
+                out = stats_k if out is None else out.merged_with(stats_k)
+            out.counters = counters
+            if sp:
+                sp.set(rows=len(out), shuffle_records=counters.get(
+                    "shuffle_records", 0))
+            return out
+
+    def _partial_from_stats(self, wave_stats) -> WavePartial:
+        """Freeze an ``NGramStats`` wave partial (the stats route)."""
+        from repro_torch.index.build import segment_from_wave_stats
+        seg = segment_from_wave_stats(wave_stats, vocab_size=self.cfg.vocab_size,
+                                      device=self.device)
+        return WavePartial(seg, len(wave_stats), wave_stats.counters)
+
+    def _collect_wave_segment(self, pend: dict) -> WavePartial:
+        """Collect a submitted wave straight into a sorted segment, on its
+        device.
+
+        Each round's reducer output becomes packed candidate rows
+        (``stages.segment_candidates``, ``_COLLECT_ROWS`` reducer rows at a
+        time); the kept rows of every round are compacted and sorted by
+        ``mapreduce.sort``'s lexicographic order.
+        Every kept key of a wave is unique (rounds emit disjoint lengths, and
+        a sorted reducer block flags each run once), so the order is a pure
+        function of the row set and equals ``repro``'s host collect, and the
+        stats route's (``segment_from_wave_stats``), row for row.  Plans
+        whose lanes pack with another vocabulary take the stats route.
+        """
+        if not self._direct:
+            return self._partial_from_stats(self._collect_wave(pend))
+        from repro_torch.core.common import prefix_masks
+        from repro_torch.index.build import IndexSegment
+        cfg = self.cfg
+        with obs_trace.span("wave.collect") as sp:
+            self._await(pend)
+            counters = self._wave_counters(pend)
+            masks = prefix_masks(cfg.sigma, cfg.vocab_size, self.device)
+            key_parts, cnt_parts = [], []
+            for (_, flags, counts), _, _, _, lanes in pend["rounds"]:
+                for r0 in range(0, max(lanes.shape[0], 1), _COLLECT_ROWS):
+                    rows = slice(r0, r0 + _COLLECT_ROWS)
+                    keys, cnts = stages.segment_candidates(
+                        flags[rows], counts[rows], lanes[rows], masks,
+                        sigma=cfg.sigma, reduce_kind=self.plan.reduce.kind)
+                    live = cnts > 0
+                    key_parts.append(keys[live])
+                    cnt_parts.append(cnts[live])
+                    del keys, cnts, live
+            keys, (cnts,) = mr_sort.sort_with_payload(torch.cat(key_parts),
+                                                      [torch.cat(cnt_parts)])
+            del key_parts, cnt_parts
+            seg = IndexSegment(keys=keys, counts=cnts, sigma=cfg.sigma,
+                               vocab_size=cfg.vocab_size)
+            if sp:
+                sp.set(rows=int(keys.shape[0]), shuffle_records=counters.get(
+                    "shuffle_records", 0))
+            return WavePartial(seg, int(keys.shape[0]), counters)
+
+    # --- public iteration -------------------------------------------------- #
+
+    def iter_wave_stats(self, tokens):
+        """Per-wave exact partials (``tau = 1``), double-buffered: wave i + 1
+        is enqueued before wave i is materialized."""
+        tokens = _host_tokens(tokens)
+        self.cfg.validate_tokens(tokens)
+        drv = DoubleBufferedDriver(self._submit_wave, collect=self._collect_wave)
+        for slab, tok_ext, n_live in self._windows(tokens):
+            res, _ = drv.submit(tok_ext, n_live, slab)
+            if res is not None:
+                yield res
+        res, _ = drv.drain()
+        if res is not None:
+            yield res
+
+    def _for_each_wave(self, tokens, consume, *, collect=None) -> None:
+        """Run ``consume(collect(wave))`` for every wave, in wave order.
+
+        The calling thread only pads, copies and enqueues waves; a fold
+        thread collects each one and runs ``consume`` (the accumulator push
+        of :meth:`run`, the generational ingest of :meth:`run_streaming`),
+        so the fold's host work and syncs overlap the next waves' device
+        work.  On the card the fold thread works on a stream of its own that
+        waits for each wave's event.  A queue of ``_WAVES_IN_FLIGHT`` bounds
+        the waves in flight; one FIFO fold thread keeps wave order, so the
+        fold sequence is the serial one.  ``overlap=False`` serializes.
+        """
+        collect = collect or self._collect_wave
+        tokens = _host_tokens(tokens)
+        self.cfg.validate_tokens(tokens)
+        if not self.overlap:
+            for slab, tok_ext, n_live in self._windows(tokens):
+                consume(collect(self._submit_wave(tok_ext, n_live, slab)))
+            return
+        import contextlib
+        import queue
+        import threading
+
+        work: queue.Queue = queue.Queue(maxsize=_WAVES_IN_FLIGHT)
+        failure: list[BaseException] = []
+        side = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
+                else None)
+
+        def fold_loop():
+            with (torch.cuda.stream(side) if side is not None
+                  else contextlib.nullcontext()):
+                while True:
+                    pend = work.get()
+                    try:
+                        if pend is None:
+                            return
+                        if not failure:
+                            consume(collect(pend))
+                    except BaseException as e:      # re-raised by the feeder
+                        failure.append(e)
+                    finally:
+                        del pend                    # free the wave's tensors
+                        work.task_done()
+
+        folder = threading.Thread(target=fold_loop, name="wave-fold",
+                                  daemon=True)
+        folder.start()
+        try:
+            for slab, tok_ext, n_live in self._windows(tokens):
+                if failure:
+                    break
+                work.put(self._submit_wave(tok_ext, n_live, slab))
+        finally:
+            work.put(None)
+            folder.join()
+        if side is not None:
+            # what the fold made is read on the caller's stream from here on
+            torch.cuda.current_stream(self.device).wait_stream(side)
+        if failure:
+            raise failure[0]
+
+    # --- whole-job execution ----------------------------------------------- #
+
+    def run(self, tokens):
+        """Run the job over waves -> ``NGramStats`` in canonical order, equal
+        to the monolithic job's.  ``fold_rows`` in the counters is the rows
+        the accumulator fed through ``merge_segments``."""
+        from repro_torch.core.stats import NGramStats
+        from repro_torch.index import merge
+
+        with obs_trace.span("wave.run") as root:
+            tokens = _host_tokens(tokens)
+            if root:
+                root.set(n_tokens=int(tokens.shape[0]), method=self.cfg.method,
+                         accumulator=self.accumulator)
+            counters = dict.fromkeys(
+                ("jobs", "map_records", "shuffle_records", "shuffle_bytes",
+                 "retries", "overflow", "waves", "fold_rows"), 0)
+            counters["shuffle_skew"] = 0.0
+            acc = {"defer": merge.DeferredSegmentAccumulator,
+                   "tiered": merge.TieredSegmentAccumulator,
+                   "pairwise": merge.PairwiseSegmentAccumulator,
+                   }[self.accumulator](route=self.merge_route)
+
+            def fold(part: WavePartial):
+                counters["waves"] += 1
+                obs_metrics.merge_counter_dicts(counters, part.counters)
+                with obs_trace.span("wave.fold") as sp:
+                    if sp:
+                        sp.set(wave=counters["waves"] - 1, rows=part.n_rows)
+                    acc.push(part.segment, n_rows=part.n_rows)
+
+            self._for_each_wave(tokens, fold, collect=self._collect_wave_segment)
+            with obs_trace.span("wave.finalize") as sp:
+                # tau filters before the term unpack: only survivors pay it
+                out = merge.segment_to_stats(acc.result(), min_count=self.cfg.tau)
+                counters["fold_rows"] = acc.fold_rows
+                out = NGramStats(out.grams, out.lengths, out.counts,
+                                 obs_metrics.normalize_counters(counters))
+                if sp:
+                    sp.set(rows=len(out), fold_rows=acc.fold_rows)
+            return out
+
+    def run_streaming(self, tokens, *, gen=None, compress: bool = False,
+                      block_size: int = 4, **gen_kw):
+        """Stream waves straight into a :class:`GenerationalIndex`: each
+        wave's exact partial is ingested as a fresh L0 segment on the fold
+        thread, so point and top-k answers equal a from-scratch build over
+        the whole corpus at ``tau = 1``.  Returns ``(index, reports)``, one
+        ingest report a wave."""
+        from repro_torch.index.merge import GenerationalIndex
+        if gen is None:
+            gen = GenerationalIndex(sigma=self.cfg.sigma,
+                                    vocab_size=self.cfg.vocab_size,
+                                    compress=compress, block_size=block_size,
+                                    device=self.device, **gen_kw)
+        reports = []
+
+        def ingest(part: WavePartial):
+            # an empty wave ingests no segment
+            reports.append(gen.ingest_segment(
+                part.segment if part.n_rows else None, n_rows=part.n_rows))
+
+        self._for_each_wave(tokens, ingest, collect=self._collect_wave_segment)
+        return gen, reports

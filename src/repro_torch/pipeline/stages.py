@@ -10,6 +10,8 @@
   reduce  -- ``reduce_suffix``: LCP runs, every prefix of every suffix
              (Algorithm 4), through the ``lcp_boundary`` kernel;
              ``reduce_exact``: whole-gram runs (NAIVE, APRIORI-SCAN/-INDEX).
+  collect -- ``segment_candidates``: a reducer's kept cells as packed
+             segment rows, the wave engine's collect on the device.
 
 Records are ``[N, W]`` int64 (packed lanes | weight | meta, where the meta
 lane is a position or a time-series bucket); shapes stay static, and token
@@ -155,6 +157,44 @@ def reduce_exact(rec: torch.Tensor, *, sigma: int, vocab_size: int,
     totals_at_pos = torch.zeros(n, dtype=torch.int32, device=rec.device)
     totals_at_pos[rec[:, n_l + 1]] = totals
     return terms, flags, counts, totals_at_pos
+
+
+# ------------------------------------------------- device-side segment collect
+def segment_candidates(flags: torch.Tensor, counts: torch.Tensor,
+                       lanes: torch.Tensor, masks: torch.Tensor, *, sigma: int,
+                       reduce_kind: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """Packed segment-candidate rows straight off a reducer's dense output.
+
+    A kept cell (flag set, count >= 1) of length ``l`` has segment key
+    ``(l | lanes & masks[l])``: zeroing a term slot's bit field packs PAD
+    there (``mapreduce.pack.prefix_lane_masks``), so the table is an
+    elementwise function of (flags, counts, the sorted key lanes).  Returns
+    (keys [M, 1 + n_lanes], counts [M]) int64 with dead rows zeroed (length
+    0, count 0): ``"suffix"`` reducers may keep several lengths a row, so M =
+    N * sigma (row r, length l at r * sigma + l - 1); ``"exact"`` reducers
+    keep at most one (the row's own gram length), so M = N.  Within one wave
+    every kept key is unique, so a sort of the kept rows orders them as a
+    pure function of the row set.
+    """
+    n, n_l = lanes.shape
+    keep = flags & (counts >= 1)
+    if reduce_kind == "suffix":
+        keys = torch.empty((n, sigma, 1 + n_l), dtype=torch.int64,
+                           device=lanes.device)
+        torch.bitwise_and(lanes[:, None, :], masks[None, 1:], out=keys[:, :, 1:])
+        keys[:, :, 0] = torch.arange(1, sigma + 1, device=lanes.device)
+        keys *= keep[:, :, None]
+        cnts = counts.to(torch.int64) * keep
+        return keys.view(n * sigma, 1 + n_l), cnts.view(n * sigma)
+    # exact: at most one flagged length a row -- no sigma blowup
+    len_idx = keep.to(torch.uint8).argmax(dim=1)             # 0 when dead
+    keep_row = keep.any(dim=1)
+    length = (len_idx + 1) * keep_row
+    keys = torch.empty((n, 1 + n_l), dtype=torch.int64, device=lanes.device)
+    keys[:, 0] = length
+    torch.bitwise_and(lanes, masks[length], out=keys[:, 1:])
+    cnts = counts.gather(1, len_idx[:, None]).squeeze(1).to(torch.int64) * keep_row
+    return keys, cnts
 
 
 # ----------------------------------------------------------- canonical output

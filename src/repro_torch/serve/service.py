@@ -9,16 +9,20 @@
   * ``lookup(grams, lengths)`` -- batched point counts (cache first)
   * ``continuations(...)``     -- batched top-k completion rows (cache first)
 
-Cache hits never touch the device; the miss rows of a batch go to the index
-in one call.  Answers come back as host numpy int64 arrays of uint32 values.
-The wave-engine ingest (``wave_tokens``), the multi-device job (``mesh``) and
-the double-buffered ``lookup_pipelined`` wait for the slices that port them.
+plus the split ``_submit_lookup`` / ``_collect_lookup`` pair that
+``lookup_pipelined`` drives double-buffered.  Cache hits never touch the
+device; the miss rows of a batch go to the index in one dispatch.  Answers
+come back as host numpy int64 arrays of uint32 values.  With
+``wave_tokens`` an ingest streams through the wave engine
+(``pipeline.WaveExecutor``), so a delta larger than device memory ingests
+too; the multi-device job (``mesh``) waits for the multi-device slice.
 """
 from __future__ import annotations
 
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.obs import trace as obs_trace
 from .cache import LRUQueryCache
@@ -71,33 +75,46 @@ class StreamingNGramService:
                  cache_capacity: int = 65536, size_ratio: int = 4,
                  route: str = "merge", wave_tokens: int | None = None, mesh=None,
                  device=None):
-        if wave_tokens is not None:
-            raise NotImplementedError("wave-engine ingest (wave_tokens) is not "
-                                      "ported to repro_torch yet")
         if mesh is not None:
             raise NotImplementedError("the multi-device job (mesh) is not "
                                       "ported to repro_torch yet")
         from repro_torch.index.merge import GenerationalIndex
         self.cfg = cfg
+        self.wave_tokens = wave_tokens
         self.gen = GenerationalIndex(
             sigma=cfg.sigma, vocab_size=cfg.vocab_size, compress=compress,
             block_size=block_size, size_ratio=size_ratio, route=route,
             device=device)
         self.cache = LRUQueryCache(cache_capacity)
+        self._wave_ex = None
 
     def ingest(self, tokens) -> dict:
-        """Run the job over a token delta and swap the new L0 in."""
-        from repro_torch.core import run_job
+        """Run the job over a token delta and swap the new L0 in.
+
+        With ``wave_tokens`` the delta streams through one reused
+        ``WaveExecutor`` instead of one monolithic job; the stats, and so
+        the index, are the same either way.
+        """
         with obs_trace.span("svc.ingest") as sp:
             t0 = time.perf_counter()
-            stats = run_job(tokens, self.cfg, device=self.gen.device)
+            if self.wave_tokens is not None:
+                if self._wave_ex is None:
+                    from repro_torch.pipeline import WaveExecutor
+                    self._wave_ex = WaveExecutor(self.cfg, wave_tokens=self.wave_tokens,
+                                                 device=self.gen.device)
+                stats = self._wave_ex.run(tokens)
+            else:
+                from repro_torch.core import run_job
+                stats = run_job(tokens, self.cfg, device=self.gen.device)
             t_job = time.perf_counter() - t0
             t0 = time.perf_counter()
             report = self.gen.ingest(stats)
             report.update(job_s=t_job, ingest_s=time.perf_counter() - t0,
-                          segments=self.gen.n_segments, waves=1)
+                          segments=self.gen.n_segments,
+                          waves=stats.counters.get("waves", 1))
             if sp:
-                sp.set(tokens=len(tokens), rows=report["ingested_rows"])
+                sp.set(tokens=len(tokens), rows=report["ingested_rows"],
+                       waves=report["waves"])
         return report
 
     def _cached(self, keys: list, out: np.ndarray, gen_id: int) -> list:
@@ -111,21 +128,62 @@ class StreamingNGramService:
                 out[i] = v
         return miss
 
-    def lookup(self, grams, lengths) -> np.ndarray:
-        """Point counts [B] int64; cache hits never touch the device."""
-        from repro_torch.index.query import lookup as idx_lookup
+    def _submit_lookup(self, grams, lengths) -> dict:
+        """Cache consult + device dispatch of the miss rows.  The record holds
+        the per-segment answers unread: pairing ``_submit_lookup`` of batch
+        i + 1 with ``_collect_lookup`` of batch i is the double-buffered
+        path (the cache fills on the collect side, one batch behind)."""
+        from repro_torch.index.query import lookup_deferred
         g = np.asarray(grams, np.int32)
         ln = np.asarray(lengths, np.int32)
         gen_id = self.gen.generation
         keys = [self.lookup_key(g[i], int(ln[i])) for i in range(g.shape[0])]
         out = np.zeros((g.shape[0],), np.int64)
         miss = self._cached(keys, out, gen_id)
+        parts = None
         if miss:
-            cf = idx_lookup(self.gen, g[miss], ln[miss]).cpu().numpy()
-            out[miss] = cf
+            q = [torch.as_tensor(x[miss]) for x in (g, ln)]
+            if self.gen.device.type == "cuda":  # a pinned copy does not wait
+                q = [x.pin_memory().to(self.gen.device, non_blocking=True)
+                     for x in q]
+            parts = lookup_deferred(self.gen, *q)
+        return {"out": out, "miss": miss, "keys": keys, "parts": parts,
+                "gen": gen_id}
+
+    def _collect_lookup(self, rec: dict) -> np.ndarray:
+        from repro_torch.index.query import collect_lookup
+        miss = rec["miss"]
+        if miss:
+            cf = (collect_lookup(rec["parts"], len(miss)).cpu().numpy()
+                  if rec["parts"] else np.zeros(len(miss), np.int64))
+            rec["out"][miss] = cf
             for i, v in zip(miss, cf.tolist()):
-                self.cache.put(keys[i], gen_id, v)
-        return out
+                self.cache.put(rec["keys"][i], rec["gen"], v)
+        return rec["out"]
+
+    def lookup(self, grams, lengths) -> np.ndarray:
+        """Point counts [B] int64; cache hits never touch the device."""
+        return self._collect_lookup(self._submit_lookup(grams, lengths))
+
+    def lookup_pipelined(self, batches) -> list:
+        """Answer (grams, lengths) batches double-buffered: batch i + 1 is
+        dispatched before batch i's answers are read back, so the host's
+        cache work and copies overlap the card's searches.  Returns one
+        answer array a batch, equal to :meth:`lookup`'s."""
+        from repro_torch.pipeline.executor import DoubleBufferedDriver
+        drv = DoubleBufferedDriver(self._submit_lookup, collect=self._collect_lookup)
+        results: list = []
+        with obs_trace.span("serve.pipelined") as sp:
+            for g, ln in batches:
+                res, _ = drv.submit(g, ln)
+                if res is not None:
+                    results.append(res)
+            res, _ = drv.drain()
+            if res is not None:
+                results.append(res)
+            if sp:
+                sp.set(batches=len(results))
+        return results
 
     def continuations(self, prefixes, p_len, *, k: int = 8) -> np.ndarray:
         """Top-k completion rows [B, 2+2k] int64 (nd | total | terms | cfs)."""

@@ -5,10 +5,13 @@ one path of the port on the card and on ``device="cpu"`` (the kernels'
 plain versions), and requires every output to be equal: the four n-gram
 methods, ``decode_segment`` of a compressed index, ``merge_segments`` on the
 ``"merge"`` route, a compressed ``GenerationalIndex`` through its
-compactions, and the paper's extensions (the time-series job on both
+compactions, the paper's extensions (the time-series job on both
 combine routes, maximal / closed filtering, document frequencies, postings
-and the two-phase sigma split).  The file imports no JAX: it runs on a GPU host that has none,
-and every case skips without a card.
+and the two-phase sigma split), and the wave engine (each method's wave run,
+``run_streaming``, a wave dispatch with no host sync).  ``merge_path`` is
+also held against its plain version at runs above 2**26 rows.  The file
+imports no JAX: it runs on a GPU host that has none, and every case skips
+without a card.
 """
 import numpy as np
 import pytest
@@ -18,7 +21,10 @@ from repro_torch.core import (METHODS, NGramConfig, aggregations, extensions_fil
                               run_job, suffix_sigma)
 from repro_torch.data import corpus
 from repro_torch.index import (GenerationalIndex, build_compressed_index,
-                               decode_segment, merge_segments, segment_from_stats)
+                               decode_segment, lookup, merge_segments,
+                               segment_from_stats)
+from repro_torch.kernels import ops, ref
+from repro_torch.pipeline import WaveExecutor
 
 SIGMA, TAU = 5, 2
 VOCAB = corpus.NYT.vocab_size
@@ -159,3 +165,93 @@ def test_cuda_sigma_split_matches_cpu(cuda_device, sigma_head, frac):
     assert_same_stats(got, suffix_sigma.sigma_split(toks, cfg, sigma_head, frac,
                                                     device="cpu"))
     assert got.to_dict() == run_job(toks, cfg, device=cuda_device).to_dict()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", sorted(METHODS))
+def test_cuda_waves_match_cpu(cuda_device, method):
+    """Each method's wave run (5 waves, the last partial) on the card equals
+    the same run on the CPU, counters and all, and the monolithic job."""
+    toks = draw(40_000, 3)
+    cfg = NGramConfig(sigma=SIGMA, tau=TAU, vocab_size=VOCAB, method=method,
+                      apriori_index_k=2)
+    wave = -(-len(toks) // 5)
+    got = WaveExecutor(cfg, wave_tokens=wave, device=cuda_device).run(toks)
+    assert_same_stats(got, WaveExecutor(cfg, wave_tokens=wave, device="cpu").run(toks))
+    assert got.counters["waves"] == 5
+    mono = run_job(toks, cfg, device=cuda_device)
+    for field in ("grams", "lengths", "counts"):
+        np.testing.assert_array_equal(getattr(got, field), getattr(mono, field))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accumulator,route,overlap", [
+    ("tiered", "merge", True), ("pairwise", "sort", True), ("defer", "kway", False)])
+def test_cuda_wave_folds_match_cpu(cuda_device, accumulator, route, overlap):
+    toks = draw(30_000, 4)
+    cfg = NGramConfig(sigma=SIGMA, tau=TAU, vocab_size=VOCAB, combine_route="hash")
+    kw = dict(wave_tokens=4_000, accumulator=accumulator, merge_route=route,
+              overlap=overlap)
+    assert_same_stats(WaveExecutor(cfg, device=cuda_device, **kw).run(toks),
+                      WaveExecutor(cfg, device="cpu", **kw).run(toks))
+
+
+@pytest.mark.cuda
+def test_cuda_run_streaming_matches_cpu(cuda_device):
+    toks = draw(30_000, 5)
+    cfg = NGramConfig(sigma=SIGMA, tau=1, vocab_size=VOCAB)
+    (gen, reports), (cgen, creports) = (
+        WaveExecutor(cfg, wave_tokens=7_000, device=dev).run_streaming(toks, compress=True)
+        for dev in (cuda_device, "cpu"))
+    assert reports == creports
+    stats = run_job(toks, cfg, device="cpu")
+    g, ln = stats.grams[::7], stats.lengths[::7]
+    np.testing.assert_array_equal(lookup(gen, g, ln).cpu().numpy(),
+                                  lookup(cgen, g, ln).numpy())
+    np.testing.assert_array_equal(lookup(gen, g, ln).cpu().numpy(), stats.counts[::7])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", sorted(METHODS))
+def test_cuda_submit_wave_makes_no_host_sync(cuda_device, method):
+    """A wave's whole round chain is enqueued with no host sync
+    (``torch.cuda.set_sync_debug_mode("error")`` raises on any).  The first
+    wave, outside the check, loads the kernels and copies the constant mask
+    tables to the card once; every later wave's dispatch must not wait."""
+    toks = draw(30_000, 6)
+    cfg = NGramConfig(sigma=SIGMA, tau=TAU, vocab_size=VOCAB, method=method,
+                      apriori_index_k=2)
+    ex = WaveExecutor(cfg, wave_tokens=8_192, device=cuda_device)
+    windows = list(ex._windows(np.asarray(toks, np.int32)))
+    slab, tok, n_live = windows[0]
+    first = ex._collect_wave_segment(ex._submit_wave(tok, n_live, slab))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pends = [ex._submit_wave(tok, n_live, slab) for slab, tok, n_live in windows]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    parts = [ex._collect_wave_segment(p) for p in pends]
+    cpu = WaveExecutor(cfg, wave_tokens=8_192, device="cpu")
+    for part, (slab, tok, n_live) in zip(parts, cpu._windows(np.asarray(toks, np.int32))):
+        want = cpu._collect_wave_segment(cpu._submit_wave(tok, n_live, slab))
+        assert part.counters == want.counters
+        assert torch.equal(part.segment.keys.cpu(), want.segment.keys)
+        assert torch.equal(part.segment.counts.cpu(), want.segment.counts)
+    assert torch.equal(first.segment.keys, parts[0].segment.keys)
+
+
+@pytest.mark.cuda
+def test_cuda_merge_path_above_two_to_the_26_rows(cuda_device):
+    """Runs of 2**26 + 4,099 rows each: the Merge Path split's diagonal
+    windows pass 2**26 rows, where ``split_warp`` takes 64-bit division.
+    Keys in [0, 2**20) tie across the runs (A first)."""
+    n = (1 << 26) + 4099
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    a, b = (torch.randint(0, 1 << 20, (n,), generator=g, device=cuda_device)
+            .sort().values[:, None] for _ in range(2))
+    av = torch.arange(n, device=cuda_device)
+    bv = av + n
+    got = ops.merge_path(a, b, av, bv)
+    want = ref.merge_path_ref(a, b, av, bv)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

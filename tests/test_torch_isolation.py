@@ -123,3 +123,49 @@ def test_extension_entry_points_refuse_cpu_without_a_device(monkeypatch):
         call(device="cpu")
     assert run_job(toks, series, bucket_ids=years, device="cpu").to_series_dict()[(1, 2)] \
         .tolist() == [1, 1, 1]
+
+
+def test_wave_engine_runs_without_jax_or_repro():
+    """The wave engine's imports made at run time (the accumulators, the
+    collect, the stats route, the service's wave ingest and pipelined
+    lookups) load nothing of JAX or ``repro`` either."""
+    _run(NO_JAX + textwrap.dedent("""
+        import numpy as np
+        from repro_torch import WaveExecutor
+        from repro_torch.core import NGramConfig
+        from repro_torch.serve import StreamingNGramService
+        toks = np.asarray([1, 2, 3, 0, 2, 3, 1, 2, 3, 1], np.int32)
+        for method in ('suffix_sigma', 'apriori_scan'):
+            for acc in ('defer', 'tiered', 'pairwise'):
+                cfg = NGramConfig(sigma=3, tau=1, vocab_size=3, method=method)
+                out = WaveExecutor(cfg, wave_tokens=3, accumulator=acc,
+                                   device='cpu').run(toks)
+                assert out.to_dict()[(1, 2, 3)] == 2
+        cfg = NGramConfig(sigma=3, tau=1, vocab_size=3, pack=False)
+        assert WaveExecutor(cfg, wave_tokens=4, device='cpu').run(toks).to_dict()[(2, 3)] == 3
+        gen, reports = WaveExecutor(cfg, wave_tokens=4, device='cpu').run_streaming(
+            toks, compress=True)
+        assert len(reports) == 3
+        svc = StreamingNGramService(cfg, wave_tokens=4, device='cpu')
+        svc.ingest(toks)
+        g = np.asarray([[1, 2, 3], [2, 3, 0]], np.int32)
+        ln = np.asarray([3, 2], np.int32)
+        assert [a.tolist() for a in svc.lookup_pipelined([(g, ln)] * 3)] == [[2, 3]] * 3
+    """) + NO_REPRO)
+
+
+def test_wave_engine_refuses_cpu_without_a_device(monkeypatch):
+    """``WaveExecutor`` and the service's wave ingest run on the card by
+    default and raise without one; given ``device="cpu"`` they run."""
+    from repro_torch.core import NGramConfig
+    from repro_torch.pipeline import WaveExecutor
+    from repro_torch.serve import StreamingNGramService
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = NGramConfig(sigma=2, tau=1, vocab_size=3)
+    for call in (lambda: WaveExecutor(cfg, wave_tokens=2),
+                 lambda: StreamingNGramService(cfg, wave_tokens=2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    toks = np.asarray([1, 2, 0, 2, 1], np.int32)
+    assert WaveExecutor(cfg, wave_tokens=2, device="cpu").run(toks).to_dict() == \
+        {(1,): 2, (2,): 2, (1, 2): 1, (2, 1): 1}

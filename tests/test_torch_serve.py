@@ -140,8 +140,10 @@ def test_default_route_compacts_on_the_merge_route_as_kway_and_repro():
 
 
 def test_unported_service_options_raise():
+    """The multi-device job (``mesh``) raises, with waves or without; the
+    wave ingest (``wave_tokens``) is ported and constructs."""
     cfg = NGramConfig(sigma=2, tau=1, vocab_size=3)
-    with pytest.raises(NotImplementedError):
-        StreamingNGramService(cfg, wave_tokens=64, device="cpu")
-    with pytest.raises(NotImplementedError):
-        StreamingNGramService(cfg, mesh=object(), device="cpu")
+    assert StreamingNGramService(cfg, wave_tokens=64, device="cpu").wave_tokens == 64
+    for kw in ({}, {"wave_tokens": 64}):
+        with pytest.raises(NotImplementedError):
+            StreamingNGramService(cfg, mesh=object(), device="cpu", **kw)
