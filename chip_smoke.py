@@ -63,7 +63,7 @@ line):
                  the uint32 values' bytes; ``bound_ms_as_stored`` from the
                  int64 lanes the port keeps them in).  ``launches`` is the count on the path whose
                  shapes the row was timed at; ``launches_by_path`` has every
-                 path's (main, methods, stream, ext, waves).
+                 path's (main, methods, stream, ext, waves, frontend).
                  ``bsearch`` also gets its latency floor (``floor_ms``): the
                  round trips of its longest query times one dependent L2
                  load, plus an empty kernel, both measured here by
@@ -105,7 +105,36 @@ line):
                  eight kernels must launch from the wave entry points
                  (``WaveExecutor.run`` and ``run_streaming``, the queries and
                  ``compact_all`` on its index, the wave service); the
-                 references' launches are not counted.
+                 references' launches are not counted;
+  9. frontend -- the serving tier, after phase 8, with a metrics registry
+                 and the tracer on: a fresh ``StreamingNGramService`` at
+                 phase 5's configuration fed phase 5's batches (its rungs
+                 compressed and flat), behind ``QueryFrontend`` (2 ms
+                 deadline) and ``serve_http`` on localhost.  16 client
+                 threads in a closed loop send 2**16 lookups in
+                 ``/v1/lookup`` bodies of 64 grams (phase 5's draw: half
+                 hits, half misses or malformed), 2**12 ``/v1/topk`` at
+                 k = 8 (a quarter repeating the one before, in flight) and
+                 64 ``/v1/complete`` SSE streams of 8 steps; every answer
+                 must equal the union's (lookups, top-k) and the greedy
+                 oracle of direct ``svc.continuations`` calls on a cold
+                 cache and of the host (SSE).  Then a burst of 512 cold
+                 top-k at batch priority on 256 clients against a second
+                 frontend with ``queue_budget=64``: some must get 503, every
+                 admitted answer must be exact.  The registry and trace
+                 must validate, with ``serve.request`` / ``serve.flush``
+                 spans and the ``frontend.*``, ``gen.*``, ``cache.*`` and
+                 ``job.*`` instruments; ``bsearch`` and ``block_decode``
+                 must launch from the queries and every kernel of the path
+                 from the phase.  Then ``python -m
+                 repro_torch.launch.ngram`` at phase 3's configuration (its
+                 ``job.*`` counters must equal phase 3's) and ``python -m
+                 repro_torch.launch.serve_ngrams --streaming --compress``
+                 at 2**23 terms in waves of 2**21, side by side, each with
+                 a valid ``--metrics`` file.  ``frontend:`` lines give
+                 requests/s, lookups/s, client latency by endpoint, the
+                 batches and their fill, coalesced, shed, the cache hit
+                 rate, peak device memory and launches by kernel.
 
 The last lines are one JSON object describing each kernel, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.  The
@@ -1337,6 +1366,396 @@ def phase_waves(dev, main: dict, stream: dict) -> dict:
     return dict(launches=launches, fold=fold, runs=runs)
 
 
+# --------------------------------------------------------------------- phase 9
+#: phase 9: the closed-loop load on the frontend (``repro``'s
+#: ``benchmarks/frontend.py`` protocol at phase 5's corpus)
+FE_CLIENTS = 16
+FE_LOOKUP_BATCH = 64                     # grams a /v1/lookup body
+FE_TOPK, FE_TOPK_REPEATS = 1 << 12, 1 << 10
+FE_SSE, FE_SSE_STEPS = 64, 8
+FE_DEADLINE_S = 0.002
+SHED_BUDGET, SHED_CLIENTS, SHED_EACH, SHED_K = 64, 256, 2, 7
+#: the kernels of the frontend's path: the ingests' job and compactions, and
+#: the queries' searches (``block_expand`` launches once per compressed-rung
+#: decode, checked against the ``compress.decode`` spans)
+FE_KERNELS = ("suffix_pack", "hash_partition", "lcp_boundary", "hash_combine",
+              "merge_path", "bsearch", "block_decode")
+CLI_SERVE_TOKENS, CLI_WAVE_TOKENS = 1 << 23, 1 << 21
+REPLAY_BATCHES = 40
+
+
+def http_post(conn, path: str, body: dict, headers: dict | None = None):
+    """(status, body text) of one POST on a kept-alive connection."""
+    conn.request("POST", path, body=json.dumps(body),
+                 headers={"Content-Type": "application/json", **(headers or {})})
+    r = conn.getresponse()
+    return r.status, r.read().decode()
+
+
+def closed_loop(addr, jobs: list, n_clients: int, headers: dict | None = None,
+                start=None) -> list:
+    """Each job (path, body) POSTed by ``n_clients`` threads, each sending its
+    next job when its last answer is in: (status, text, seconds) per job.
+    ``start`` (a barrier) releases the threads together.  A client error
+    propagates to the caller.
+
+    Connections open one at a time, each confirmed by a ``/healthz`` round
+    trip before the next opens: the server listens with the standard
+    library's backlog of 5, and a burst of simultaneous connects past it is
+    reset.  An SSE stream ends its connection, so its client opens the next
+    one the same way (outside the timed request)."""
+    import http.client
+    import threading
+    out: list = [None] * len(jobs)
+    nxt = iter(range(len(jobs)))
+    lock, connecting = threading.Lock(), threading.Lock()
+    errors: list = []
+
+    def open_conn():
+        with connecting:
+            conn = http.client.HTTPConnection(*addr, timeout=120)
+            conn.request("GET", "/healthz")
+            check(conn.getresponse().read() == b'{"status": "ok"}', "the server is up")
+        return conn
+
+    def client():
+        try:
+            conn = open_conn()
+            if start is not None:
+                start.wait()
+            while True:
+                with lock:
+                    i = next(nxt, None)
+                if i is None:
+                    break
+                path, body = jobs[i]
+                t0 = time.perf_counter()
+                status, text = http_post(conn, path, body, headers)
+                out[i] = (status, text, time.perf_counter() - t0)
+                if path == "/v1/complete":       # the server closed the stream
+                    conn.close()
+                    conn = open_conn()
+            conn.close()
+        except BaseException as e:               # re-raised on the caller's thread
+            errors.append(e)
+            raise
+
+    threads = [threading.Thread(target=client) for _ in range(n_clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    check(not any(t.is_alive() for t in threads), "every client thread finished")
+    if errors:
+        raise errors[0]
+    return out
+
+
+def topk_json(row, k: int, generation: int) -> dict:
+    """``/v1/topk``'s body for one expected [2+2k] row."""
+    return {"n_distinct": int(row[0]), "total": int(row[1]),
+            "terms": [int(t) for t in row[2:2 + k]],
+            "counts": [int(c) for c in row[2 + k:2 + 2 * k]], "generation": generation}
+
+
+def greedy_events(answer, prefixes: list, steps: int, k: int) -> list:
+    """The SSE events of each prefix's greedy completion over a window of
+    the last sigma - 1 terms, from ``answer(pg, pl)`` -> [Q, 2+2k] rows: one
+    batch a step for every stream still going."""
+    events = [[] for _ in prefixes]
+    ctx = [list(p) for p in prefixes]
+    live = list(range(len(prefixes)))
+    for step in range(steps):
+        pg = np.zeros((len(live), SIGMA), np.int32)
+        pl = np.zeros((len(live),), np.int32)
+        for j, i in enumerate(live):
+            w = ctx[i][-(SIGMA - 1):]
+            pg[j, :len(w)] = w
+            pl[j] = len(w)
+        rows = answer(pg, pl)
+        going = []
+        for j, i in enumerate(live):
+            term, count = int(rows[j][2]), int(rows[j][2 + k])
+            if count:
+                events[i].append({"step": step, "term": term, "count": count})
+                ctx[i].append(term)
+                going.append(i)
+        live = going
+        if not live:
+            break
+    return events
+
+
+def sse_events(text: str) -> list:
+    data = [ln[6:] for ln in text.split("\n") if ln.startswith("data: ")]
+    check(data[-1] == "[DONE]", "an SSE stream ends with [DONE]")
+    return [json.loads(d) for d in data[:-1]]
+
+
+def run_cli(args: list, log: Path) -> subprocess.Popen:
+    """Start ``python -m <args>`` from the repository, output to ``log``."""
+    import os
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    return subprocess.Popen([sys.executable, "-m", *args], cwd=root, env=env,
+                            stdout=log.open("w"), stderr=subprocess.STDOUT)
+
+
+def phase_frontend(dev, main: dict, stream: dict) -> dict:
+    """The serving tier at full width: phase 5's service behind
+    ``QueryFrontend`` and ``serve_http``, under a closed-loop HTTP load, then
+    a shedding burst, the registry and trace checks, and both CLIs."""
+    import threading
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import report as obs_report
+    from repro_torch.serve import AdmissionController, LRUQueryCache, QueryFrontend, serve_http
+    vocab = corpus.NYT.vocab_size
+    union = stream["union"]
+    reg = obs_metrics.MetricsRegistry()
+    obs_metrics.set_registry(reg)
+    tracer = trace.enable_tracing()
+    ops.launches.clear()                                   # the phase's own path
+    cfg = NGramConfig(sigma=SIGMA, tau=TAU, vocab_size=vocab, combine_route="hash")
+    svc = StreamingNGramService(cfg, compress=True, block_size=4, route="merge", device=dev)
+    t0 = time.perf_counter()
+    for batch in stream["batches"]:
+        svc.ingest(batch)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t_ingest = time.perf_counter() - t0
+    levels = svc.gen.segments                              # what the queries read
+    kinds = ["compressed" if isinstance(ix, CompressedNGramIndex) else "flat"
+             for ix in levels]
+    print(f"frontend: service on phase 5's {len(stream['batches'])} batches in "
+          f"{t_ingest:.3f} s: rungs {list(svc.gen.level_rows)} ({', '.join(kinds)}), "
+          f"generation {svc.gen.generation}")
+    check("compressed" in kinds and "flat" in kinds, "queries cross compressed and flat rungs")
+    gen_id = svc.gen.generation
+
+    # the load: 2**16 lookups in bodies of 64, 2**12 top-8 queries (a quarter
+    # repeating one just before it, so it is in flight), 64 SSE streams
+    rng = np.random.default_rng(9)
+    g, ln, _ = lookup_batch(union, rng, N_LOOKUPS, vocab)
+    want_lk = expected_lookups(union, g, ln, vocab)
+    lk_jobs = [("/v1/lookup", {"grams": [g[j, :min(int(ln[j]), SIGMA)].tolist()
+                                         for j in range(i, i + FE_LOOKUP_BATCH)],
+                               "lengths": ln[i:i + FE_LOOKUP_BATCH].tolist()})
+               for i in range(0, N_LOOKUPS, FE_LOOKUP_BATCH)]
+    pg, pl = prefix_batch(union, rng, FE_TOPK - FE_TOPK_REPEATS)
+    order = list(range(len(pg)))
+    for src in rng.choice(len(pg), FE_TOPK_REPEATS, replace=False):
+        order.insert(order.index(int(src)) + 1, int(src))
+    want_tk = expected_continuations(union, pg, pl, TOP_K)
+    tk_jobs = [("/v1/topk", {"prefix": pg[i, :pl[i]].tolist(), "k": TOP_K}) for i in order]
+    sse_rows = rng.integers(0, len(union), FE_SSE)
+    sse_prefix = [union.grams[r, :1].tolist() for r in sse_rows]
+    sse_jobs = [("/v1/complete", {"prefix": p, "steps": FE_SSE_STEPS, "k": TOP_K})
+                for p in sse_prefix]
+    kinds = rng.permutation(np.repeat([0, 1, 2], [len(lk_jobs), len(tk_jobs), len(sse_jobs)]))
+    queues = [iter(lk_jobs), iter(tk_jobs), iter(sse_jobs)]
+    jobs = [next(queues[k]) for k in kinds]
+    where = [np.flatnonzero(kinds == k) for k in range(3)]
+
+    fe = QueryFrontend(svc, deadline_s=FE_DEADLINE_S)
+    srv = serve_http(fe, "127.0.0.1", 0, block=False)
+    reset_peak()
+    before = ops.launches.copy()
+    t0 = time.perf_counter()
+    res = closed_loop(srv.server_address, jobs, FE_CLIENTS)
+    wall = time.perf_counter() - t0
+    query_launches = ops.launches - before
+    srv.shutdown()
+    srv.server_close()
+    fe.close()
+    peak = device_peak()
+    batch_stats = fe.batcher.stats()
+    n_load_spans = len(tracer.events)
+
+    # ---- checks: every answer exact --------------------------------------
+    check(all(r[0] == 200 for r in res), "every load request answered 200")
+    got = np.concatenate([json.loads(res[i][1])["counts"] for i in where[0]])
+    check(np.array_equal(got, want_lk), "all 2**16 frontend lookups == union")
+    check(all(json.loads(res[i][1])["generation"] == gen_id for i in where[0]),
+          "lookup bodies carry the service's generation")
+    check(all(json.loads(res[i][1]) == topk_json(want_tk[j], TOP_K, gen_id)
+              for i, j in zip(where[1], order)), "all 2**12 frontend top-k == union")
+    n_events = sum(len(sse_events(res[i][1])) for i in where[2])
+
+    # ---- shedding: a burst of cold top-k at batch priority ----------------
+    adm = AdmissionController(queue_budget=SHED_BUDGET)
+    fe2 = QueryFrontend(svc, admission=adm, deadline_s=FE_DEADLINE_S)
+    srv2 = serve_http(fe2, "127.0.0.1", 0, block=False)
+    n_shed = SHED_CLIENTS * SHED_EACH
+    spg, spl = prefix_batch(union, np.random.default_rng(10), n_shed)
+    want_shed = expected_continuations(union, spg, spl, SHED_K)
+    shed_jobs = [("/v1/topk", {"prefix": spg[i, :spl[i]].tolist(), "k": SHED_K})
+                 for i in range(n_shed)]
+    before = ops.launches.copy()
+    res2 = closed_loop(srv2.server_address, shed_jobs, SHED_CLIENTS,
+                       headers={"X-Priority": "batch"},
+                       start=threading.Barrier(SHED_CLIENTS))
+    query_launches += ops.launches - before
+    srv2.shutdown()
+    srv2.server_close()
+    fe2.close()
+    codes = collections.Counter(r[0] for r in res2)
+    check(set(codes) <= {200, 503}, f"burst answers are 200 or 503 ({dict(codes)})")
+    check(codes[503] > 0, f"the burst past queue_budget={SHED_BUDGET} shed ({dict(codes)})")
+    check(all(json.loads(r[1]) == topk_json(want_shed[i], SHED_K, gen_id)
+              for i, r in enumerate(res2) if r[0] == 200),
+          f"every admitted burst answer == union ({codes[200]})")
+    launches = dict(ops.launches)
+    trace.disable_tracing()
+
+    # ---- the load's batch shapes again, one thread, nothing else running:
+    # the median live slots of each kind's flushes, padded to its bucket as
+    # the batcher pads, on a cold cache (an upper bound on the load's work)
+    from repro_torch.serve.batcher import select_bucket
+    flushes: dict[str, list] = {}
+    for e in tracer.events[:n_load_spans]:
+        if e["name"] == "serve.flush":
+            flushes.setdefault(e["args"]["kind"], []).append(e)
+    replay = {}
+    live_cache = svc.cache
+    for kind, src_g, src_l in (("lookup", g, ln), ("topk", pg, pl)):
+        m = int(np.median([e["args"]["live"] for e in flushes[kind]]))
+        bucket = select_bucket(m, fe.batcher.buckets)
+        svc.cache = LRUQueryCache()
+        times = []
+        for i in range(0, REPLAY_BATCHES * m, m):
+            bg = np.zeros((bucket, SIGMA), np.int32)
+            bl = np.zeros((bucket,), np.int32)
+            bg[:m], bl[:m] = src_g[i:i + m], src_l[i:i + m]
+            t0 = time.perf_counter()
+            if kind == "lookup":
+                svc.lookup(bg, bl)
+            else:
+                svc.continuations(bg, bl, k=TOP_K)
+            times.append(time.perf_counter() - t0)
+        load_ms = np.mean([e["dur"] for e in flushes[kind]]) / 1e3
+        replay[kind] = (m, bucket, float(np.median(times)) * 1e3, load_ms)
+    svc.cache = live_cache
+
+    # ---- both CLIs on the card, side by side, while the checks run -------
+    out_dir = Path(__file__).resolve().parent / "build" / "phase9"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cli = {}
+    for name, args in (
+            ("ngram", ["repro_torch.launch.ngram", "--tokens", str(main["n_terms"]),
+                       "--sigma", str(SIGMA), "--tau", str(TAU)]),
+            ("serve_ngrams", ["repro_torch.launch.serve_ngrams", "--streaming",
+                              "--compress", "--tokens", str(CLI_SERVE_TOKENS),
+                              "--wave-tokens", str(CLI_WAVE_TOKENS)])):
+        m = out_dir / f"{name}.jsonl"
+        m.unlink(missing_ok=True)
+        cli[name] = (m, out_dir / f"{name}.log", time.perf_counter())
+        cli[name] += (run_cli(args + ["--device", dev.type, "--metrics", str(m)],
+                              cli[name][1]),)
+
+    # ---- the SSE oracle: direct service calls on a cold cache, and the host
+    live_cache, svc.cache = svc.cache, LRUQueryCache()
+    want_sse = greedy_events(lambda a, b: svc.continuations(a, b, k=TOP_K), sse_prefix,
+                             FE_SSE_STEPS, TOP_K)
+    svc.cache = live_cache
+    check(want_sse == greedy_events(lambda a, b: expected_continuations(union, a, b, TOP_K),
+                                    sse_prefix, FE_SSE_STEPS, TOP_K),
+          "the greedy oracle: the service's direct calls == the host's")
+    check(all(sse_events(res[i][1]) == want for i, want in zip(where[2], want_sse)),
+          "every SSE completion == the greedy oracle")
+    svc.cache.publish_metrics()
+    obs_metrics.set_registry(None)
+
+    # ---- metrics and trace ------------------------------------------------
+    snap = reg.snapshot()
+    export = tracer.export()
+    check(obs_report.validate_metrics(snap) == [], "the phase's metrics validate")
+    check(obs_report.validate_trace(export) == [], "the phase's trace validates")
+    names = collections.Counter(e["name"] for e in export["traceEvents"])
+    check(names["serve.request"] > 0 and names["serve.flush"] > 0,
+          "serve.request and serve.flush spans recorded")
+    every = {**snap["counters"], **snap["gauges"], **snap["histograms"]}
+    for inst in ("frontend.requests", "frontend.shed", "frontend.coalesced",
+                 "frontend.batches", "frontend.queue_depth", "frontend.batch_fill",
+                 "frontend.ttfb_seconds", "gen.generation", "gen.ingests", "gen.merges",
+                 "gen.bytes_at_rest", "cache.hits", "cache.misses", "job.jobs",
+                 "job.map_records", "job.shuffle_skew"):
+        check(inst in every, f"instrument {inst} recorded")
+    c = snap["counters"]
+    check(c["frontend.shed"] == codes[503], "frontend.shed == the 503s")
+    check(c["frontend.coalesced"] + c["cache.hits"] >= FE_TOPK_REPEATS,
+          "every repeated top-k coalesced or hit the cache")
+    check(c["job.jobs"] == len(stream["batches"]), "one job an ingest")
+    if dev.type == "cuda":                   # a CPU tensor launches no kernel
+        for k in ("bsearch", "block_decode"):
+            check(query_launches.get(k, 0) > 0, f"{k} launched from the frontend's queries")
+        missing = [k for k in FE_KERNELS if launches.get(k, 0) == 0]
+        check(not missing, f"the frontend's path launched every kernel (missing {missing})")
+        check(launches.get("block_expand", 0) == names["compress.decode"],
+              "one block_expand launch per compressed-rung decode")
+
+    for name, (m, log, t_start, proc) in cli.items():
+        rc = proc.wait(timeout=600)
+        text = log.read_text()
+        print(f"frontend: cli {name} exit {rc} in {time.perf_counter() - t_start:.1f} s; "
+              + " | ".join(ln.strip() for ln in text.splitlines()
+                           if ln.startswith(("method=", "counters:", "base:", "ingest[",
+                                             "final:"))))
+        check(rc == 0, f"python -m repro_torch.launch.{name} exits 0:\n{text[-3000:]}")
+        rec = obs_report.read_jsonl(str(m))[-1]
+        check(obs_report.validate_metrics(rec["metrics"]) == [], f"{name}'s metrics validate")
+        check(rec["env"]["device_kind"] == dev.type, f"{name} saw the card")
+    rec = obs_report.read_jsonl(str(cli["ngram"][0]))[-1]["metrics"]
+    for k, v in main["stats"].counters.items():
+        got_v = rec["gauges" if k in obs_metrics.MAX_MERGED_COUNTERS else "counters"]["job." + k]
+        check(got_v == v, f"ngram CLI job.{k} == phase 3's ({got_v} vs {v})")
+    n_line = next(ln for ln in cli["ngram"][1].read_text().splitlines()
+                  if ln.startswith("method="))
+    check(f": {len(main['stats'])} n-grams in " in n_line, "ngram CLI n-grams == phase 3's")
+
+    # ---- print ---------------------------------------------------------------
+    n_req = len(jobs)
+    print(f"frontend: closed loop, {FE_CLIENTS} clients over localhost HTTP: {n_req} requests "
+          f"({len(lk_jobs)} /v1/lookup of {FE_LOOKUP_BATCH} grams, {len(tk_jobs)} /v1/topk "
+          f"k={TOP_K} with {FE_TOPK_REPEATS} repeats, {len(sse_jobs)} /v1/complete of "
+          f"{FE_SSE_STEPS} steps, {n_events} events) in {wall:.3f} s = {n_req / wall:,.0f} "
+          f"requests/s, {N_LOOKUPS / wall:,.0f} lookups/s; every answer exact")
+    for what, idx in (("lookup", where[0]), ("topk", where[1]), ("complete", where[2])):
+        lat = np.asarray([res[i][2] for i in idx]) * 1e3
+        print(f"frontend: client latency /v1/{what}: p50 {np.percentile(lat, 50):.3f} ms, "
+              f"p99 {np.percentile(lat, 99):.3f} ms, max {lat.max():.3f} ms (n={len(lat)})")
+    fill = snap["histograms"]["frontend.batch_fill"]
+    print(f"frontend: batches {c['frontend.batches']} (load: {batch_stats['batches']} of "
+          f"{batch_stats['requests']} requests, {batch_stats['padded_slots']} padded slots); "
+          f"batch_fill p50 {fill['p50']:.3f}, p95 {fill['p95']:.3f}; ttfb p50 "
+          f"{snap['histograms']['frontend.ttfb_seconds']['p50'] * 1e3:.3f} ms, p99 "
+          f"{snap['histograms']['frontend.ttfb_seconds']['p99'] * 1e3:.3f} ms")
+    print(f"frontend: coalesced {c['frontend.coalesced']}, shed {c['frontend.shed']} of "
+          f"{n_shed} in the burst ({codes[200]} admitted, exact), cache hit rate "
+          f"{snap['gauges']['cache.hit_rate']:.3f} ({c['cache.hits']} hits, "
+          f"{c['cache.misses']} misses); peak device memory under the load "
+          f"{peak / 2**30:.2f} GiB")
+    flush: dict[str, list] = {}
+    for e in export["traceEvents"]:
+        if e["name"] == "serve.flush":
+            acc = flush.setdefault(e["args"]["kind"], [0, 0.0])
+            acc[0] += 1
+            acc[1] += e["dur"] / 1e6
+    print("frontend: the batcher thread's serve.flush spans (a lookup batch's submit; "
+          "a top-k batch's whole answer): " + ", ".join(
+              f"{k} {n} batches {sec:.3f} s" for k, (n, sec) in sorted(flush.items()))
+          + f", against the load's {wall:.3f} s and the burst")
+    for kind, (m, bucket, direct_ms, load_ms) in replay.items():
+        print(f"frontend: a {kind} batch of {m} live slots in a bucket of {bucket}, direct "
+              f"on one thread with a cold cache: median {direct_ms:.3f} ms over "
+              f"{REPLAY_BATCHES} batches (a lookup batch with its read-back); under the "
+              f"load its flush spans averaged {load_ms:.3f} ms")
+    print(f"frontend: launches by kernel (ingests, load and burst) {launches}; from the "
+          f"queries alone {dict(query_launches)}; spans {dict(names)}")
+    print(f"frontend: registry {len(c)} counters, {len(snap['gauges'])} gauges, "
+          f"{len(snap['histograms'])} histograms; metrics and trace validate")
+    return dict(launches=launches)
+
+
 # --------------------------------------------------------------------- phase 4
 def _probes(lo, hi, pos, steps: int) -> tuple[int, int, torch.Tensor]:
     """(total probes, distinct rows probed, probes [Q] of each query) of a
@@ -2268,6 +2687,11 @@ def main() -> int:
     done("phase 8 (waves)")
     after_waves(wave)
     done("phase 4 at the fold's merges")
+    torch.cuda.empty_cache()
+    fe = phase_frontend(dev, main_run, stream)          # phase 9
+    for row in rows:
+        row["launches_by_path"]["frontend"] = fe["launches"].get(row["name"], 0)
+    done("phase 9 (frontend)")
 
     print(json.dumps({"kernels": rows}))
     print(card)

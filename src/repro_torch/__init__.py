@@ -13,7 +13,10 @@ APRIORI-INDEX), so ``core.run_job`` runs all four on one device.  The
 wave engine (``WaveExecutor``, exported here) streams a host-resident
 corpus through the card in fixed-size waves and folds them into the
 monolithic job's output, so a corpus larger than one job can hold on the
-card still runs.
+card still runs.  The serving tier (``serve``: batcher, admission,
+``QueryFrontend``, HTTP/SSE), observability (``obs``: metrics registry,
+reports, tracer) and the driver CLIs (``launch.ngram``,
+``launch.serve_ngrams``) sit on top, as in ``repro``.
 
 Lane representation.  ``repro`` keeps packed term lanes, record weights,
 hash values and index counts as ``uint32``.  torch has no ``>>``, ``<``,

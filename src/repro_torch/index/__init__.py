@@ -6,10 +6,11 @@ batched queries.
 ``CompressedNGramIndex``; ``merge`` merges segments, folds a wave run's segments
 (the accumulators) and keeps a ``GenerationalIndex`` (LSM) under streaming
 ingest; ``query`` answers batched point-count and top-k-continuation queries
-against any of them.  Sharded
-serving waits for the multi-device slice.
+against any of them; ``serve`` describes the layout to the frontend
+(``describe_topology``).  Sharded serving waits for the multi-device
+slice.
 """
-from . import build, compress, merge, query
+from . import build, compress, merge, query, serve
 from .build import (IndexSegment, NGramIndex, build_index, index_from_arrays,
                     index_from_segment, segment_from_stats,
                     segment_from_wave_stats)
@@ -22,7 +23,7 @@ from .merge import (DeferredSegmentAccumulator, GenerationalIndex,
                     segment_to_stats, stats_union)
 from .query import continuations, lookup
 
-__all__ = ["build", "compress", "merge", "query", "IndexSegment", "NGramIndex",
+__all__ = ["build", "compress", "merge", "query", "serve", "IndexSegment", "NGramIndex",
            "build_index", "index_from_arrays", "index_from_segment",
            "segment_from_stats", "segment_from_wave_stats",
            "CompressedNGramIndex", "build_compressed_index", "compress_index",

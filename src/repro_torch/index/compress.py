@@ -47,6 +47,7 @@ from repro_torch.kernels import ref as kref
 from repro_torch.kernels.bitpack import as_words, extract_bits, pack_bits
 from repro_torch.kernels.ref import search_steps
 from repro_torch.mapreduce import pack as packing
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from ._layout import SENTINEL, pad_rows, row_lengths
 from .build import IndexSegment, NGramIndex, build_index
@@ -281,6 +282,8 @@ def decode_segment(cidx: CompressedNGramIndex, *,
     each, which packs the rows' lanes straight into the segment's keys (the
     tail chunk clips block ids to the last block and writes only real rows),
     so the decode's working set beyond the keys is one chunk's block ids.
+    The decode work is attributed to the metrics registry
+    (``merge.blocks_decoded`` / ``compress.rows_decoded``).
     """
     b = cidx.block_size
     r = cidx.n_rows
@@ -308,6 +311,9 @@ def decode_segment(cidx: CompressedNGramIndex, *,
         counts = extract_bits(cidx.counts_packed,
                               torch.arange(max(r, 1), device=dev),
                               cidx.count_width)[:r]
+    reg = obs_metrics.get_registry()
+    reg.counter("merge.blocks_decoded").add(nb_used)
+    reg.counter("compress.rows_decoded").add(r)
     return IndexSegment(keys=keys, counts=counts, sigma=cidx.sigma,
                         vocab_size=cidx.vocab_size)
 

@@ -43,6 +43,7 @@ from repro_torch.core.stats import NGramStats
 from repro_torch.kernels import ops as kops
 from repro_torch.mapreduce import pack as packing
 from repro_torch.mapreduce import sort as mr_sort
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from ._layout import SENTINEL, pad_rows, round_capacity, row_bytes_view
 from .build import IndexSegment, index_from_segment, segment_from_stats
@@ -483,6 +484,8 @@ class GenerationalIndex:
     a fresh L0, compressed (with ``compress=True``) for a rung made by a
     merge.  ``generation`` bumps on every mutation -- the serving cache's
     invalidation key.  Runs on the card unless ``device`` says otherwise.
+    Each level's row count is kept on the host (:attr:`level_rows`), so
+    reading the stack's shape never waits on the device.
 
     ``route`` defaults to ``"merge"``, where ``repro`` defaults to ``"kway"``:
     the port's ``kway`` folds on the host, and a default index must keep its
@@ -520,12 +523,18 @@ class GenerationalIndex:
         self._levels = list(entries)
         self._from_merge = [False] * len(self._levels)
         self._level_ids = [self._take_id() for _ in self._levels]
+        self._rows = [ix.n_rows for ix in self._levels]
 
     @property
     def level_ids(self) -> tuple:
         """Stable per-level identity tokens (newest first): a level keeps its
         id while its content is untouched; every ingest and merge mints one."""
         return tuple(self._level_ids)
+
+    @property
+    def level_rows(self) -> tuple:
+        """Real rows of each level (newest first), held on the host."""
+        return tuple(self._rows)
 
     def _take_id(self) -> int:
         self._next_id += 1
@@ -558,7 +567,7 @@ class GenerationalIndex:
 
     @property
     def n_rows(self) -> int:
-        return sum(ix.n_rows for ix in self.levels)
+        return sum(self._rows)
 
     @property
     def nbytes(self) -> int:
@@ -571,7 +580,7 @@ class GenerationalIndex:
         return sum(getattr(ix, "nbytes_at_rest", ix.nbytes) for ix in self.levels)
 
     def __repr__(self) -> str:
-        rows = "+".join(str(ix.n_rows) for ix in self.levels) or "0"
+        rows = "+".join(str(r) for r in self._rows) or "0"
         return (f"GenerationalIndex(gen={self.generation}, "
                 f"segments={self.n_segments}, rows={rows})")
 
@@ -613,18 +622,20 @@ class GenerationalIndex:
             self._levels.insert(0, seg)
             self._from_merge.insert(0, False)       # fresh delta: hot, flat
             self._level_ids.insert(0, self._take_id())
+            self._rows.insert(0, rows)
             merges = self._compact()
         self.generation += 1
         self.compaction_stats["ingests"] += 1
+        self._publish_metrics()
         if sp:
             sp.set(rows=rows, merges=merges, segments=len(self.levels))
         return {"ingested_rows": rows, "merges": merges,
-                "segment_rows": [ix.n_rows for ix in self.levels]}
+                "segment_rows": list(self._rows)}
 
     def _merge_front(self, n: int) -> None:
         # elder segments first: merge-path ties keep generation order
         with obs_trace.span("gen.compact") as sp:
-            rows_in = sum(ix.n_rows for ix in self._levels[:n])
+            rows_in = sum(self._rows[:n])
             merged = merge_segments(
                 [_merge_input_segment(e, route=self.route)
                  for e in reversed(self._levels[:n])],
@@ -634,6 +645,7 @@ class GenerationalIndex:
             self._levels[:n] = [merged]
             self._from_merge[:n] = [True]           # merged: cold at rest
             self._level_ids[:n] = [self._take_id()]
+            self._rows[:n] = [merged.n_rows]
             self.compaction_stats["merges"] += 1
             self.compaction_stats["rows_merged"] += rows_in
             if sp:
@@ -641,17 +653,48 @@ class GenerationalIndex:
 
     def _compact(self) -> int:
         merges = 0
-        while (len(self.levels) >= 2 and
-               self.levels[0].n_rows * self.size_ratio >= self.levels[1].n_rows):
+        while (len(self._rows) >= 2 and
+               self._rows[0] * self.size_ratio >= self._rows[1]):
             self._merge_front(2)
             merges += 1
         return merges
+
+    def _publish_metrics(self) -> None:
+        """Push live structure + lifetime compaction stats to the registry.
+
+        A no-op (shared null singleton) when metrics are disabled; gauges
+        carry the current shape (rung sizes newest first), counters mirror
+        the monotonic ``compaction_stats``.  ``bytes_at_rest`` reads each
+        entry as it stands: a bare (not yet materialized) rung reports its
+        segment's bytes and shrinks at the first publish after its lazy
+        compression; a compressed rung reports its persisted streams
+        (``nbytes_at_rest``), not the resident total with its query state.
+        """
+        reg = obs_metrics.get_registry()
+        if not reg:
+            return
+        reg.gauge("gen.generation").set(self.generation)
+        reg.gauge("gen.segments").set(self.n_segments)
+        reg.gauge("gen.rows").set(self.n_rows)
+        n_comp, total_bytes = 0, 0
+        for i, (ix, rows) in enumerate(zip(self._levels, self._rows)):
+            reg.gauge(f"gen.rung{i}_rows").set(rows)
+            b = getattr(ix, "nbytes_at_rest", None) or ix.nbytes
+            total_bytes += b
+            reg.gauge(f"gen.rung{i}_bytes_at_rest").set(b)
+            n_comp += isinstance(ix, CompressedNGramIndex)
+        reg.gauge("gen.bytes_at_rest").set(total_bytes)
+        reg.gauge("gen.compressed_segments").set(n_comp)
+        for k, v in self.compaction_stats.items():
+            c = reg.counter(f"gen.{k}")
+            c.add(v - c.value)          # counters mirror the lifetime totals
 
     def compact_all(self) -> None:
         """Force-merge every live segment into one (maintenance)."""
         if len(self.levels) >= 2:
             self._merge_front(len(self.levels))
             self.generation += 1
+            self._publish_metrics()
 
 
 def generational_from_stats(stats: NGramStats, *, vocab_size: int,

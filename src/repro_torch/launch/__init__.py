@@ -1,0 +1,3 @@
+"""Driver CLIs of the port (``python -m repro_torch.launch.<name>``):
+``ngram`` runs one n-gram job, ``serve_ngrams`` builds an index and serves
+it (micro-batched, streaming, or as the HTTP/SSE frontend)."""

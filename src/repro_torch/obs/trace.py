@@ -1,7 +1,7 @@
 """Span tracer: nested wall-clock spans -> Chrome/Perfetto ``trace_event`` JSON.
 
-The main-path part of ``repro.obs.trace``.  Instrumented code never checks
-whether tracing is on:
+Port of ``repro.obs.trace``.  Instrumented code never checks whether
+tracing is on:
 
     with trace.span("round.stages") as sp:
         if sp:                   # a real span: attach args / device sync
@@ -24,7 +24,7 @@ import time
 import torch
 
 __all__ = ["NULL_SPAN", "Span", "Tracer", "enable_tracing", "disable_tracing",
-           "get_tracer", "span"]
+           "get_tracer", "span", "span_coverage"]
 
 
 class _NullSpan:
@@ -167,3 +167,46 @@ def span(name: str):
     if _TRACER is None:
         return NULL_SPAN
     return _TRACER.span(name)
+
+
+def span_coverage(trace_obj: dict, root_name: str,
+                  child_prefixes: tuple[str, ...] | None = None) -> float:
+    """Fraction of the root span's wall time covered by named child spans.
+
+    The per-wave-tax attribution check: merge every non-root span's
+    ``[ts, ts+dur)`` interval (optionally filtered to ``child_prefixes``),
+    clip to the root span, and return covered/total.  A trace where this is
+    low has anonymous wall time no span accounts for.
+    """
+    events = trace_obj["traceEvents"]
+    roots = [e for e in events if e["name"] == root_name]
+    if not roots:
+        raise ValueError(f"no span named {root_name!r} in trace")
+    root = max(roots, key=lambda e: e["dur"])
+    r0, r1 = root["ts"], root["ts"] + root["dur"]
+    if r1 <= r0:
+        return 0.0
+    ivals = []
+    for e in events:
+        if e is root or e["name"] == root_name:
+            continue
+        if child_prefixes is not None and \
+                not e["name"].startswith(child_prefixes):
+            continue
+        lo = max(e["ts"], r0)
+        hi = min(e["ts"] + e["dur"], r1)
+        if hi > lo:
+            ivals.append((lo, hi))
+    ivals.sort()
+    covered = 0.0
+    cur_lo, cur_hi = None, None
+    for lo, hi in ivals:
+        if cur_hi is None or lo > cur_hi:
+            if cur_hi is not None:
+                covered += cur_hi - cur_lo
+            cur_lo, cur_hi = lo, hi
+        else:
+            cur_hi = max(cur_hi, hi)
+    if cur_hi is not None:
+        covered += cur_hi - cur_lo
+    return covered / (r1 - r0)

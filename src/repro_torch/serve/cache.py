@@ -4,6 +4,8 @@ from __future__ import annotations
 
 from collections import OrderedDict
 
+from repro_torch.obs import metrics as obs_metrics
+
 __all__ = ["LRUQueryCache"]
 
 
@@ -68,3 +70,15 @@ class LRUQueryCache:
         return {"hits": self.hits, "misses": self.misses,
                 "evictions": self.evictions, "entries": len(self._d),
                 "generation": self.generation, "hit_rate": self.hit_rate}
+
+    def publish_metrics(self, reg=None) -> None:
+        """Mirror lifetime cache stats into the active metrics registry."""
+        if reg is None:
+            reg = obs_metrics.get_registry()
+        if not reg:
+            return
+        for k in ("hits", "misses", "evictions"):
+            c = reg.counter("cache." + k)
+            c.add(getattr(self, k) - c.value)     # lifetime mirror, not +=
+        reg.gauge("cache.entries").set(len(self._d))
+        reg.gauge("cache.hit_rate").set(self.hit_rate)

@@ -10,12 +10,16 @@
   * ``continuations(...)``     -- batched top-k completion rows (cache first)
 
 plus the split ``_submit_lookup`` / ``_collect_lookup`` pair that
-``lookup_pipelined`` drives double-buffered.  Cache hits never touch the
-device; the miss rows of a batch go to the index in one dispatch.  Answers
+``lookup_pipelined`` and the continuous batcher (``serve.batcher``) drive
+double-buffered.  Cache hits never touch the device; the miss rows of a
+batch go to the index in one dispatch.  Answers
 come back as host numpy int64 arrays of uint32 values.  With
 ``wave_tokens`` an ingest streams through the wave engine
 (``pipeline.WaveExecutor``), so a delta larger than device memory ingests
 too; the multi-device job (``mesh``) waits for the multi-device slice.
+
+``microbatch_drive`` and ``make_query_stream`` are the synthetic-workload
+helpers the CLI drivers share.
 """
 from __future__ import annotations
 
@@ -24,10 +28,14 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from .cache import LRUQueryCache
 
-__all__ = ["StreamingNGramService", "make_query_stream"]
+__all__ = ["StreamingNGramService", "microbatch_drive", "make_query_stream"]
+
+#: what a multi-device request (``mesh=``, the CLIs' ``--devices N > 1``) gets
+MESH_NOT_PORTED = "the multi-device job (mesh) is not ported to repro_torch yet"
 
 
 def make_query_stream(stats, *, n_queries: int, sigma: int, vocab_size: int,
@@ -58,7 +66,8 @@ class StreamingNGramService:
     Runs on the card unless ``device`` says otherwise (no card and no
     ``device``: it raises).  ``route`` defaults to ``"merge"``, not
     ``repro``'s ``"kway"``: the port's ``kway`` compacts on the host, and a
-    default service keeps its compactions on the card.
+    default service keeps its compactions on the card.  ``overlap`` is the
+    wave ingest's fold thread (``WaveExecutor(overlap=)``).
     """
 
     #: cache key of one point lookup
@@ -74,13 +83,13 @@ class StreamingNGramService:
     def __init__(self, cfg, *, compress: bool = False, block_size: int = 4,
                  cache_capacity: int = 65536, size_ratio: int = 4,
                  route: str = "merge", wave_tokens: int | None = None, mesh=None,
-                 device=None):
+                 overlap: bool = True, device=None):
         if mesh is not None:
-            raise NotImplementedError("the multi-device job (mesh) is not "
-                                      "ported to repro_torch yet")
+            raise NotImplementedError(MESH_NOT_PORTED)
         from repro_torch.index.merge import GenerationalIndex
         self.cfg = cfg
         self.wave_tokens = wave_tokens
+        self.overlap = overlap
         self.gen = GenerationalIndex(
             sigma=cfg.sigma, vocab_size=cfg.vocab_size, compress=compress,
             block_size=block_size, size_ratio=size_ratio, route=route,
@@ -101,12 +110,14 @@ class StreamingNGramService:
                 if self._wave_ex is None:
                     from repro_torch.pipeline import WaveExecutor
                     self._wave_ex = WaveExecutor(self.cfg, wave_tokens=self.wave_tokens,
+                                                 overlap=self.overlap,
                                                  device=self.gen.device)
                 stats = self._wave_ex.run(tokens)
             else:
                 from repro_torch.core import run_job
                 stats = run_job(tokens, self.cfg, device=self.gen.device)
             t_job = time.perf_counter() - t0
+            obs_metrics.get_registry().merge_job_counters(stats.counters)
             t0 = time.perf_counter()
             report = self.gen.ingest(stats)
             report.update(job_s=t_job, ingest_s=time.perf_counter() - t0,
@@ -172,13 +183,17 @@ class StreamingNGramService:
         answer array a batch, equal to :meth:`lookup`'s."""
         from repro_torch.pipeline.executor import DoubleBufferedDriver
         drv = DoubleBufferedDriver(self._submit_lookup, collect=self._collect_lookup)
+        inflight = obs_metrics.get_registry().gauge("serve.inflight")
         results: list = []
         with obs_trace.span("serve.pipelined") as sp:
             for g, ln in batches:
+                inflight.add(1)               # one submitted, maybe one live
                 res, _ = drv.submit(g, ln)
                 if res is not None:
+                    inflight.add(-1)
                     results.append(res)
             res, _ = drv.drain()
+            inflight.set(0)
             if res is not None:
                 results.append(res)
             if sp:
@@ -203,3 +218,35 @@ class StreamingNGramService:
             for j, i in enumerate(miss):
                 self.cache.put(keys[i], gen_id, rows[j])
         return out
+
+
+def microbatch_drive(answer, grams, lengths, batch: int, *, warmup: int = 2,
+                     hist_name: str = "drive.batch_seconds"):
+    """Feed the stream through ``answer`` in fixed micro-batches; (qps, lat[s]).
+
+    Timed batches also land in the ``hist_name`` registry histogram, so the
+    p50/p95/p99 come out of the metrics export as well as the returned
+    sample list.  ``answer`` must return host values (it is timed until it
+    does).
+    """
+    n = grams.shape[0]
+    n_batches = -(-n // batch)
+    pad = n_batches * batch - n
+    g = np.pad(grams, ((0, pad), (0, 0)))
+    ln = np.pad(lengths, (0, pad))
+    for i in range(min(warmup, n_batches)):      # first launches + cache warm
+        answer(g[i * batch:(i + 1) * batch], ln[i * batch:(i + 1) * batch])
+    hist = obs_metrics.get_registry().histogram(hist_name)
+    lat = []
+    with obs_trace.span("serve.drive") as sp:
+        t_all = time.perf_counter()
+        for i in range(n_batches):
+            t0 = time.perf_counter()
+            answer(g[i * batch:(i + 1) * batch], ln[i * batch:(i + 1) * batch])
+            dt = time.perf_counter() - t0
+            lat.append(dt)
+            hist.observe(dt)
+        qps = n / (time.perf_counter() - t_all)
+        if sp:
+            sp.set(batch=batch, n_batches=n_batches, qps=int(qps))
+    return qps, lat

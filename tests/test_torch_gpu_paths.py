@@ -7,8 +7,10 @@ methods, ``decode_segment`` of a compressed index, ``merge_segments`` on the
 ``"merge"`` route, a compressed ``GenerationalIndex`` through its
 compactions, the paper's extensions (the time-series job on both
 combine routes, maximal / closed filtering, document frequencies, postings
-and the two-phase sigma split), and the wave engine (each method's wave run,
-``run_streaming``, a wave dispatch with no host sync).  ``merge_path`` is
+and the two-phase sigma split), the wave engine (each method's wave run,
+``run_streaming``, a wave dispatch with no host sync), and the serving
+frontend (HTTP bodies of a service on the card against one on the CPU, the
+card's searches launched from the batcher's thread).  ``merge_path`` is
 also held against its plain version at runs above 2**26 rows.  The file
 imports no JAX: it runs on a GPU host that has none, and every case skips
 without a card.
@@ -255,3 +257,63 @@ def test_cuda_merge_path_above_two_to_the_26_rows(cuda_device):
     got = ops.merge_path(a, b, av, bv)
     want = ref.merge_path_ref(a, b, av, bv)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def http_bodies(fe_addr, requests_):
+    """Each (path, body) POSTed to the server at ``fe_addr``: (status, text)."""
+    import http.client
+    import json
+    out = []
+    for path, body in requests_:
+        conn = http.client.HTTPConnection(*fe_addr, timeout=60)
+        conn.request("POST", path, body=json.dumps(body))
+        r = conn.getresponse()
+        out.append((r.status, r.read().decode()))
+        conn.close()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compress", [False, True])
+def test_cuda_frontend_answers_as_cpu(cuda_device, compress):
+    """A frontend over a service on the card and one over a ``device="cpu"``
+    service, fed the same base and deltas (flat and compressed rungs), give
+    the same HTTP bodies for lookups, top-k and SSE completions; the card's
+    ``bsearch`` (and, compressed, ``block_decode``) launch during the
+    queries, from the batcher's thread."""
+    from repro_torch.serve import QueryFrontend, StreamingNGramService, serve_http
+    toks = draw(60_000, 9)
+    cfg = NGramConfig(sigma=SIGMA, tau=TAU, vocab_size=VOCAB, combine_route="hash")
+    base, rest = np.split(toks, [int(len(toks) * 0.6)])
+    stats = run_job(toks, NGramConfig(sigma=SIGMA, tau=TAU, vocab_size=VOCAB), device="cpu")
+    rng = np.random.default_rng(4)
+    rows = rng.integers(0, len(stats), 300)
+    reqs = [("/v1/lookup", {"grams": [stats.grams[r, :stats.lengths[r]].tolist()
+                                      for r in rows[i:i + 60]] + [[VOCAB + 1], [], [1] * 9]})
+            for i in range(0, 300, 60)]
+    reqs += [("/v1/topk", {"prefix": stats.grams[r, :max(stats.lengths[r] - 1, 0)].tolist(),
+                           "k": 8}) for r in rows[:40]]
+    reqs += [("/v1/complete", {"prefix": stats.grams[r, :1].tolist(), "steps": 6, "k": 4})
+             for r in rows[:6]]
+    answers, launches = [], None
+    for dev in (cuda_device, "cpu"):
+        svc = StreamingNGramService(cfg, compress=compress, block_size=4, size_ratio=2,
+                                    device=dev)
+        for part in [base] + np.array_split(rest, 3):
+            svc.ingest(part)
+        with QueryFrontend(svc, deadline_s=0.002) as fe:
+            srv = serve_http(fe, "127.0.0.1", 0, block=False)
+            try:
+                ops.launches.clear()
+                answers.append(http_bodies(srv.server_address, reqs))
+                if launches is None:
+                    launches = dict(ops.launches)
+            finally:
+                srv.shutdown()
+                srv.server_close()
+    assert answers[0] == answers[1]
+    assert all(status == 200 for status, _ in answers[0])
+    assert launches.get("bsearch", 0) > 0
+    if compress:
+        assert launches.get("block_decode", 0) > 0
+

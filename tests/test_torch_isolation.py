@@ -169,3 +169,52 @@ def test_wave_engine_refuses_cpu_without_a_device(monkeypatch):
     toks = np.asarray([1, 2, 0, 2, 1], np.int32)
     assert WaveExecutor(cfg, wave_tokens=2, device="cpu").run(toks).to_dict() == \
         {(1,): 2, (2,): 2, (1, 2): 1, (2, 1): 1}
+
+
+def test_serving_tier_and_clis_run_without_jax_or_repro():
+    """The frontend, its HTTP transport, the metrics and trace exports and
+    both CLIs load nothing of JAX or ``repro``, at import or at run time."""
+    _run(NO_JAX + textwrap.dedent("""
+        import http.client, json, tempfile, os
+        import numpy as np
+        from repro_torch.core import NGramConfig
+        from repro_torch.obs import metrics, report, trace
+        from repro_torch.serve import QueryFrontend, StreamingNGramService, serve_http
+        from repro_torch.launch import ngram, serve_ngrams
+        reg = metrics.MetricsRegistry()
+        metrics.set_registry(reg)
+        tracer = trace.enable_tracing()
+        toks = np.asarray([1, 2, 3, 0, 2, 3, 1, 2, 3, 1], np.int32)
+        svc = StreamingNGramService(NGramConfig(sigma=3, tau=1, vocab_size=3),
+                                    compress=True, device='cpu')
+        svc.ingest(toks)
+        with QueryFrontend(svc, deadline_s=0.001) as fe:
+            srv = serve_http(fe, '127.0.0.1', 0, block=False)
+            conn = http.client.HTTPConnection(*srv.server_address, timeout=30)
+            conn.request('POST', '/v1/lookup', body=json.dumps({'gram': [1, 2, 3]}))
+            assert json.loads(conn.getresponse().read())['count'] == 2
+            conn.close()
+            assert fe.topology()['index']['kind'] == 'generational'
+            srv.shutdown()
+            srv.server_close()
+        trace.disable_tracing()
+        assert report.validate_metrics(reg.snapshot()) == []
+        assert report.validate_trace(tracer.export()) == []
+        assert report.environment_metadata()['device_kind'] in ('cuda', 'cpu')
+        metrics.set_registry(None)
+        d = tempfile.mkdtemp()
+        ngram.main(['--tokens', '3000', '--sigma', '3', '--tau', '2', '--device', 'cpu',
+                    '--wave-tokens', '1000', '--metrics', os.path.join(d, 'a.jsonl')])
+        serve_ngrams.main(['--tokens', '3000', '--queries', '200', '--batch-sizes', '64',
+                           '--device', 'cpu', '--trace', os.path.join(d, 't.json')])
+    """) + NO_REPRO)
+
+
+def test_clis_refuse_cpu_without_a_device(monkeypatch):
+    """Without a card and without ``--device cpu`` the CLIs raise instead of
+    running on the host."""
+    from repro_torch.launch import ngram, serve_ngrams
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for main in (ngram.main, serve_ngrams.main):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["--tokens", "2000", "--sigma", "2", "--tau", "2"])
