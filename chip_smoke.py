@@ -136,6 +136,33 @@ line):
                  batches and their fill, coalesced, shed, the cache hit
                  rate, peak device memory and launches by kernel.
 
+  10. ranks   -- the multi-rank batch path, last (after phase 9): 4 ranks spawned
+                 on the one card over gloo (each collective staged through
+                 pinned host memory), each reading only its own rows of
+                 phase 3's corpus (a memory-mapped file).  The four methods
+                 at phase 3's configuration (K = 4): a cold run and warm
+                 runs (3, or 1 where the cold run took over 8 s), each
+                 output equal to phase 3's single-device stats and every
+                 rank's equal, map_records equal to the single-device jobs';
+                 ``ranks:`` lines give capacity, retries, shuffle_records,
+                 the bytes a rank sent and its seconds in collectives, each
+                 rank's peak device memory, and the single-device warm time
+                 beside the multi-rank one.  Then the sharded index from
+                 phase 3's stats, flat and compressed (block size 4), on 4
+                 ranks: phase 3's 2**16 lookups and 2**14 continuation
+                 prefixes at k = 8 plus 64 length-0 prefixes, in batches of
+                 4,096, equal to the single-device index's; and the flat
+                 sharded index on 1 rank under NCCL (``all_to_all_single``
+                 on device tensors), equal too.  ``suffix_pack``,
+                 ``hash_partition``, ``lcp_boundary``, ``bsearch`` and
+                 ``block_decode`` must launch in the ranks, which count
+                 their own launches; the kernel rows' ``launches_by_path``
+                 gets ``ranks``.  Last, gloo's own reduce-scatter against
+                 ``DataMesh``'s (an all-to-all of the blocks and a local
+                 sum) at APRIORI-INDEX's totals, in turns.  Gloo ranks on
+                 one card measure correctness and host staging, not NVLink
+                 scaling.
+
 The last lines are one JSON object describing each kernel, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.  The
 script needs one card; without CUDA it exits non-zero and prints no result.
@@ -144,6 +171,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import hashlib
 import ctypes
 import dataclasses
 import json
@@ -170,6 +198,7 @@ from repro_torch.index import merge as index_merge  # noqa: E402
 from repro_torch.index import query as index_query  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.launch.mesh import spawn_ranks  # noqa: E402
 from repro_torch.mapreduce import pack  # noqa: E402
 from repro_torch.obs import trace  # noqa: E402
 from repro_torch.pipeline import WaveExecutor, plan_for, stages  # noqa: E402
@@ -215,6 +244,14 @@ MAIN_KERNELS = ("suffix_pack", "hash_partition", "lcp_boundary", "bsearch")
 #: the kernels of the whole-gram methods' jobs, which phase 6 drives
 METHOD_KERNELS = ("suffix_pack", "hash_partition")
 N_DELTAS = 4
+#: phase 10: ranks spawned on the card, the query batch, the length-0
+#: prefixes, and the kernels the ranks' path runs
+N_RANKS = 4
+RANK_BATCH = 4096
+N_EMPTY = 64
+RANK_KERNELS = ("suffix_pack", "hash_partition", "lcp_boundary", "bsearch",
+                "block_decode")
+PHASE10_DIR = Path(__file__).resolve().parent / "build" / "phase10"
 
 
 def check(cond: bool, what: str) -> None:
@@ -670,7 +707,7 @@ def phase_main_path(dev, n_terms: int = MAIN_TERMS) -> dict:
           "continuation mass and top-k pairs, repeated job)")
     return dict(tokens=tokens, toks=toks, n_terms=n_terms, stats=stats, idx=idx,
                 queries=(g_dev, ln_dev), prefixes=(pg_dev, pl_dev),
-                launches=launches)
+                launches=launches, warm_s=warm)
 
 
 # --------------------------------------------------------------------- phase 6
@@ -691,7 +728,7 @@ def phase_methods(dev, main: dict) -> dict:
     tokens, toks, want = main["tokens"], main["toks"], main["stats"]
     sync = torch.cuda.synchronize if tokens.is_cuda else (lambda: None)
     launches: dict[str, int] = {}
-    counters = {}
+    counters, warm_s = {}, {}
     for method in METHODS:
         cfg = NGramConfig(sigma=SIGMA, tau=TAU, vocab_size=vocab, method=method,
                           apriori_index_k=APRIORI_INDEX_K)
@@ -716,6 +753,7 @@ def phase_methods(dev, main: dict) -> dict:
             spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"] / 1e3
         c = stats.counters
         counters[method] = c
+        warm_s[method] = float(np.median(warm))
         print(f"methods: {method}: jobs {c['jobs']}, map_records {c['map_records']:,}, "
               f"shuffle_records {c['shuffle_records']:,}, shuffle_bytes "
               f"{c['shuffle_bytes']:,}; job cold {cold_s:.3f} s, warm median "
@@ -738,7 +776,261 @@ def phase_methods(dev, main: dict) -> dict:
           "APRIORI-SCAN emits at most NAIVE's records in at most sigma jobs")
     print(f"methods: checks passed (each output == SUFFIX-sigma's, NAIVE map_records "
           f"== closed form {closed:,}, APRIORI-SCAN pruned); kernel launches {launches}")
-    return dict(launches=launches, counters=counters)
+    return dict(launches=launches, counters=counters, warm_s=warm_s)
+
+
+
+# -------------------------------------------------------------------- phase 10
+def digest(*arrays) -> str:
+    h = hashlib.sha256()
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        h.update(str((a.dtype, a.shape)).encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def rank_batches(mesh, sharded, g, ln, mode: str) -> tuple[np.ndarray, float]:
+    """Every batch of ``RANK_BATCH`` queries through ``serve_queries``: the
+    answers and the host seconds (the card synchronized by each batch's
+    gather)."""
+    from repro_torch.index import serve_queries
+    out = []
+    t0 = time.perf_counter()
+    for i in range(0, len(g), RANK_BATCH):
+        out.append(serve_queries(sharded, g[i:i + RANK_BATCH], ln[i:i + RANK_BATCH],
+                                 mode=mode, k=TOP_K))
+    return np.concatenate(out), time.perf_counter() - t0
+
+
+def rank_index(mesh, stats, queries, layouts) -> dict:
+    """The sharded index of ``stats`` in each layout, and ``queries``' answers
+    (lookups, continuations) through it, on this rank."""
+    from repro_torch.index import build_sharded_index
+    from repro_torch.obs import metrics as obs_metrics
+    g, ln, pg, pl = queries
+    out = {}
+    for layout in layouts:
+        reg = obs_metrics.MetricsRegistry()
+        obs_metrics.set_registry(reg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sharded = build_sharded_index(stats, vocab_size=corpus.NYT.vocab_size, mesh=mesh,
+                                      compress=layout == "compressed", block_size=4,
+                                      device=mesh.device)
+        build_s = time.perf_counter() - t0
+        sent0 = mesh.comm_bytes
+        rank_batches(mesh, sharded, g[:RANK_BATCH], ln[:RANK_BATCH], "lookup")  # first
+        look, look_s = rank_batches(mesh, sharded, g, ln, "lookup")
+        cont, cont_s = rank_batches(mesh, sharded, pg, pl, "continuations")
+        snap = reg.snapshot()["counters"] if mesh.rank == 0 else {}
+        obs_metrics.set_registry(None)
+        out[layout] = dict(
+            build_s=build_s, lookup_s=look_s, cont_s=cont_s,
+            sent=mesh.comm_bytes - sent0, nbytes=sharded.nbytes,
+            retries=snap.get("serve.retries"), batches=snap.get("serve.batches"),
+            digest=digest(look, cont),
+            answers=(look, cont) if mesh.rank == 0 else None)
+        del sharded
+        torch.cuda.empty_cache()
+    return out
+
+
+def rank_reduce_scatter(mesh, n: int, reps: int = 2) -> dict:
+    """Seconds of the reduce-scatter of an int32 [n] vector on this rank, in
+    turns (gloo's own on the staged host copy, ``DataMesh.reduce_scatter``'s
+    all-to-all of the blocks and a local sum, the same twice, gloo's): both
+    must give the same answer."""
+    import torch.distributed as dist
+    # torch 2.13 names it ``reduce_scatter_single`` and deprecates the older name
+    gloo_rs = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+    g = torch.Generator().manual_seed(mesh.rank)
+    t = torch.randint(0, 1000, (n,), generator=g, dtype=torch.int32).to(mesh.device)
+    times: dict[str, list[float]] = {"gloo": [], "all_to_all": []}
+    want = None
+    for name in ("gloo", "all_to_all", "all_to_all", "gloo") * reps:
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "gloo":
+            out = torch.empty(n // mesh.size, dtype=t.dtype)
+            gloo_rs(out, t.cpu())
+            out = out.to(mesh.device)
+        else:
+            out = mesh.reduce_scatter(t)
+        torch.cuda.synchronize()
+        times[name].append(time.perf_counter() - t0)
+        want = out if want is None else want
+        check(torch.equal(out, want), f"reduce-scatter {name} == gloo's")
+    return times
+
+
+def rank_main(mesh, toks_path: str, stats_path: str, queries) -> dict:
+    """Phase 10 on one rank: the four methods, then the sharded index, with
+    this rank's kernel launches counted from the start, then the two
+    reduce-scatters at APRIORI-INDEX's totals."""
+    from repro_torch.pipeline import stages as pstages
+    ops.launches.clear()
+    toks = np.load(toks_path, mmap_mode="r")          # each rank reads its own rows
+    vocab = corpus.NYT.vocab_size
+    out = {"methods": {}, "rank": mesh.rank, "device": str(mesh.device),
+           "backend": mesh.backend}
+    for method in ("suffix_sigma",) + METHODS:
+        cfg = NGramConfig(sigma=SIGMA, tau=TAU, vocab_size=vocab, method=method,
+                          apriori_index_k=APRIORI_INDEX_K)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = run_job(toks, cfg, mesh, device=mesh.device)
+        cold = time.perf_counter() - t0
+        warm, sent, comm_s = [], [], []
+        for _ in range(3 if cold < 8.0 else 1):
+            b0, s0 = mesh.comm_bytes, mesh.comm_seconds
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = run_job(toks, cfg, mesh, device=mesh.device)
+            torch.cuda.synchronize()
+            warm.append(time.perf_counter() - t0)
+            sent.append(mesh.comm_bytes - b0)
+            comm_s.append(mesh.comm_seconds - s0)
+        canon = pstages.canonical_stats(stats)
+        out["methods"][method] = dict(
+            cold=cold, warm=warm, sent=sent, comm_s=comm_s,
+            peak=torch.cuda.max_memory_allocated(), counters=dict(stats.counters),
+            same_again=digest(stats.grams, stats.lengths, stats.counts)
+            == digest(again.grams, again.lengths, again.counts),
+            digest=digest(canon.grams, canon.lengths, canon.counts),
+            stats=(canon.grams, canon.lengths, canon.counts) if mesh.rank == 0 else None)
+        del stats, again, canon
+    st = np.load(stats_path)
+    stats = NGramStats(st["grams"], st["lengths"], st["counts"])
+    out["index"] = rank_index(mesh, stats, queries, ("flat", "compressed"))
+    out["launches"] = dict(ops.launches)
+    out["reduce_scatter"] = rank_reduce_scatter(mesh, mesh.size * -(-len(toks)
+                                                                  // mesh.size))
+    return out
+
+
+def rank_nccl(mesh, stats_path: str, queries) -> dict:
+    """The flat sharded index on one rank under NCCL."""
+    ops.launches.clear()
+    st = np.load(stats_path)
+    stats = NGramStats(st["grams"], st["lengths"], st["counts"])
+    out = rank_index(mesh, stats, queries, ("flat",))["flat"]
+    out["backend"] = mesh.backend
+    out["launches"] = dict(ops.launches)
+    return out
+
+
+def phase_ranks(dev, main: dict, methods: dict) -> dict:
+    """The multi-rank batch path: the four methods and the sharded index on
+    ``N_RANKS`` gloo ranks sharing the card, the flat sharded index on one
+    NCCL rank, each held against phase 3's single-device output."""
+    t_phase = time.perf_counter()
+    vocab = corpus.NYT.vocab_size
+    want = main["stats"]
+    PHASE10_DIR.mkdir(parents=True, exist_ok=True)
+    toks_path, stats_path = PHASE10_DIR / "tokens.npy", PHASE10_DIR / "stats.npz"
+    np.save(toks_path, main["toks"])
+    np.savez(stats_path, grams=want.grams, lengths=want.lengths, counts=want.counts)
+    g, ln = (t.cpu().numpy() for t in main["queries"])
+    pg, pl = (t.cpu().numpy() for t in main["prefixes"])
+    pg = np.concatenate([pg, np.zeros((N_EMPTY, SIGMA), pg.dtype)])
+    pl = np.concatenate([pl, np.zeros(N_EMPTY, pl.dtype)])
+    queries = (g, ln, pg, pl)
+
+    # the single-device answers
+    idx = main["idx"]
+    want_look = lookup(idx, torch.as_tensor(g, device=dev),
+                       torch.as_tensor(ln, device=dev)).cpu().numpy()
+    nd, tot, terms, counts = continuations(idx, torch.as_tensor(pg, device=dev),
+                                           torch.as_tensor(pl, device=dev), k=TOP_K)
+    want_cont = torch.cat([nd[:, None], tot[:, None], terms, counts], 1).cpu().numpy()
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(N_RANKS, rank_main, str(toks_path), str(stats_path), queries,
+                        device=dev, backend="gloo")
+    spawn_s = time.perf_counter() - t0
+    lead = ranks[0]
+    check([r["backend"] for r in ranks] == ["gloo"] * N_RANKS
+          and all(r["device"].startswith("cuda") for r in ranks),
+          f"{N_RANKS} gloo ranks on the card")
+    single_counters = {"suffix_sigma": want.counters, **methods["counters"]}
+    single_warm = {"suffix_sigma": main["warm_s"], **methods["warm_s"]}
+    for method, m in lead["methods"].items():
+        grams, lengths, cnts = m["stats"]
+        check(np.array_equal(grams, want.grams) and np.array_equal(lengths, want.lengths)
+              and np.array_equal(cnts, want.counts),
+              f"ranks: {method} on {N_RANKS} ranks == phase 3's stats ({len(want):,} n-grams)")
+        check(all(r["methods"][method]["digest"] == m["digest"] for r in ranks),
+              f"ranks: {method}: every rank returns the same output")
+        check(all(r["methods"][method]["same_again"] for r in ranks),
+              f"ranks: {method}: a repeated run gives the same output")
+        c = m["counters"]
+        check(c["map_records"] == single_counters[method]["map_records"],
+              f"ranks: {method} map_records == the single-device job's")
+        check(c["overflow"] == 0, f"ranks: {method} overflow 0")
+        w = [x["methods"][method] for x in ranks]
+        print(f"ranks: {method} on {N_RANKS} gloo ranks ({card_line()}): cold "
+              f"{m['cold']:.3f} s, warm median {np.median(m['warm']):.3f} s (max over "
+              f"ranks {max(np.median(x['warm']) for x in w):.3f}, n={len(m['warm'])}) "
+              f"vs one device warm median {single_warm[method]:.3f} s; counters {c}; "
+              f"capacity {c.get('capacity', 'n/a')}, retries {c.get('retries', 'n/a')}, "
+              f"shuffle_records {int(c['shuffle_records']):,}; bytes sent a rank "
+              f"(warm run) {[int(np.median(x['sent'])) for x in w]}, seconds in "
+              f"collectives a rank {[round(float(np.median(x['comm_s'])), 3) for x in w]}; "
+              f"peak device memory a rank (GiB) {[round(x['peak'] / 2**30, 2) for x in w]}")
+    for layout, ix in lead["index"].items():
+        look, cont = ix["answers"]
+        check(np.array_equal(look, want_look),
+              f"ranks: {layout} sharded index: {len(g):,} lookups == one device")
+        check(np.array_equal(cont, want_cont),
+              f"ranks: {layout} sharded index: {len(pg):,} continuations "
+              f"({N_EMPTY} of length 0) == one device")
+        check(all(r["index"][layout]["digest"] == ix["digest"] for r in ranks),
+              f"ranks: {layout}: every rank returns the same answers")
+        print(f"ranks: {layout} sharded index on {N_RANKS} gloo ranks ({card_line()}): "
+              f"built in {ix['build_s']:.3f} s ({ix['nbytes']:,} bytes in all); "
+              f"{len(g):,} lookups in {ix['lookup_s']:.3f} s = "
+              f"{len(g) / ix['lookup_s']:,.0f} lookups/s, {len(pg):,} continuations "
+              f"in {ix['cont_s']:.3f} s = {len(pg) / ix['cont_s']:,.0f}/s, batches of "
+              f"{RANK_BATCH}; serve.batches {ix['batches']}, serve.retries "
+              f"{ix['retries']}; bytes sent a rank "
+              f"{[r['index'][layout]['sent'] for r in ranks]}")
+
+    n_totals = N_RANKS * -(-len(main["toks"]) // N_RANKS)
+    print(f"ranks: reduce-scatter of int32 [{n_totals:,}] (APRIORI-INDEX's totals) "
+          f"on {N_RANKS} gloo ranks ({card_line()}), in turns, median s a rank: "
+          + "; ".join(f"{name} {[round(float(np.median(r['reduce_scatter'][name])), 4) for r in ranks]}"
+                      for name in ("gloo", "all_to_all")))
+    t0 = time.perf_counter()
+    (one,) = spawn_ranks(1, rank_nccl, str(stats_path), queries, device=dev,
+                         backend="nccl")
+    nccl_s = time.perf_counter() - t0
+    look, cont = one["answers"]
+    check(one["backend"] == "nccl", "the one-rank index runs under NCCL")
+    check(np.array_equal(look, want_look) and np.array_equal(cont, want_cont),
+          "ranks: flat sharded index on 1 NCCL rank == one device")
+    print(f"ranks: flat sharded index on 1 NCCL rank ({card_line()}): {len(g):,} "
+          f"lookups in {one['lookup_s']:.3f} s = {len(g) / one['lookup_s']:,.0f} "
+          f"lookups/s, {len(pg):,} continuations in {one['cont_s']:.3f} s; "
+          f"serve.retries {one['retries']}; launches {one['launches']}")
+
+    launches = collections.Counter()
+    for r in ranks + [one]:
+        launches.update(r["launches"])
+    missing = [k for k in RANK_KERNELS if all(r["launches"].get(k, 0) == 0
+                                                for r in ranks)]
+    check(not missing, f"the ranks launched every kernel of their path (missing {missing})")
+    for path in (toks_path, stats_path):
+        path.unlink()
+    print(f"ranks: {N_RANKS} ranks spawned and joined in {spawn_s:.1f} s, the NCCL "
+          f"rank in {nccl_s:.1f} s; kernel launches in the ranks {dict(launches)}; "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+    print("ranks: checks passed (four methods == one device on every rank, map_records, "
+          "sharded flat and compressed answers == one device, NCCL rank, launches)")
+    return dict(launches=dict(launches))
 
 
 # --------------------------------------------------------------------- phase 5
@@ -2689,9 +2981,15 @@ def main() -> int:
     done("phase 4 at the fold's merges")
     torch.cuda.empty_cache()
     fe = phase_frontend(dev, main_run, stream)          # phase 9
+    done("phase 9 (frontend)")
+    torch.cuda.empty_cache()
+    # the ranks run last: torch.profiler loses device events in an old
+    # process (PERF.md section 7), so phase 4 must not wait for them
+    ranks = phase_ranks(dev, main_run, methods)         # phase 10
+    done("phase 10 (ranks)")
     for row in rows:
         row["launches_by_path"]["frontend"] = fe["launches"].get(row["name"], 0)
-    done("phase 9 (frontend)")
+        row["launches_by_path"]["ranks"] = ranks["launches"].get(row["name"], 0)
 
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -1,11 +1,11 @@
 """The paper's contribution on PyTorch: n-gram statistics jobs.
 
 ``run_job`` dispatches on ``NGramConfig.method`` over the paper's four
-methods, each a single-device job; SUFFIX-sigma also counts per-bucket time
-series (``bucket_ids=``).  ``extensions`` filters a job's output to its
-maximal or closed n-grams and ``aggregations`` counts beyond occurrences
-(document frequencies, postings).  The multi-device jobs wait for a later
-slice.
+methods, on one device or across the ranks of a ``mesh``
+(:class:`~repro_torch.launch.mesh.DataMesh`); SUFFIX-sigma also counts
+per-bucket time series (``bucket_ids=``).  ``extensions`` filters a job's
+output to its maximal or closed n-grams and ``aggregations`` counts beyond
+occurrences (document frequencies, postings).
 """
 from __future__ import annotations
 
@@ -30,21 +30,25 @@ PLANS = {
 }
 
 
-def run_job(tokens, cfg: NGramConfig, *, device=None, **kw) -> NGramStats:
+def run_job(tokens, cfg: NGramConfig, mesh=None, *, device=None,
+            **kw) -> NGramStats:
     """Run the job ``cfg`` over a PAD-separated token stream.
 
-    ``kw`` goes to the method's ``run``: SUFFIX-sigma takes ``bucket_ids``
-    (a time-series bucket a position); the other methods take none and
-    raise ``TypeError``, as in ``repro``.  Runs on the card unless
-    ``device`` says otherwise; with no card and no ``device`` it raises
-    rather than running on the CPU.
+    ``mesh``: a :class:`~repro_torch.launch.mesh.DataMesh` of P > 1 ranks
+    runs the method's distributed job; every rank calls ``run_job`` with
+    the same arguments and gets the same output.  ``kw`` goes to the
+    method's ``run``: SUFFIX-sigma takes ``bucket_ids`` (a time-series
+    bucket a position); the other methods take none and raise
+    ``TypeError``, as in ``repro``.  Runs on the card unless ``device``
+    says otherwise; with no card and no ``device`` it raises rather than
+    running on the CPU.
     """
     try:
         fn = METHODS[cfg.method]
     except KeyError:
         raise ValueError(f"unknown method {cfg.method!r}; "
                          f"options: {sorted(METHODS)}") from None
-    return fn(tokens, cfg, device=device, **kw)
+    return fn(tokens, cfg, mesh=mesh, device=device, **kw)
 
 
 __all__ = ["NGramConfig", "NGramStats", "run_job", "METHODS", "PLANS", "oracle",

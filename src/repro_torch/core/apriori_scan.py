@@ -9,17 +9,24 @@ binary search (``common.membership_hashes``).  A hash collision only admits
 an extra candidate, which job k's exact count filters again.
 
 Termination matches the paper: after sigma jobs or when a job outputs
-nothing.  The distributed job waits for a later slice.
+nothing.  On a mesh of P > 1 ranks every round is a distributed job (halo,
+whole-gram hash shuffle, exact count on each rank); every rank builds the
+next dictionary from the round's merged output, so it is replicated with no
+broadcast (the distributed cache of the paper).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import resolve_device
+from repro_torch.launch.mesh import mesh_size
 from repro_torch.mapreduce import pack as packing
+from repro_torch.mapreduce import shuffle
 from repro_torch.pipeline import plan as plan_mod
-from .common import (gram_hash, kgram_records, member, membership_hashes,
-                     prefix_masks, run_single_device, suffix_lanes)
-from .stats import NGramConfig, NGramStats
+from .common import (count_exact_grams, gather_stats, gram_hash, kgram_records,
+                     member, membership_hashes, pair_capacity, prefix_masks,
+                     run_single_device, shard_with_halo, suffix_lanes)
+from .stats import NGramConfig, NGramStats, add_counters
 
 __all__ = ["plan", "run"]
 
@@ -94,10 +101,49 @@ def plan(cfg: NGramConfig) -> plan_mod.JobPlan:
     )
 
 
+def _run_distributed(tokens, cfg: NGramConfig, mesh, device) -> NGramStats:
+    """APRIORI-SCAN across the ranks of ``mesh``: one distributed job a
+    round (every rank calls it with the same arguments and gets the same
+    output).  Counters as ``repro``'s: summed over the rounds, with no
+    ``capacity`` or ``retries``."""
+    n_l = packing.n_lanes(cfg.sigma, cfg.vocab_size)
+    rec_bytes = packing.record_bytes(cfg.sigma, cfg.vocab_size)
+    tok_ext, n_local = shard_with_halo(tokens, cfg.sigma, mesh, device)
+    counters = {"jobs": 0, "map_records": 0, "shuffle_records": 0,
+                "shuffle_bytes": 0, "overflow": 0}
+    out = None
+    freq = None
+    for k in range(1, cfg.sigma + 1):
+        records, valid, _ = _plan_emit(tok_ext, None, n_local, cfg, freq, k)
+        local, _, _ = shuffle.shuffle(
+            records, gram_hash(records[:, :n_l]), valid, mesh=mesh,
+            capacity=pair_capacity(cfg, n_local, mesh))
+        (n_cand,) = mesh.sum_ints(valid.sum())
+        del records, valid
+        stage = gather_stats(count_exact_grams(local, sigma=cfg.sigma,
+                                               vocab_size=cfg.vocab_size),
+                             cfg.tau, mesh)
+        del local
+        add_counters(counters, jobs=1, map_records=n_cand, shuffle_records=n_cand,
+                     shuffle_bytes=n_cand * rec_bytes)
+        out = stage if out is None else out.merged_with(stage)
+        if len(stage) == 0:
+            break
+        grams = torch.as_tensor(stage.grams, device=device)
+        freq = membership_hashes(packing.pack_terms(grams, vocab_size=cfg.vocab_size),
+                                 torch.as_tensor(stage.lengths == k, device=device))
+    out.counters = counters
+    return out
+
+
 def run(tokens, cfg: NGramConfig, mesh=None, *, device=None) -> NGramStats:
-    """Run an APRIORI-SCAN job.  ``tokens``: 1-D, PAD(0)-separated documents.
+    """Run an APRIORI-SCAN job.  ``tokens``: 1-D, PAD(0)-separated documents;
+    ``mesh``: a :class:`~repro_torch.launch.mesh.DataMesh` of P > 1 ranks
+    runs the distributed rounds.
 
     Runs on the card unless ``device`` says otherwise (see
     :func:`repro_torch.resolve_device`).
     """
-    return run_single_device(tokens, cfg, plan(cfg), mesh=mesh, device=device)
+    if mesh_size(mesh) > 1:
+        return _run_distributed(tokens, cfg, mesh, resolve_device(device))
+    return run_single_device(tokens, cfg, plan(cfg), device=device)

@@ -11,6 +11,14 @@ The emit runs no ``[N, sigma]`` window tensor.  The ``suffix_pack`` kernel
 packs each position's sigma-truncated, PAD-masked suffix into lanes; the
 k-gram at position ``p`` is those lanes AND ``prefix_lane_masks[k]``, and it
 exists exactly when term slot ``k - 1`` of the lanes is not PAD.
+
+The multi-device helpers serve all four methods' jobs on a
+:class:`~repro_torch.launch.mesh.DataMesh`: :func:`shard_rows` takes this
+rank's row of the padded ``[P, n_local]`` split, :func:`halo` brings the next
+rank's first tokens (``repro``'s ``ppermute`` i -> i - 1; zero on the last
+rank), and :func:`gather_stats` merges every rank's reducer output as
+``repro`` merges the rows of its sharded output: ``NGramStats`` of each
+part in rank order, the counters on the first.
 """
 from __future__ import annotations
 
@@ -27,7 +35,8 @@ from repro_torch.pipeline import stages
 
 __all__ = ["as_tokens", "run_single_device", "suffix_lanes", "prefix_masks",
            "term_present", "kgram_records", "membership_hashes", "member",
-           "count_exact_grams", "gram_hash"]
+           "count_exact_grams", "gram_hash", "shard_rows", "halo",
+           "shard_with_halo", "pair_capacity", "gather_stats"]
 
 
 def as_tokens(tokens, device) -> torch.Tensor:
@@ -39,21 +48,78 @@ def as_tokens(tokens, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(tokens, np.int32), device=device)
 
 
-def run_single_device(tokens, cfg, plan, *, mesh=None, device=None,
-                      bucket_ids=None):
-    """Run ``plan`` over the whole corpus on one device: the body of every
-    method's ``run``.  ``tokens``: 1-D, PAD(0)-separated documents;
-    ``bucket_ids``: a time-series bucket a position (SUFFIX-sigma only).
+def run_single_device(tokens, cfg, plan, *, device=None, bucket_ids=None):
+    """Run ``plan`` over the whole corpus on one device: every method's
+    ``run`` without a mesh (or on a mesh of one device).  ``tokens``: 1-D,
+    PAD(0)-separated documents; ``bucket_ids``: a time-series bucket a
+    position (SUFFIX-sigma only).
 
     Runs on the card unless ``device`` says otherwise (see
     :func:`repro_torch.resolve_device`).
     """
-    if mesh is not None:
-        raise NotImplementedError("the multi-device job is not ported to "
-                                  "repro_torch yet; call run without a mesh")
     from repro_torch.pipeline.executor import run_plan
     return run_plan(as_tokens(tokens, device), cfg, bucket_ids=bucket_ids,
                     plan=plan)
+
+
+# ------------------------------------------------------------- across ranks
+def shard_rows(values, mesh) -> tuple[np.ndarray | torch.Tensor, int]:
+    """(this rank's row of ``values`` split as ``[P, n_local]``, zero-padded
+    at the end; ``n_local``).  Only that row is read."""
+    n = len(values)
+    n_local = -(-n // mesh.size)
+    lo = min(mesh.rank * n_local, n)
+    own = values[lo:lo + n_local]
+    pad = n_local - len(own)
+    if isinstance(own, torch.Tensor):
+        return torch.cat([own, own.new_zeros(pad)]) if pad else own, n_local
+    own = np.asarray(own)
+    # a copy: the caller may hand a read-only (memory-mapped) corpus
+    return (np.pad(own, (0, pad)) if pad else own.copy()), n_local
+
+
+def halo(head: torch.Tensor, mesh) -> torch.Tensor:
+    """The next rank's ``head`` (every rank's is the same length), zero on
+    the last rank: ``repro``'s ``ppermute`` i -> i - 1 with the last rank's
+    halo zeroed, as one gather of the small heads."""
+    if mesh.rank == mesh.size - 1:
+        mesh.all_gather(head)                   # every rank takes part
+        return torch.zeros_like(head)
+    return mesh.all_gather(head)[mesh.rank + 1]
+
+
+def shard_with_halo(tokens, sigma: int, mesh, device) -> tuple[torch.Tensor, int]:
+    """(this rank's tokens and the next rank's first sigma - 1 as its halo,
+    ``n_local``): the window each rank's map emits over; positions past
+    ``n_local`` belong to the neighbour."""
+    own, n_local = shard_rows(tokens, mesh)
+    tok = as_tokens(own, device)
+    if sigma == 1:
+        return tok, n_local
+    return torch.cat([tok, halo(tok[:sigma - 1], mesh)]), n_local
+
+
+def pair_capacity(cfg, n_local: int, mesh, records_a_position: int = 1) -> int:
+    """The first capacity of each (source, destination) pair of a job's
+    shuffle, as ``repro`` sizes it: ``capacity_factor`` times a rank's
+    records spread evenly over the ranks, at least 8."""
+    return max(8, int(cfg.capacity_factor * n_local * records_a_position
+                      / mesh.size) + 1)
+
+
+def gather_stats(dense, tau: int, mesh, counters: dict | None = None):
+    """Every rank's reducer output (terms, flags, counts), kept at ``tau``,
+    merged on every rank: ``NGramStats`` of rank 0's part (with
+    ``counters``), then each other rank's, concatenated in rank order."""
+    from repro_torch.core.stats import NGramStats
+    from repro_torch.pipeline.executor import materialize
+    part = materialize(dense, tau)
+    out = None
+    for p, (g, ln, c) in enumerate(mesh.all_gather_object(
+            (part.grams, part.lengths, part.counts))):
+        st = NGramStats(g, ln, c, dict(counters or {}) if p == 0 else {})
+        out = st if out is None else out.merged_with(st)
+    return out
 
 
 def suffix_lanes(tokens: torch.Tensor, sigma: int, vocab_size: int) -> torch.Tensor:
@@ -146,9 +212,11 @@ def member(sorted_hashes: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
 
 
 def count_exact_grams(records: torch.Tensor, *, sigma: int, vocab_size: int,
-                      with_positions: bool = False):
+                      with_positions: bool = False,
+                      n_positions: int | None = None):
     """Sort + count identical grams in ``records`` = [N, lanes | weight | (pos)]:
     ``stages.sort_stage`` then ``stages.reduce_exact``."""
     rec = stages.sort_stage(records, n_keys=packing.n_lanes(sigma, vocab_size))
     return stages.reduce_exact(rec, sigma=sigma, vocab_size=vocab_size,
-                               with_positions=with_positions)
+                               with_positions=with_positions,
+                               n_positions=n_positions)

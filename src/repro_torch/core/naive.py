@@ -5,14 +5,22 @@ The map phase emits *every* n-gram occurrence -- O(|d| * sigma) records of
 O(sigma) bytes per document, the paper's worst case and the reason the
 method drowns in shuffle traffic for large sigma (Figs 4-5).  The reduce
 phase is a plain count per distinct gram; the shuffle hashes the whole gram.
-The distributed job waits for a later slice.
+On a mesh of P > 1 ranks each rank explodes its own row of the corpus (with
+the sigma - 1 token halo) and exchanges the grams by whole-gram hash, as
+``repro``'s ``shard_map`` job.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import resolve_device
+from repro_torch.launch.mesh import mesh_size
+from repro_torch.mapreduce import pack as packing
+from repro_torch.mapreduce import shuffle
 from repro_torch.pipeline import plan as plan_mod
-from .common import prefix_masks, run_single_device, suffix_lanes, term_present
+from .common import (count_exact_grams, gather_stats, gram_hash, pair_capacity,
+                     prefix_masks, run_single_device, shard_with_halo,
+                     suffix_lanes, term_present)
 from .stats import NGramConfig, NGramStats
 
 __all__ = ["plan", "run"]
@@ -69,10 +77,34 @@ def plan(cfg: NGramConfig) -> plan_mod.JobPlan:
     )
 
 
+def _distributed(tokens, cfg: NGramConfig, mesh, device) -> NGramStats:
+    """One NAIVE job across the ranks of ``mesh`` (every rank calls it with
+    the same arguments and gets the same output).  A pair's capacity scales
+    with sigma: each position emits up to sigma grams."""
+    n_l = packing.n_lanes(cfg.sigma, cfg.vocab_size)
+    tok_ext, n_local = shard_with_halo(tokens, cfg.sigma, mesh, device)
+    records, valid, _ = _plan_emit(tok_ext, None, n_local, cfg, None, 1)
+    local, capacity, retries = shuffle.shuffle(
+        records, gram_hash(records[:, :n_l]), valid, mesh=mesh,
+        capacity=pair_capacity(cfg, n_local, mesh, cfg.sigma))
+    (map_rec,) = mesh.sum_ints(valid.sum())
+    del records, valid
+    dense = count_exact_grams(local, sigma=cfg.sigma, vocab_size=cfg.vocab_size)
+    del local
+    return gather_stats(dense, cfg.tau, mesh, {
+        "map_records": map_rec, "shuffle_records": map_rec,
+        "shuffle_bytes": map_rec * packing.record_bytes(cfg.sigma, cfg.vocab_size),
+        "jobs": 1, "overflow": 0, "capacity": capacity, "retries": retries})
+
+
 def run(tokens, cfg: NGramConfig, mesh=None, *, device=None) -> NGramStats:
-    """Run a NAIVE job.  ``tokens``: 1-D, PAD(0)-separated documents.
+    """Run a NAIVE job.  ``tokens``: 1-D, PAD(0)-separated documents;
+    ``mesh``: a :class:`~repro_torch.launch.mesh.DataMesh` of P > 1 ranks
+    runs the distributed job.
 
     Runs on the card unless ``device`` says otherwise (see
     :func:`repro_torch.resolve_device`).
     """
-    return run_single_device(tokens, cfg, plan(cfg), mesh=mesh, device=device)
+    if mesh_size(mesh) > 1:
+        return _distributed(tokens, cfg, mesh, resolve_device(device))
+    return run_single_device(tokens, cfg, plan(cfg), device=device)

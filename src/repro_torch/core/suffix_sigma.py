@@ -17,7 +17,14 @@ Phases (one MapReduce job, like the paper):
 
 ``sigma_split`` runs a large-sigma job in two phases: a SUFFIX-sigma job at
 a short head length, then the longer grams from the positions whose head is
-frequent.  The distributed job waits for the multi-device slice.
+frequent.
+
+On a mesh of P > 1 ranks (``run(mesh=)``) each rank maps its own row of
+the ``[P, n_local]`` split plus a sigma - 1 token halo from the next rank,
+combines, and shuffles by hash(lead term) through a fixed-capacity
+``all_to_all`` (doubled while a pair overflows); each rank then sorts and
+reduces what it received, and the ranks' outputs merge in rank order, as
+``repro``'s ``shard_map`` job.
 """
 from __future__ import annotations
 
@@ -26,14 +33,18 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import resolve_device, u32_words
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import suffix_windows
+from repro_torch.launch.mesh import mesh_size
 from repro_torch.mapreduce import pack as packing
+from repro_torch.mapreduce import shuffle
 from repro_torch.mapreduce.shuffle import GOLDEN, hash_u32
 from repro_torch.pipeline import plan as plan_mod
 from repro_torch.pipeline import stages
-from .common import (as_tokens, gram_hash, member, membership_hashes,
-                     run_single_device, term_present)
+from .common import (as_tokens, gather_stats, gram_hash, member,
+                     membership_hashes, pair_capacity, run_single_device,
+                     shard_rows, shard_with_halo, term_present)
 from .stats import NGramConfig, NGramStats, add_counters
 
 __all__ = ["suffix_windows", "make_records", "reduce_block", "plan", "run",
@@ -101,16 +112,55 @@ def plan(cfg: NGramConfig) -> plan_mod.JobPlan:
     )
 
 
+def _distributed(tokens, cfg: NGramConfig, mesh, device, bucket_ids=None
+                 ) -> NGramStats:
+    """One SUFFIX-sigma job across the ranks of ``mesh`` (every rank calls
+    it with the same arguments and gets the same output)."""
+    n_l = packing.n_lanes(cfg.sigma, cfg.lane_vocab)
+    tok_ext, n_local = shard_with_halo(tokens, cfg.sigma, mesh, device)
+    aux = None
+    if bucket_ids is not None:
+        own, _ = shard_rows(bucket_ids, mesh)
+        aux = torch.cat([u32_words(own, device),
+                         torch.zeros(tok_ext.shape[0] - n_local, dtype=torch.int32,
+                                     device=device)])
+    records, valid, _ = _plan_emit(tok_ext, aux, n_local, cfg, None, 1)
+    map_rec = valid.sum()
+    if cfg.combine:
+        records = stages.combine(records, n_l, aux is not None,
+                                 route=cfg.combine_route)
+    lead = packing.lead_term(records[:, 0], vocab_size=cfg.lane_vocab)
+    local, capacity, retries = shuffle.shuffle(
+        records, lead, records[:, n_l] > 0, mesh=mesh,
+        capacity=pair_capacity(cfg, n_local, mesh))
+    del records, valid, lead
+    map_rec, shuf_rec = mesh.sum_ints(map_rec, (local[:, n_l] > 0).sum())
+    dense = reduce_block(local, sigma=cfg.sigma, vocab_size=cfg.lane_vocab,
+                         n_buckets=cfg.n_buckets)
+    del local
+    rec_bytes = packing.record_bytes(cfg.sigma, cfg.lane_vocab,
+                                     n_meta=1 if aux is not None else 0)
+    return gather_stats(dense, cfg.tau, mesh, {
+        "map_records": map_rec, "shuffle_records": shuf_rec,
+        "shuffle_bytes": shuf_rec * rec_bytes, "jobs": 1, "overflow": 0,
+        "capacity": capacity, "retries": retries})
+
+
 def run(tokens, cfg: NGramConfig, mesh=None, *, bucket_ids=None,
         device=None) -> NGramStats:
     """Run a SUFFIX-sigma job.  ``tokens``: 1-D, PAD(0)-separated documents;
     ``bucket_ids``: one time-series bucket a position (read as uint32), which
     ``cfg.n_buckets > 0`` counts per bucket (``NGramStats.to_series_dict``).
+    ``mesh``: a :class:`~repro_torch.launch.mesh.DataMesh` of P > 1 ranks
+    runs the distributed job (counters as ``repro``'s: ``capacity`` and
+    ``retries`` of the shuffle, no ``shuffle_skew``).
 
     Runs on the card unless ``device`` says otherwise (see
     :func:`repro_torch.resolve_device`).
     """
-    return run_single_device(tokens, cfg, plan(cfg), mesh=mesh, device=device,
+    if mesh_size(mesh) > 1:
+        return _distributed(tokens, cfg, mesh, resolve_device(device), bucket_ids)
+    return run_single_device(tokens, cfg, plan(cfg), device=device,
                              bucket_ids=bucket_ids)
 
 

@@ -6,9 +6,10 @@ batched queries.
 ``CompressedNGramIndex``; ``merge`` merges segments, folds a wave run's segments
 (the accumulators) and keeps a ``GenerationalIndex`` (LSM) under streaming
 ingest; ``query`` answers batched point-count and top-k-continuation queries
-against any of them; ``serve`` describes the layout to the frontend
-(``describe_topology``).  Sharded serving waits for the multi-device
-slice.
+against any of them; ``serve`` shards a frozen index across the ranks of
+a mesh with the job shuffle's own hash partitioner (``build_sharded_index``,
+``serve_queries``) and describes the layout to the frontend
+(``describe_topology``).
 """
 from . import build, compress, merge, query, serve
 from .build import (IndexSegment, NGramIndex, build_index, index_from_arrays,
@@ -22,6 +23,9 @@ from .merge import (DeferredSegmentAccumulator, GenerationalIndex,
                     generational_from_stats, merge_indexes, merge_segments,
                     segment_to_stats, stats_union)
 from .query import continuations, lookup
+from .serve import (ShardedNGramIndex, build_sharded_index,
+                    empty_prefix_continuations, make_server)
+from .serve import serve as serve_queries
 
 __all__ = ["build", "compress", "merge", "query", "serve", "IndexSegment", "NGramIndex",
            "build_index", "index_from_arrays", "index_from_segment",
@@ -31,4 +35,6 @@ __all__ = ["build", "compress", "merge", "query", "serve", "IndexSegment", "NGra
            "GenerationalIndex", "DeferredSegmentAccumulator",
            "TieredSegmentAccumulator", "PairwiseSegmentAccumulator",
            "generational_from_stats", "merge_indexes", "merge_segments",
-           "segment_to_stats", "stats_union", "lookup", "continuations"]
+           "segment_to_stats", "stats_union", "lookup", "continuations",
+           "ShardedNGramIndex", "build_sharded_index",
+           "empty_prefix_continuations", "make_server", "serve_queries"]

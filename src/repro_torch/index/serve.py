@@ -1,30 +1,165 @@
-"""Serving-side index description (the single-device part of
-``repro.index.serve``).
+"""Sharded query serving across ranks, and the serving-side index description
+(port of ``repro.index.serve``).
+
+The job-side shuffle routes *records* to reducers by hash(lead term)
+(``mapreduce.shuffle``, the paper's Algorithm-4 partitioner).  Serving routes
+*queries* the same way: :func:`build_sharded_index` partitions the frozen
+index rows with the identical hash, so rank p holds exactly the grams
+reducer p would have emitted, every query's answer lives on one known rank,
+and -- since all continuations of a prefix share its lead term -- top-k
+completion queries route as point lookups do.
+
+One serving step on a :class:`~repro_torch.launch.mesh.DataMesh` is the
+dispatch pattern inverted.  Every rank holds the whole batch and takes its
+own ``ceil(B / P)`` rows, then:
+
+  partition  queries by hash(lead term)          (the ``hash_partition`` kernel)
+  bucketize  into the [P, capacity, W] buffer    (shuffle.bucketize)
+  all_to_all queries to their owning rank        (shuffle.exchange)
+  answer     locally (index/query.py: ``bsearch``, or ``block_decode`` on a
+             compressed shard)
+  all_to_all results back along the same route
+  scatter    results to each query's original slot (carried as a meta lane)
+  gather     every rank's rows, so each rank returns the whole batch's answers
+
+Capacity is the job shuffle's head-room knob: a batch whose busiest
+(source, destination) pair overflows runs at doubled capacity, counted in
+``serve.retries``.  Length-0 continuation prefixes (top-k unigrams) have no
+lead term to route by: each rank's local top-k is gathered and merged, once
+per (index, k).
 
 :func:`describe_topology` reports how queries route to data, for the
-frontend's ``/v1/system/topology``: the generational segment stack (newest
-first, with stable level ids so clients can diff generations), or one
-frozen index.  The sharded index and its ``serve`` path wait for the
-multi-device slice, and with them the sharded kinds of this description.
+frontend's ``/v1/system/topology``.  Its numbers are read on the host: row
+counts from the generational index's host ledger
+(:attr:`GenerationalIndex.level_rows`) and bytes from tensor shapes (the
+sharded index's from its build), so a transport thread that asks never waits
+on the device.  A generational level no query has read yet therefore reports
+its bare segment's bytes, where ``repro`` would build the artifact first.
 
-Every number is read on the host: row counts from the generational index's
-host ledger (:attr:`GenerationalIndex.level_rows`) and bytes from tensor
-shapes, so a transport thread that asks never waits on the device and never
-builds a level's query artifact.  A level no query has read yet therefore
-reports its bare segment's bytes, where ``repro`` would build the artifact
-first.
+The sharded generational index (``ShardedGenerationalIndex``,
+``shard_generational``) waits for the streaming path across ranks.
 """
 from __future__ import annotations
 
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core.stats import NGramStats
+from repro_torch.kernels import ops as kops
+from repro_torch.launch.mesh import STREAMING_NOT_PORTED
+from repro_torch.mapreduce import pack as packing
+from repro_torch.mapreduce import shuffle
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
+from . import query as q
+from .build import NGramIndex, build_index
+from .compress import CompressedNGramIndex, compress_index
 from .merge import GenerationalIndex
 
-__all__ = ["describe_topology"]
+__all__ = ["ShardedNGramIndex", "shard_of_rows", "build_sharded_index",
+           "result_width", "make_server", "empty_prefix_continuations", "serve",
+           "shard_generational", "describe_topology"]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardedNGramIndex:
+    """This rank's shard of an index partitioned by hash(lead term).
+
+    ``index`` is the shard (flat or compressed), padded to the common
+    capacity; ``nbytes`` counts every rank's shard, as ``repro``'s stacked
+    ``[P, ...]`` index counts them.
+    """
+
+    index: NGramIndex | CompressedNGramIndex
+    mesh: object
+    nbytes: int
+    # the empty-prefix answer a k, computed once (it is a function of the
+    # index and k) and dropped with the index
+    _empty: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def n_parts(self) -> int:
+        return self.mesh.size
+
+    @property
+    def axis_name(self) -> str:
+        return self.mesh.axis_name
+
+    @property
+    def sigma(self) -> int:
+        return self.index.sigma
+
+
+def shard_of_rows(first_terms, n_parts: int) -> np.ndarray:
+    """Owning shard per gram row -- the job shuffle's partitioner."""
+    t = torch.as_tensor(np.asarray(first_terms, np.int64))
+    return (shuffle.hash_u32(t) % n_parts).numpy()
+
+
+def build_sharded_index(stats: NGramStats, *, vocab_size: int, mesh,
+                        compress: bool = False, block_size: int = 4,
+                        device=None) -> ShardedNGramIndex:
+    """Partition ``stats`` rows by hash(lead term) and freeze this rank's
+    part into its shard (every rank calls it with the same ``stats``).
+
+    Shards are padded to one capacity, ``max(128, ceil((largest + 1) / 128)
+    * 128)`` rows.  ``compress=True`` re-encodes each shard into the
+    front-coded + Elias-Fano layout against the maxima over the ranks of
+    its stream sizes and widths, so every shard has the same shapes, as
+    ``repro``'s stacked shards must.  Builds on the card unless ``device``
+    says otherwise.
+    """
+    grams = np.asarray(stats.grams)
+    part = shard_of_rows(grams[:, 0] if len(stats) else np.zeros(0, np.int64),
+                         mesh.size)
+    rows = np.bincount(part, minlength=mesh.size)
+    cap = max(128, -(-(int(rows.max()) + 1) // 128) * 128)
+    mine = part == mesh.rank
+    ix = build_index(NGramStats(grams[mine], stats.lengths[mine],
+                                stats.counts[mine]),
+                     vocab_size=vocab_size, pad_to=cap, device=device)
+    if compress:
+        probe = compress_index(ix, block_size=block_size, device=ix.device)
+        top = mesh.all_reduce(torch.tensor(
+            [probe.count_width, probe.payload.shape[0], probe.cont_payload.shape[0],
+             probe.ef_cumsum.universe, probe.head_span], device=mesh.device), "max")
+        cw, pw, cpw, universe, span = (int(v) for v in top.tolist())
+        ix = compress_index(ix, block_size=block_size, count_width=cw,
+                            payload_words=pw, cont_payload_words=cpw,
+                            cumsum_universe=universe, head_span=span,
+                            device=ix.device)
+    (nbytes,) = mesh.sum_ints(ix.nbytes)
+    return ShardedNGramIndex(ix, mesh, nbytes)
+
+
+def shard_generational(*args, **kwargs):
+    """Not ported yet: the sharded generational index belongs to the
+    streaming path across ranks."""
+    raise NotImplementedError(STREAMING_NOT_PORTED)
 
 
 def describe_topology(index_like) -> dict:
-    """JSON-able segment map of a :class:`GenerationalIndex` (kind
-    ``"generational"``) or of one flat or compressed index (kind
-    ``"index"``)."""
+    """JSON-able shard/segment map -- the frontend's ``/v1/system/topology``.
+
+    A :class:`ShardedNGramIndex` (kind ``"sharded"``) publishes its
+    partitioning: every query's answer lives on rank ``hash_u32(lead_term)
+    % n_parts``, the job shuffle's own partitioner, so ``n_parts`` and the
+    partitioner name are a complete routing contract for an external
+    router.  A :class:`GenerationalIndex` (kind ``"generational"``) lists
+    its segments newest first, with stable level ids so clients can diff
+    generations; one flat or compressed index is kind ``"index"``.
+    """
+    if isinstance(index_like, ShardedNGramIndex):
+        return {
+            "kind": "sharded",
+            "n_parts": int(index_like.n_parts),
+            "axis": index_like.axis_name,
+            "partitioner": "hash_u32(lead_term) % n_parts",
+            "nbytes": int(index_like.nbytes),
+        }
     if isinstance(index_like, GenerationalIndex):
         levels = index_like.levels
         return {
@@ -42,3 +177,144 @@ def describe_topology(index_like) -> dict:
     # single frozen index (flat or compressed): one segment, no routing
     return {"kind": "index", "rows": int(index_like.n_rows),
             "nbytes": int(index_like.nbytes)}
+
+
+def result_width(mode: str, k: int) -> int:
+    """Result lanes a query: cf, or n_distinct | total | terms[k] | counts[k]."""
+    return 1 if mode == "lookup" else 2 + 2 * k
+
+
+def make_server(sharded: ShardedNGramIndex, *, mode: str = "lookup", k: int = 8,
+                capacity_factor: float = 2.0, max_retries: int = 6):
+    """One serving step: ``step(grams [b, sigma], lengths [b])`` -> (results
+    [b, result_width] int64 of this rank's queries, capacity, retries), run
+    by every rank together on its own rows.
+
+    ``mode``: ``"lookup"`` (point cf) or ``"continuations"`` (top-k
+    completion); the step needs length >= 1 either way (routing hashes the
+    lead term): :func:`serve` answers length-0 prefixes apart.
+    """
+    if mode not in ("lookup", "continuations"):
+        raise ValueError(f"unknown serve mode {mode!r}")
+    idx, mesh = sharded.index, sharded.mesh
+    n_parts, n_l, sigma = mesh.size, idx.n_lanes, idx.sigma
+    r_out = result_width(mode, k)
+
+    def step(grams: torch.Tensor, lengths: torch.Tensor):
+        b_local = grams.shape[0]
+        grams, lengths, valid = q._clean(idx, grams, lengths, lo_len=1)
+        if mode == "continuations":
+            valid &= lengths <= sigma - 1
+        records = torch.cat([packing.pack_terms(grams, vocab_size=idx.vocab_size),
+                             lengths.to(torch.int64)[:, None],
+                             torch.arange(b_local, device=grams.device)[:, None],
+                             valid.to(torch.int64)[:, None]], dim=1)
+        part, hist = kops.hash_partition(grams[:, 0].to(torch.int64), valid,
+                                         n_parts=n_parts)
+        capacity = min(b_local, max(8, int(capacity_factor * b_local / n_parts) + 1))
+        capacity, retries = shuffle.fit_capacity(hist, capacity, mesh,
+                                                 max_retries=max_retries,
+                                                 what="query shuffle")
+        buf, _ = shuffle.bucketize(records, part, n_parts, capacity, counts=hist)
+        slot_map = buf[:, :, n_l + 1].reshape(-1)     # send-side bookkeeping
+        sent = buf[:, :, n_l + 2].reshape(-1) > 0
+        remote = shuffle.exchange(buf, mesh)          # [P * cap, W] to answer
+        r_lanes = remote[:, :n_l].contiguous()
+        r_len = remote[:, n_l].to(torch.int32)
+        r_valid = remote[:, n_l + 2] > 0
+        if mode == "lookup":
+            res = q.lookup_packed(idx, r_lanes, r_len, r_valid)[:, None]
+        else:
+            nd, tot, terms, counts = q.continuations_packed(
+                idx, r_lanes, r_len, r_valid, k=k)
+            res = torch.cat([nd[:, None], tot[:, None], terms, counts], dim=1)
+        back = mesh.all_to_all(res.reshape(n_parts, capacity, r_out))
+        out = torch.zeros((b_local + 1, r_out), dtype=torch.int64,
+                          device=grams.device)
+        out[torch.where(sent, slot_map, b_local)] = back.reshape(-1, r_out)
+        return out[:b_local], capacity, retries
+
+    return step
+
+
+def empty_prefix_continuations(sharded: ShardedNGramIndex, *, k: int = 8
+                               ) -> np.ndarray:
+    """The merged empty-prefix (unigram top-k) answer [2 + 2k] int64.
+
+    Every unigram lives on exactly one rank, so the cross-rank merge is
+    exact: each rank's local top-k over its length-1 section is gathered,
+    the disjoint distinct/mass totals summed, and the k best kept (the term
+    id breaks count ties).  Any global top-k unigram is in its own rank's
+    top-k, so k rows a rank suffice.  Every rank calls it together.
+    """
+    idx = sharded.index
+    nd, tot, terms, counts = q.continuations(
+        idx, torch.zeros((1, idx.sigma), dtype=torch.int32),
+        torch.zeros(1, dtype=torch.int32), k=k)
+    mine = (int(nd[0]), int(tot[0]),
+            [(int(c), int(t)) for t, c in zip(terms[0].tolist(), counts[0].tolist())
+             if c > 0])
+    parts = sharded.mesh.all_gather_object(mine)
+    pairs = sorted((pair for _, _, ps in parts for pair in ps),
+                   key=lambda ct: (-ct[0], ct[1]))
+    out = np.zeros((2 + 2 * k,), np.int64)
+    out[0] = sum(p[0] for p in parts)
+    out[1] = sum(p[1] for p in parts)
+    for i, (c, t) in enumerate(pairs[:k]):
+        out[2 + i] = t
+        out[2 + k + i] = c
+    return out
+
+
+def serve(sharded: ShardedNGramIndex, grams, lengths, *, mode: str = "lookup",
+          k: int = 8, capacity_factor: float = 2.0,
+          max_retries: int = 6) -> np.ndarray:
+    """Answer one query batch across the ranks, every rank with the same
+    batch, doubling the capacity while a pair overflows.
+
+    grams [B, sigma], lengths [B] (host or device).  Returns the int64
+    host array of ``uint32`` answers of the whole batch, on every rank: [B]
+    counts (``"lookup"``) or [B, 2 + 2k] continuation results (see
+    :func:`result_width`).  ``capacity_factor``: the head-room knob, with
+    ``min(b_local, max(8, factor * b_local / P + 1))`` rows a pair first
+    (``b_local = ceil(B / P)``).  Length-0 continuation prefixes get the
+    cached :func:`empty_prefix_continuations` answer.  Rank 0 records the
+    ``serve.batch`` span and the ``serve.*`` instruments, as ``repro``'s
+    single controller does.
+    """
+    mesh, idx = sharded.mesh, sharded.index
+    grams = torch.as_tensor(np.asarray(grams) if not isinstance(grams, torch.Tensor)
+                            else grams)
+    lengths = torch.as_tensor(np.asarray(lengths) if not isinstance(lengths, torch.Tensor)
+                              else lengths)
+    b = grams.shape[0]
+    b_local = -(-b // mesh.size)
+    lo = min(mesh.rank * b_local, b)
+    g = torch.zeros((b_local, grams.shape[1]), dtype=torch.int32, device=idx.device)
+    ln = torch.zeros(b_local, dtype=torch.int32, device=idx.device)
+    g[:max(0, min(b, lo + b_local) - lo)] = grams[lo:lo + b_local].to(idx.device)
+    ln[:max(0, min(b, lo + b_local) - lo)] = lengths[lo:lo + b_local].to(idx.device)
+    leader = mesh.rank == 0
+    reg = obs_metrics.get_registry() if leader else obs_metrics.null_registry
+    with obs_trace.span("serve.batch") if leader else obs_trace.NULL_SPAN as sp:
+        if sp:
+            sp.set(mode=mode, batch=b, parts=mesh.size)
+        t0 = time.perf_counter()
+        step = make_server(sharded, mode=mode, k=k, capacity_factor=capacity_factor,
+                           max_retries=max_retries)
+        mine, capacity, retries = step(g, ln)
+        if sp:
+            sp.set(retries=retries, capacity=capacity)
+        if reg:
+            reg.counter("serve.batches").add(1)
+            reg.counter("serve.queries").add(b)
+            reg.counter("serve.retries").add(retries)
+            reg.histogram("serve.batch_seconds").observe(time.perf_counter() - t0)
+    out = mesh.all_gather(mine).reshape(mesh.size * b_local, -1)[:b].cpu().numpy()
+    if mode == "continuations":
+        empty = lengths.cpu().numpy() == 0
+        if empty.any():
+            if k not in sharded._empty:
+                sharded._empty[k] = empty_prefix_continuations(sharded, k=k)
+            out[empty] = sharded._empty[k]
+    return out[:, 0] if mode == "lookup" else out

@@ -10,10 +10,16 @@ post-filtering and time-series aggregation.  ``--wave-tokens`` streams the
 job out of core through the wave engine.  The job runs on the card
 (``--device cpu`` runs the kernels' plain versions on the host instead).
 
+``--devices N`` runs the job across N local ranks
+(:func:`repro_torch.launch.mesh.spawn_ranks`): gloo ranks on the CPU with
+``--device cpu``; on the card, NCCL when the host has a card for each rank,
+else gloo ranks sharing the card.  Rank 0 prints what ``repro``'s
+``ngram --devices N`` prints, and writes the trace and metrics files.
+
 Where this CLI differs from ``repro``'s:
 
-  * ``--devices N`` with N > 1 exits with the message the service's
-    ``mesh=`` raises: the multi-device job is not ported yet.
+  * ``--devices N`` with ``--wave-tokens`` exits with the message the
+    service's ``mesh=`` raises: the waves across ranks are not ported yet.
   * ``--merge-route`` defaults to ``merge`` (the ``merge_path`` tree on the
     card), where ``repro`` defaults to ``kway``: the port's ``kway`` folds
     on the host.  Every route gives the same output.
@@ -24,7 +30,7 @@ from __future__ import annotations
 import argparse
 import time
 
-from repro_torch.serve.service import MESH_NOT_PORTED
+from repro_torch.launch.mesh import STREAMING_NOT_PORTED, spawn_ranks
 
 
 def main(argv=None) -> None:
@@ -60,7 +66,8 @@ def main(argv=None) -> None:
                     help="run the per-wave fold on the calling thread "
                          "instead of the fold thread")
     ap.add_argument("--devices", type=int, default=0,
-                    help="multi-device runs are not ported: N > 1 exits")
+                    help=">1: run the job across N local ranks (with "
+                         "--wave-tokens: not ported, exits)")
     ap.add_argument("--device", default=None,
                     help="device the job runs on: the card unless cpu is "
                          "given (no card: the run raises)")
@@ -71,14 +78,27 @@ def main(argv=None) -> None:
                          "summary table")
     args = ap.parse_args(argv)
     if args.devices > 1:
-        raise SystemExit(MESH_NOT_PORTED)
+        if args.wave_tokens is not None:
+            raise SystemExit(STREAMING_NOT_PORTED)
+        spawn_ranks(args.devices, run, args, device=args.device)
+    else:
+        run(None, args)
 
+
+def run(mesh, args) -> None:
+    """The job of ``args``, on one device (``mesh`` None) or as one rank of
+    ``mesh``; only rank 0 prints and records the trace and metrics."""
     from repro_torch.core import NGramConfig, extensions_filter, run_job
     from repro_torch.data import corpus as corpus_mod
     from repro_torch.obs import metrics as obs_metrics
     from repro_torch.obs import report as obs_report
 
-    finish_obs = obs_report.setup(args.trace, args.metrics)
+    leader = mesh is None or mesh.rank == 0
+    say = print if leader else _silent
+    finish_obs = obs_report.setup(args.trace, args.metrics) if leader else _silent
+    device = args.device if mesh is None else mesh.device
+    if mesh is not None:
+        say(f"mesh: {mesh.size} ranks on {mesh.device.type}, backend {mesh.backend}")
 
     prof = corpus_mod.PROFILES[args.profile]
     if args.series:
@@ -91,7 +111,7 @@ def main(argv=None) -> None:
     if args.split_docs:
         tokens, removed = corpus_mod.split_at_infrequent(tokens, args.tau,
                                                          prof.vocab_size)
-        print(f"document splitting removed {removed} infrequent term occurrences")
+        say(f"document splitting removed {removed} infrequent term occurrences")
 
     cfg = NGramConfig(sigma=args.sigma, tau=args.tau, vocab_size=prof.vocab_size,
                       method=args.method, n_buckets=21 if args.series else 0)
@@ -105,23 +125,27 @@ def main(argv=None) -> None:
                              accumulator=args.accumulator,
                              merge_route=args.merge_route,
                              overlap=not args.no_overlap,
-                             device=args.device).run(tokens)
+                             device=device).run(tokens)
     else:
         kw = {"bucket_ids": years} if args.series else {}
-        stats = run_job(tokens, cfg, device=args.device, **kw)
+        stats = run_job(tokens, cfg, mesh, device=device, **kw)
     dt = time.time() - t0
     if args.filter:
-        stats = extensions_filter(stats, args.filter, device=args.device)
+        stats = extensions_filter(stats, args.filter, device=device)
     obs_metrics.get_registry().merge_job_counters(stats.counters)
-    print(f"method={args.method} sigma={args.sigma} tau={args.tau} "
+    say(f"method={args.method} sigma={args.sigma} tau={args.tau} "
           f"tokens={args.tokens}: {len(stats)} n-grams in {dt:.2f}s")
-    print("counters:", {k: int(v) for k, v in stats.counters.items()})
+    say("counters:", {k: int(v) for k, v in stats.counters.items()})
     d = stats.to_dict()
     top = sorted(d.items(), key=lambda kv: -kv[1])[: args.top]
     for g, c in top:
-        print(f"  cf={c:8d}  {g}")
+        say(f"  cf={c:8d}  {g}")
     finish_obs({"driver": "ngram", "method": args.method,
                 "tokens": args.tokens, "wall_s": dt})
+
+
+def _silent(*args, **kwargs) -> None:
+    """What a rank other than 0 prints and records: nothing."""
 
 
 if __name__ == "__main__":

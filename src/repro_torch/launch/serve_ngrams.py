@@ -21,11 +21,17 @@ streams each ingest through the wave engine.
 service answers point-lookup / top-k / streaming-completion requests
 through the continuous batcher and admission layer until interrupted.
 
+``--devices N`` (N > 1) in the micro-batch mode serves through the
+hash-routed sharded index across N local ranks
+(:func:`repro_torch.launch.mesh.spawn_ranks`, the backend rule of
+``launch/mesh.py``); rank 0 prints and records the trace and metrics.
+
 Everything runs on the card (``--device cpu`` runs the kernels' plain
 versions on the host instead).  Where this CLI differs from ``repro``'s:
 
-  * ``--devices N`` with N > 1 exits with the message the service's
-    ``mesh=`` raises: the sharded serving path is not ported yet.
+  * ``--devices N`` with ``--streaming`` or ``--serve`` exits with the
+    message the service's ``mesh=`` raises: the streaming path across
+    ranks is not ported yet.
   * ``--use-kernels`` is gone: the device of the data decides whether a
     kernel runs (a CUDA tensor launches it, a CPU tensor runs its plain
     version).
@@ -40,7 +46,7 @@ from __future__ import annotations
 import argparse
 import time
 
-from repro_torch.serve.service import MESH_NOT_PORTED
+from repro_torch.launch.mesh import STREAMING_NOT_PORTED, spawn_ranks
 
 _REEXPORTS = {
     # lazy (PEP 562), as repro's driver keeps them: importing this module
@@ -170,8 +176,10 @@ def run_streaming(args) -> None:
           f"cache {len(svc.cache)} entries hit_rate={svc.cache.hit_rate:.0%}")
 
 
-def run_microbatch(args) -> None:
-    """One job, one frozen index, fixed-size micro-batches of queries."""
+def run_microbatch(mesh, args) -> None:
+    """One job, one frozen index, fixed-size micro-batches of queries; with
+    a ``mesh`` (one rank of it) the index is sharded across the ranks and
+    only rank 0 prints and records the trace and metrics."""
     import numpy as np
     from repro_torch import index as index_mod
     from repro_torch.core import run_job
@@ -180,49 +188,76 @@ def run_microbatch(args) -> None:
     from repro_torch.obs import metrics as obs_metrics
     from repro_torch.serve.service import make_query_stream, microbatch_drive
 
+    from repro_torch.obs import report as obs_report
+
+    leader = mesh is None or mesh.rank == 0
+    finish_obs = obs_report.setup(args.trace, args.metrics) if leader else None
+    device = args.device if mesh is None else mesh.device
+    if mesh is not None and leader:
+        print(f"mesh: {mesh.size} ranks on {mesh.device.type}, backend {mesh.backend}")
     prof = corpus_mod.PROFILES[args.profile]
     tokens = corpus_mod.zipf_corpus(args.tokens, prof, seed=0, duplicate_frac=0.02)
     cfg = NGramConfig(sigma=args.sigma, tau=args.tau, vocab_size=prof.vocab_size)
 
     t0 = time.time()
-    stats = run_job(tokens, cfg, device=args.device)
+    stats = run_job(tokens, cfg, device=device)
     t_job = time.time() - t0
     obs_metrics.get_registry().merge_job_counters(stats.counters)
     t0 = time.time()
-    if args.compress:
+    if mesh is not None:
+        sharded = index_mod.build_sharded_index(stats, vocab_size=prof.vocab_size,
+                                                mesh=mesh, compress=args.compress,
+                                                block_size=args.block_size,
+                                                device=device)
+        idx_bytes = sharded.nbytes
+    elif args.compress:
         idx = index_mod.build_compressed_index(stats, vocab_size=prof.vocab_size,
                                                block_size=args.block_size,
-                                               device=args.device)
+                                               device=device)
+        idx_bytes = idx.nbytes
     else:
         idx = index_mod.build_index(stats, vocab_size=prof.vocab_size,
-                                    device=args.device)
-    idx_bytes = idx.nbytes
+                                    device=device)
+        idx_bytes = idx.nbytes
     t_build = time.time() - t0
     layout = "compressed" if args.compress else "flat"
-    print(f"job: {args.tokens} tokens -> {len(stats)} frequent grams "
-          f"in {t_job:.2f}s; {layout} index frozen in {t_build:.2f}s "
-          f"({idx_bytes / 2**20:.1f} MiB, "
-          f"{idx_bytes / max(len(stats), 1):.1f} B/gram)")
+    if leader:
+        print(f"job: {args.tokens} tokens -> {len(stats)} frequent grams "
+              f"in {t_job:.2f}s; {layout} index frozen in {t_build:.2f}s "
+              f"({idx_bytes / 2**20:.1f} MiB, "
+              f"{idx_bytes / max(len(stats), 1):.1f} B/gram)")
 
     grams, lengths = make_query_stream(stats, n_queries=args.queries,
                                        sigma=args.sigma,
                                        vocab_size=prof.vocab_size,
                                        miss_frac=args.miss_frac)
 
-    def answer_lookup(g, ln):
-        return index_mod.lookup(idx, g, ln).cpu().numpy()
+    if mesh is not None:
+        def answer_lookup(g, ln):
+            return index_mod.serve_queries(sharded, g, ln)
 
-    def answer_topk(g, ln):
-        # continuations() masks the gram past the prefix length itself
-        return index_mod.continuations(idx, g, np.maximum(ln - 1, 0),
-                                       k=args.topk)[3].cpu().numpy()
+        def answer_topk(g, ln):
+            # as repro's sharded driver: prefixes of length >= 1
+            return index_mod.serve_queries(sharded, g, np.maximum(ln - 1, 1),
+                                           mode="continuations", k=args.topk)
+    else:
+        def answer_lookup(g, ln):
+            return index_mod.lookup(idx, g, ln).cpu().numpy()
+
+        def answer_topk(g, ln):
+            # continuations() masks the gram past the prefix length itself
+            return index_mod.continuations(idx, g, np.maximum(ln - 1, 0),
+                                           k=args.topk)[3].cpu().numpy()
 
     for mode, answer in (("lookup", answer_lookup), ("topk", answer_topk)):
         for batch in (int(b) for b in args.batch_sizes.split(",")):
             qps, lat = microbatch_drive(answer, grams, lengths, batch,
                                         hist_name=f"drive.{mode}_seconds")
-            print(f"serve_{mode} batch={batch:>5} qps={qps:>10.0f} "
-                  f"{_percentiles(lat)}")
+            if leader:
+                print(f"serve_{mode} batch={batch:>5} qps={qps:>10.0f} "
+                      f"{_percentiles(lat)}")
+    if finish_obs is not None:
+        finish_obs({"driver": "serve_ngrams", "mode": "microbatch"})
 
 
 def main(argv=None) -> None:
@@ -236,7 +271,9 @@ def main(argv=None) -> None:
     ap.add_argument("--batch-sizes", default="1,64,4096")
     ap.add_argument("--topk", type=int, default=8)
     ap.add_argument("--devices", type=int, default=0,
-                    help="sharded serving is not ported: N > 1 exits")
+                    help=">1: serve through the sharded index across N local "
+                         "ranks (with --streaming or --serve: not ported, "
+                         "exits)")
     ap.add_argument("--device", default=None,
                     help="device the index lives on: the card unless cpu is "
                          "given (no card: the run raises)")
@@ -284,7 +321,13 @@ def main(argv=None) -> None:
                          "summary table")
     args = ap.parse_args(argv)
     if args.devices > 1:
-        raise SystemExit(MESH_NOT_PORTED)
+        if args.serve or args.streaming:
+            raise SystemExit(STREAMING_NOT_PORTED)
+        spawn_ranks(args.devices, run_microbatch, args, device=args.device)
+        return
+    if not (args.serve or args.streaming):
+        run_microbatch(None, args)
+        return
     from repro_torch.obs import report as obs_report
     finish_obs = obs_report.setup(args.trace, args.metrics)
     if args.serve:
@@ -293,12 +336,8 @@ def main(argv=None) -> None:
         finally:
             finish_obs({"driver": "serve_ngrams", "mode": "serve"})
         return
-    if args.streaming:
-        run_streaming(args)
-        finish_obs({"driver": "serve_ngrams", "mode": "streaming"})
-        return
-    run_microbatch(args)
-    finish_obs({"driver": "serve_ngrams", "mode": "microbatch"})
+    run_streaming(args)
+    finish_obs({"driver": "serve_ngrams", "mode": "streaming"})
 
 
 if __name__ == "__main__":

@@ -2,8 +2,13 @@
 
 The paper's partitioner (Algorithm 4) hashes the suffix's first term only, so
 all evidence for an n-gram lands on one reducer.  On one device the partition
-ids feed the ``shuffle_skew`` counter.  ``bucketize`` and the mesh exchange
-wait for the multi-device slice.
+ids feed the ``shuffle_skew`` counter.  Across ranks (a
+:class:`~repro_torch.launch.mesh.DataMesh`), :func:`shuffle` buckets the
+records into a fixed-capacity ``[n_parts, capacity, W]`` buffer and
+exchanges it with ``all_to_all_single``: the MoE-dispatch pattern ``repro``
+runs with ``jax.lax.all_to_all``.  Overflow is counted, never dropped: the
+capacity doubles until every (source, destination) pair fits, as ``repro``'s
+drivers retry a job with doubled capacity.
 
 Hashes are uint32 values in int64 tensors.  Each uint32 product is formed
 from 16-bit halves of the constant, so no int64 product ever overflows.
@@ -58,3 +63,76 @@ def partition_ids(keys: torch.Tensor, valid: torch.Tensor,
     """Reducer id per record (int32); invalid records go to bucket ``n_parts``."""
     p = (hash_u32(keys) % n_parts).to(torch.int32)
     return torch.where(valid, p, n_parts)
+
+
+def bucketize(records: torch.Tensor, part: torch.Tensor, n_parts: int,
+              capacity: int, counts: torch.Tensor | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scatter records [N, W] into buckets [n_parts, capacity, W].
+
+    ``part`` in [0, n_parts] (n_parts = drop); ``counts``: the records of
+    each part [n_parts] when the caller has them (``kops.hash_partition``'s
+    histogram).  Records keep their order within a part; a part's records
+    past ``capacity`` are left out and counted.  Returns (buffer, overflow
+    count as a 0-d tensor); empty slots are all zero (weight 0 marks them
+    invalid downstream).
+    """
+    n, w = records.shape
+    dev = records.device
+    part = part.to(torch.int64)
+    if counts is None:
+        counts = torch.bincount(part, minlength=n_parts + 1)[:n_parts]
+    counts = counts.to(torch.int64)
+    offsets = torch.zeros(n_parts + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(counts, 0, out=offsets[1:])
+    p_s, order = torch.sort(part, stable=True)
+    within = torch.arange(n, device=dev) - offsets[p_s]
+    ok = (within < capacity) & (p_s < n_parts)
+    buf = torch.zeros((n_parts * capacity, w), dtype=records.dtype, device=dev)
+    buf[(p_s * capacity + within)[ok]] = records[order[ok]]
+    overflow = (counts - capacity).clamp_(min=0).sum()
+    return buf.view(n_parts, capacity, w), overflow
+
+
+def exchange(buffer: torch.Tensor, mesh) -> torch.Tensor:
+    """all_to_all the bucket buffer [n_parts, capacity, W]: the leading axis
+    indexes the destination before, the source after.  Returns this rank's
+    records [n_parts * capacity, W]."""
+    return mesh.all_to_all(buffer).reshape(-1, buffer.shape[-1])
+
+
+def fit_capacity(hist: torch.Tensor, capacity: int, mesh, *,
+                 max_retries: int = 6, what: str = "shuffle") -> tuple[int, int]:
+    """(capacity, retries): ``capacity`` doubled until it holds the largest
+    part of every rank (``hist``: this rank's records a part), at most
+    ``max_retries - 1`` times.
+
+    The capacity and retry count ``repro`` reaches by running the shuffle,
+    reading the overflow ``psum`` and doubling: a run overflows exactly when
+    some (source, destination) pair holds more records than the capacity.
+    Here one reduction of the largest part decides it before the exchange,
+    so no overflowing buffer is ever sent.
+    """
+    need = mesh.max_int(hist.max() if hist.numel() else 0)
+    for attempt in range(max_retries):
+        if need <= capacity:
+            return capacity, attempt
+        capacity *= 2
+    raise RuntimeError(f"{what} overflow persisted at capacity {capacity}")
+
+
+def shuffle(records: torch.Tensor, keys: torch.Tensor, valid: torch.Tensor, *,
+            mesh, capacity: int, max_retries: int = 6
+            ) -> tuple[torch.Tensor, int, int]:
+    """The map-side shuffle across ranks: partition (the ``hash_partition``
+    kernel: ``hash_u32(key) % P``, invalid records to the drop bucket) ->
+    capacity fit -> bucket -> exchange.
+
+    Returns (this rank's records [P * capacity, W], the capacity used, the
+    doublings it took).  Every rank calls it together.
+    """
+    from repro_torch.kernels import ops as kops
+    part, hist = kops.hash_partition(keys, valid, n_parts=mesh.size)
+    capacity, retries = fit_capacity(hist, capacity, mesh, max_retries=max_retries)
+    buf, _ = bucketize(records, part, mesh.size, capacity, counts=hist)
+    return exchange(buf, mesh), capacity, retries

@@ -16,7 +16,7 @@ folds the waves' sorted segments (``index.merge``'s accumulators) on a
 background thread while the next waves run; the global tau applies once at
 the end, so its output equals ``run_plan``'s array for array.
 ``run_streaming`` ingests each wave into a ``GenerationalIndex`` instead.
-The multi-device (mesh) waves wait for the multi-device slice.
+The waves across ranks (mesh) wait for the streaming path across ranks.
 
 Spans ``plan.run`` and ``round.{emit,stages,materialize}`` mark the
 monolithic job's phases; ``round.materialize`` also covers the next round's
@@ -34,6 +34,7 @@ import torch
 
 from repro_torch import resolve_device, u32_words
 from repro_torch.kernels import ops as kops
+from repro_torch.launch.mesh import STREAMING_NOT_PORTED, mesh_size
 from repro_torch.mapreduce import pack as packing
 from repro_torch.mapreduce import sort as mr_sort
 from repro_torch.obs import metrics as obs_metrics
@@ -296,13 +297,6 @@ def _host_tokens(tokens) -> np.ndarray:
     return np.asarray(tokens, np.int32)
 
 
-def _mesh_size(mesh) -> int:
-    if mesh is None:
-        return 1
-    size = mesh.size
-    return int(size() if callable(size) else size)
-
-
 class WaveExecutor:
     """Run a :class:`JobPlan` over fixed-size token waves (out of core).
 
@@ -329,8 +323,8 @@ class WaveExecutor:
     Device memory: O(wave * sigma) records per wave in flight (at most
     ``_WAVES_IN_FLIGHT`` queued beside the one folding), plus the running
     segments, which hold the exact gram set seen so far.  Waves take no
-    bucketed series (``n_buckets``) and, until the multi-device slice, no
-    ``mesh`` of more than one device.  Runs on the card unless ``device``
+    bucketed series (``n_buckets``) and, until the streaming path across
+    ranks is ported, no ``mesh`` of more than one device.  Runs on the card unless ``device``
     says otherwise.
     """
 
@@ -347,10 +341,8 @@ class WaveExecutor:
         if accumulator not in ("defer", "tiered", "pairwise"):
             raise ValueError(f"unknown accumulator {accumulator!r} "
                              "(options: 'defer', 'tiered', 'pairwise')")
-        if _mesh_size(mesh) > 1:
-            raise NotImplementedError(
-                "multi-device waves (mesh=) are not ported to repro_torch yet "
-                "(ROADMAP.md, Queue 1 item 3)")
+        if mesh_size(mesh) > 1:
+            raise NotImplementedError(STREAMING_NOT_PORTED)
         self.cfg = cfg
         self.wave_tokens = wave_tokens
         self.plan = plan or plan_for(cfg)

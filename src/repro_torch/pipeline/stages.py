@@ -124,16 +124,17 @@ def reduce_suffix(rec: torch.Tensor, *, sigma: int, vocab_size: int,
 
 
 def reduce_exact(rec: torch.Tensor, *, sigma: int, vocab_size: int,
-                 with_positions: bool = False):
+                 with_positions: bool = False, n_positions: int | None = None):
     """Whole-gram reducer over a *sorted* record block (NAIVE / APRIORI-*).
 
     rec: [N, W] sorted = lanes | weight | (pos).  Returns (terms, flags,
     counts) shaped like :func:`reduce_suffix`; flags mark the first row of
     each run at the row's own gram length.  With ``with_positions`` it also
-    returns the run total of every original position [N] int32, scattered
-    back through the position lane (the APRIORI-INDEX posting-list join).
-    Every row holds a distinct position (invalid rows keep theirs), so the
-    scatter writes each index once.
+    returns the run total of every position [n_positions] int32 (default
+    N), scattered back through the position lane of the valid rows (the
+    APRIORI-INDEX posting-list join); a position no valid row holds gets 0.
+    Valid rows hold distinct positions, so the scatter writes each index
+    once.
     """
     n = rec.shape[0]
     n_l = packing.n_lanes(sigma, vocab_size)
@@ -154,9 +155,10 @@ def reduce_exact(rec: torch.Tensor, *, sigma: int, vocab_size: int,
     counts = flags * totals[:, None]
     if not with_positions:
         return terms, flags, counts
-    totals_at_pos = torch.zeros(n, dtype=torch.int32, device=rec.device)
-    totals_at_pos[rec[:, n_l + 1]] = totals
-    return terms, flags, counts, totals_at_pos
+    size = n if n_positions is None else n_positions
+    totals_at_pos = torch.zeros(size + 1, dtype=torch.int32, device=rec.device)
+    totals_at_pos[torch.where(weight > 0, rec[:, n_l + 1], size)] = totals
+    return terms, flags, counts, totals_at_pos[:size]
 
 
 # ------------------------------------------------- device-side segment collect

@@ -16,7 +16,8 @@ batch go to the index in one dispatch.  Answers
 come back as host numpy int64 arrays of uint32 values.  With
 ``wave_tokens`` an ingest streams through the wave engine
 (``pipeline.WaveExecutor``), so a delta larger than device memory ingests
-too; the multi-device job (``mesh``) waits for the multi-device slice.
+too; the service across ranks (``mesh``) waits for the streaming path
+across ranks.
 
 ``microbatch_drive`` and ``make_query_stream`` are the synthetic-workload
 helpers the CLI drivers share.
@@ -28,14 +29,12 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.launch.mesh import STREAMING_NOT_PORTED as MESH_NOT_PORTED
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from .cache import LRUQueryCache
 
 __all__ = ["StreamingNGramService", "microbatch_drive", "make_query_stream"]
-
-#: what a multi-device request (``mesh=``, the CLIs' ``--devices N > 1``) gets
-MESH_NOT_PORTED = "the multi-device job (mesh) is not ported to repro_torch yet"
 
 
 def make_query_stream(stats, *, n_queries: int, sigma: int, vocab_size: int,

@@ -10,7 +10,9 @@ combine routes, maximal / closed filtering, document frequencies, postings
 and the two-phase sigma split), the wave engine (each method's wave run,
 ``run_streaming``, a wave dispatch with no host sync), and the serving
 frontend (HTTP bodies of a service on the card against one on the CPU, the
-card's searches launched from the batcher's thread).  ``merge_path`` is
+card's searches launched from the batcher's thread), and the multi-rank
+batch path (two gloo ranks sharing the card: the four methods and the
+sharded index).  ``merge_path`` is
 also held against its plain version at runs above 2**26 rows.  The file
 imports no JAX: it runs on a GPU host that has none, and every case skips
 without a card.
@@ -317,3 +319,98 @@ def test_cuda_frontend_answers_as_cpu(cuda_device, compress):
     if compress:
         assert launches.get("block_decode", 0) > 0
 
+
+
+def _ranks_on_the_card(mesh, toks, stats, g, ln):
+    """The four methods and the sharded index, flat and compressed, on one
+    rank of ``mesh`` (runs in each spawned rank)."""
+    from repro_torch.index import build_sharded_index, serve_queries
+    from repro_torch.kernels import ops as kops
+    from repro_torch.pipeline import stages
+    kops.launches.clear()
+    out = {}
+    for method in sorted(METHODS):
+        cfg = NGramConfig(sigma=SIGMA, tau=TAU, vocab_size=VOCAB, method=method)
+        st = stages.canonical_stats(run_job(toks, cfg, mesh))
+        out[method] = (st.grams, st.lengths, st.counts, st.counters["map_records"])
+    for compress in (False, True):
+        sh = build_sharded_index(stats, vocab_size=VOCAB, mesh=mesh, compress=compress)
+        out[f"lookup-{compress}"] = serve_queries(sh, g, ln)
+        out[f"cont-{compress}"] = serve_queries(sh, g, np.maximum(ln - 1, 0),
+                                                mode="continuations", k=8)
+    out["launches"] = dict(kops.launches)
+    out["device"] = str(mesh.device)
+    return out
+
+
+def _nccl_rank(mesh, stats, g, ln):
+    """The flat sharded index's answers and an object gather on one NCCL
+    rank (runs in the spawned rank)."""
+    from repro_torch.index import build_sharded_index, serve_queries
+    sh = build_sharded_index(stats, vocab_size=VOCAB, mesh=mesh)
+    return dict(backend=mesh.backend, lookup=serve_queries(sh, g, ln),
+                cont=serve_queries(sh, g, np.maximum(ln - 1, 0), mode="continuations",
+                                   k=8),
+                objects=mesh.all_gather_object({"rank": mesh.rank, "rows": g[:3]}),
+                comm_seconds=mesh.comm_seconds)
+
+
+@pytest.mark.cuda
+def test_cuda_two_gloo_ranks_match_cpu(cuda_device):
+    """Two gloo ranks sharing the card: each method's output equals the
+    single-device job on the CPU, and the sharded index's answers equal the
+    CPU index's; the ranks launch the kernels."""
+    from repro_torch.index import build_index, continuations, lookup
+    from repro_torch.launch.mesh import spawn_ranks
+    toks = draw(40_000, 3)
+    stats = cpu_stats(40_000, 3)
+    rng = np.random.default_rng(0)
+    rows = rng.integers(0, len(stats), 2000)
+    g, ln = stats.grams[rows].copy(), stats.lengths[rows].copy()
+    g[::3, 0] = VOCAB                                     # misses among the hits
+    ranks = spawn_ranks(2, _ranks_on_the_card, toks, stats, g, ln, device=cuda_device,
+                        backend="gloo")
+    idx = build_index(stats, vocab_size=VOCAB, device="cpu")
+    want_cont = continuations(idx, g, np.maximum(ln - 1, 0), k=8)
+    want_cont = torch.cat([want_cont[0][:, None], want_cont[1][:, None],
+                           want_cont[2], want_cont[3]], dim=1).numpy()
+    for r in ranks:
+        assert r["device"].startswith("cuda")
+        for method in sorted(METHODS):
+            one = run_job(toks, NGramConfig(sigma=SIGMA, tau=TAU, vocab_size=VOCAB,
+                                            method=method), device="cpu")
+            for got, want in zip(r[method], (one.grams, one.lengths, one.counts,
+                                             one.counters["map_records"])):
+                np.testing.assert_array_equal(got, want)
+        for compress in (False, True):
+            np.testing.assert_array_equal(r[f"lookup-{compress}"],
+                                          lookup(idx, g, ln).numpy())
+            np.testing.assert_array_equal(r[f"cont-{compress}"], want_cont)
+        for kernel in ("suffix_pack", "hash_partition", "lcp_boundary", "bsearch",
+                       "block_decode"):
+            assert r["launches"].get(kernel, 0) > 0, kernel
+
+
+@pytest.mark.cuda
+def test_cuda_one_nccl_rank_matches_cpu(cuda_device):
+    """One NCCL rank on the card: the flat sharded index answers as the CPU
+    index does, objects gather through device tensors, and the collectives'
+    seconds come from CUDA events."""
+    from repro_torch.index import build_index, continuations, lookup
+    from repro_torch.launch.mesh import spawn_ranks
+    stats = cpu_stats(40_000, 3)
+    rng = np.random.default_rng(1)
+    rows = rng.integers(0, len(stats), 2000)
+    g, ln = stats.grams[rows].copy(), stats.lengths[rows].copy()
+    g[::3, 0] = VOCAB
+    ln[::7] = 1                                           # length-0 prefixes below
+    (r,) = spawn_ranks(1, _nccl_rank, stats, g, ln, device=cuda_device, backend="nccl")
+    idx = build_index(stats, vocab_size=VOCAB, device="cpu")
+    nd, tot, terms, counts = continuations(idx, g, np.maximum(ln - 1, 0), k=8)
+    assert r["backend"] == "nccl"
+    np.testing.assert_array_equal(r["lookup"], lookup(idx, g, ln).numpy())
+    np.testing.assert_array_equal(
+        r["cont"], torch.cat([nd[:, None], tot[:, None], terms, counts], 1).numpy())
+    assert len(r["objects"]) == 1 and r["objects"][0]["rank"] == 0
+    np.testing.assert_array_equal(r["objects"][0]["rows"], g[:3])
+    assert r["comm_seconds"] > 0

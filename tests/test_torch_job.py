@@ -189,7 +189,8 @@ def test_unported_options_raise():
     with pytest.raises(ValueError):
         run_job(toks, NGramConfig(sigma=2, tau=1, vocab_size=3, n_buckets=2),
                 device="cpu")
-    from repro_torch.core import suffix_sigma
-    with pytest.raises(NotImplementedError):
-        suffix_sigma.run(toks, NGramConfig(sigma=2, tau=1, vocab_size=3),
-                         mesh=object(), device="cpu")
+    # the service across ranks waits for the streaming path across ranks
+    from repro_torch.serve import StreamingNGramService
+    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
+        StreamingNGramService(NGramConfig(sigma=2, tau=1, vocab_size=3),
+                              mesh=object(), device="cpu")

@@ -6,9 +6,13 @@
 counters and top grams must be equal, and so must every ``job.*`` counter of
 the ``--metrics`` file (and, for the streaming driver, every ``gen.*`` and
 ``cache.*`` counter).  ``--wave-tokens`` must print what the monolithic run
-prints.  ``--devices 2`` must exit with the not-ported message.  Each CLI
-runs in this process (``main(argv)``; ``repro``'s reads ``sys.argv``), except
-the exit checks, which run ``python -m`` as a user would.
+prints.  ``--devices 3`` runs 3 gloo ranks on the CPU and must print and
+count as ``repro``'s CLI on a 3-device host mesh (a fresh process, since
+JAX fixes its device count at start); ``--devices`` on the streaming path
+must exit with the not-ported message.  Each CLI runs in this process
+(``main(argv)``; ``repro``'s reads ``sys.argv``), except ``repro``'s
+multi-device runs and the exit checks, which run ``python -m`` as a user
+would.
 """
 import os
 import subprocess
@@ -172,13 +176,90 @@ def test_serve_ngrams_microbatch_counts_as_repro(tmp_path, capsys, monkeypatch):
 @pytest.mark.parametrize("module", ["repro_torch.launch.ngram",
                                     "repro_torch.launch.serve_ngrams"])
 def test_devices_flag_exits_not_ported(module):
+    """``--devices`` on the streaming path across ranks (the waves, the
+    streaming driver) exits with the message naming it; so does the
+    service given a mesh."""
+    mode = "--wave-tokens=5000" if module.endswith(".ngram") else "--streaming"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    proc = subprocess.run([sys.executable, "-m", module, "--devices", "2",
+    proc = subprocess.run([sys.executable, "-m", module, "--devices", "2", mode,
                            "--device", "cpu"], capture_output=True, text=True,
                           env=env, cwd=ROOT, timeout=120)
     assert proc.returncode == 1
     assert proc.stderr.strip() == MESH_NOT_PORTED
+    assert "1(b)" in MESH_NOT_PORTED
     with pytest.raises(NotImplementedError) as err:
         StreamingNGramService(NGramConfig(sigma=2, tau=1, vocab_size=3), mesh=object(),
                               device="cpu")
     assert str(err.value) == MESH_NOT_PORTED
+
+
+def test_streaming_across_ranks_refuses():
+    """The frontend mode with ``--devices``, the waves and the sharded
+    generational index refuse with the same message."""
+    from repro_torch.index.serve import shard_generational
+    from repro_torch.launch.mesh import DataMesh
+    from repro_torch.pipeline import WaveExecutor
+    with pytest.raises(SystemExit) as err:
+        serve_ngrams.main(["--devices", "2", "--serve", "127.0.0.1:0", "--device", "cpu"])
+    assert str(err.value) == MESH_NOT_PORTED
+    mesh = DataMesh(rank=0, size=2, device=torch.device("cpu"), backend="gloo")
+    cfg = NGramConfig(sigma=2, tau=1, vocab_size=3)
+    for call in (lambda: WaveExecutor(cfg, wave_tokens=4, mesh=mesh, device="cpu"),
+                 lambda: shard_generational(None, mesh=mesh)):
+        with pytest.raises(NotImplementedError) as err:
+            call()
+        assert str(err.value) == MESH_NOT_PORTED
+
+
+def run_repro_devices(module: str, argv: list, tmp_path, n: int = 3):
+    """``repro``'s CLI on an ``n``-device host mesh, as a fresh process (the
+    device count is fixed before JAX starts)."""
+    m = tmp_path / "repro.jsonl"
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env.update(PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, "-m", module, *argv, "--devices", str(n),
+                           "--metrics", str(m)], capture_output=True, text=True,
+                          env=env, cwd=ROOT, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return proc.stdout, report.read_jsonl(str(m))[-1]
+
+
+def run_port_devices(mod, argv: list, tmp_path, capfd, n: int = 3):
+    """The port's CLI on ``n`` gloo ranks on the CPU, in this process (rank
+    0 prints from its own process: ``capfd`` reads the shared stdout)."""
+    m = tmp_path / "port.jsonl"
+    mod.main(argv + ["--devices", str(n), "--device", "cpu", "--metrics", str(m)])
+    return capfd.readouterr().out, report.read_jsonl(str(m))[-1]
+
+
+@pytest.mark.parametrize("method", ["suffix_sigma", "apriori_scan"])
+def test_ngram_devices_prints_and_counts_as_repro(method, tmp_path, capfd):
+    flags = ["--method", method, "--tokens", "20000", "--sigma", "4", "--tau", "3",
+             "--top", "15"]
+    out, rec = run_port_devices(ngram, flags, tmp_path, capfd)
+    jout, jrec = run_repro_devices("repro.launch.ngram", flags, tmp_path)
+    assert "mesh: 3 ranks on cpu, backend gloo" in out
+    assert job_lines(out) == job_lines(jout)
+    assert sum(ln.startswith("  cf=") for ln in job_lines(out)) == 15
+    assert "'capacity'" in out if method == "suffix_sigma" else "'jobs': 4" in out
+    assert instruments(rec) == instruments(jrec)
+    assert report.validate_metrics(rec["metrics"]) == []
+
+
+def test_serve_ngrams_devices_counts_as_repro(tmp_path, capfd):
+    """The sharded micro-batch driver: the job line, the serve lines and
+    every ``job.*`` and ``serve.*`` counter equal ``repro``'s, and each
+    histogram counts as many batches."""
+    flags = ["--tokens", "20000", "--queries", "1500", "--batch-sizes", "64,512",
+             "--compress"]
+    out, rec = run_port_devices(serve_ngrams, flags, tmp_path, capfd)
+    jout, jrec = run_repro_devices("repro.launch.serve_ngrams", flags, tmp_path)
+    prefixes = ("job.", "serve.")
+    assert instruments(rec, prefixes) == instruments(jrec, prefixes)
+    assert instruments(rec, prefixes)["serve.batches"] > 0
+    for name, h in jrec["metrics"]["histograms"].items():
+        assert rec["metrics"]["histograms"][name]["count"] == h["count"], name
+    head = lambda o: [ln.split(" in ")[0] for ln in o.splitlines() if ln.startswith("job:")]
+    assert head(out) == head(jout) and len(head(out)) == 1
+    assert [ln.split(" qps")[0] for ln in out.splitlines() if ln.startswith("serve_")] == \
+        [f"serve_{m} batch={b:>5}" for m in ("lookup", "topk") for b in (64, 512)]

@@ -149,11 +149,16 @@ def test_unknown_method_raises_value_error(package):
 
 
 def test_mesh_raises_for_every_method():
+    """A mesh of two ranks whose process group was never started raises in
+    every method (its first collective), rather than running on one device.
+    The jobs across ranks themselves: ``tests/test_torch_distributed.py``."""
+    from repro_torch.launch.mesh import DataMesh
     toks = np.asarray([1, 2, 0, 2], np.int32)
+    mesh = DataMesh(rank=0, size=2, device=torch.device("cpu"), backend="gloo")
     for name in METHODS:
-        with pytest.raises(NotImplementedError):
+        with pytest.raises((RuntimeError, ValueError), match="process group"):
             METHODS[name](toks, NGramConfig(sigma=2, tau=1, vocab_size=3, method=name),
-                          mesh=object(), device="cpu")
+                          mesh=mesh, device="cpu")
 
 
 # --------------------------------------------------------------- the modules

@@ -495,7 +495,7 @@ def test_wave_errors():
 
     class Mesh:
         size = 2
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match=r"Queue 1 item 1\(b\)"):
         WaveExecutor(cfg, wave_tokens=8, mesh=Mesh(), device="cpu")
     Mesh.size = 1                     # a one-device mesh is one device
     assert WaveExecutor(cfg, wave_tokens=8, mesh=Mesh(), device="cpu").run(
