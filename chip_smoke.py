@@ -153,11 +153,25 @@ line):
                  prefixes at k = 8 plus 64 length-0 prefixes, in batches of
                  4,096, equal to the single-device index's; and the flat
                  sharded index on 1 rank under NCCL (``all_to_all_single``
-                 on device tensors), equal too.  ``suffix_pack``,
-                 ``hash_partition``, ``lcp_boundary``, ``bsearch`` and
-                 ``block_decode`` must launch in the ranks, which count
-                 their own launches; the kernel rows' ``launches_by_path``
-                 gets ``ranks``.  Last, gloo's own reduce-scatter against
+                 on device tensors), equal too.  The streaming path across
+                 the same 4 ranks: (a) the mesh waves (``WaveExecutor(mesh=)``)
+                 of SUFFIX-sigma, with the fold thread and without, and of
+                 APRIORI-SCAN at phase 3's corpus and configuration in phase
+                 8's waves of 2**23, each output equal to phase 3's (and so
+                 phase 6's), map_records to phase 3's (SUFFIX-sigma) or
+                 phase 8's (APRIORI-SCAN at tau 1 inside a wave), jobs,
+                 waves and fold_rows to phase 8's; (b) phase 5's service
+                 (hash combiner, compressed rungs, block size 4) with
+                 ``mesh=`` and waves of 2**23, fed phase 5's base and 4
+                 deltas, and (c) after each ingest ``shard_generational``
+                 of its index with ``prev``, builds and reuses printed; the
+                 service's 2**16 lookups and 2**14 + 64 continuations (in
+                 batches of 4,096, rank by rank) and the sharded
+                 generational index's (batches of 4,096) equal to phase 5's
+                 service.  All eight kernels must launch in the ranks, which
+                 count their own launches; the kernel rows'
+                 ``launches_by_path`` gets ``ranks``.  Last, gloo's own
+                 reduce-scatter against
                  ``DataMesh``'s (an all-to-all of the blocks and a local
                  sum) at APRIORI-INDEX's totals, in turns.  Gloo ranks on
                  one card measure correctness and host staging, not NVLink
@@ -249,8 +263,10 @@ N_DELTAS = 4
 N_RANKS = 4
 RANK_BATCH = 4096
 N_EMPTY = 64
-RANK_KERNELS = ("suffix_pack", "hash_partition", "lcp_boundary", "bsearch",
-                "block_decode")
+RANK_KERNELS = ("suffix_pack", "hash_partition", "lcp_boundary", "hash_combine",
+                "merge_path", "block_expand", "bsearch", "block_decode")
+#: phase 10's mesh waves: phase 8's middle wave size
+RANK_WAVE = 1 << 23
 PHASE10_DIR = Path(__file__).resolve().parent / "build" / "phase10"
 
 
@@ -865,9 +881,128 @@ def rank_reduce_scatter(mesh, n: int, reps: int = 2) -> dict:
     return times
 
 
+def rank_turns(mesh, fn):
+    """``fn()`` on each rank in turn (the others wait at a barrier), so the
+    ranks' peaks of a memory-heavy step do not add up on the shared card."""
+    import torch.distributed as dist
+    out = None
+    for turn in range(mesh.size):
+        dist.barrier()
+        if turn == mesh.rank:
+            out = fn()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def rank_waves(mesh, toks) -> dict:
+    """Phase 10 (a) on one rank: SUFFIX-sigma with the fold thread and
+    without, in turns (on, off, off, on, ...: a first run and three warm
+    ones each), then APRIORI-SCAN (a first run and two warm ones), through
+    the mesh waves at ``RANK_WAVE``."""
+    vocab = corpus.NYT.vocab_size
+    runs = [("SUFFIX-sigma", "suffix_sigma", True),
+            ("SUFFIX-sigma, no fold thread", "suffix_sigma", False)]
+    runs = runs + runs[::-1] + runs + runs[::-1] + [("APRIORI-SCAN", "apriori_scan", True)] * 3
+    out: dict = {}
+    for label, method, overlap in runs:
+        cfg = NGramConfig(sigma=SIGMA, tau=TAU, vocab_size=vocab, method=method)
+        if label not in out:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            out[label] = dict(times=[], sent=[], comm_s=[], peak=0)
+        r = out[label]
+        b0, s0 = mesh.comm_bytes, mesh.comm_seconds
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = WaveExecutor(cfg, wave_tokens=RANK_WAVE, mesh=mesh, overlap=overlap,
+                             device=mesh.device).run(toks)
+        torch.cuda.synchronize()
+        r["times"].append(time.perf_counter() - t0)
+        r["sent"].append(mesh.comm_bytes - b0)
+        r["comm_s"].append(mesh.comm_seconds - s0)
+        r["peak"] = max(r["peak"], torch.cuda.max_memory_allocated())
+        r.update(counters=dict(stats.counters),
+                 digest=digest(stats.grams, stats.lengths, stats.counts),
+                 stats=(stats.grams, stats.lengths, stats.counts) if mesh.rank == 0 else None)
+        del stats
+    for r in out.values():
+        r.update(first=r["times"][0], warm=r["times"][1:], sent=r["sent"][1:],
+                 comm_s=r["comm_s"][1:])
+    return out
+
+
+def rank_service(mesh, toks, queries) -> dict:
+    """Phase 10 (b) and (c) on one rank: phase 5's service (hash combiner,
+    compressed rungs, block size 4) with waves of ``RANK_WAVE`` across the
+    ranks, fed phase 5's base and deltas; after each ingest the sharded
+    generational index of its levels (``prev``: the last one); then the
+    service's answers (continuations in turns, batches of ``RANK_BATCH``)
+    and the sharded index's, in batches of ``RANK_BATCH``."""
+    from repro_torch.index import shard_generational
+    from repro_torch.obs import metrics as obs_metrics
+    g, ln, pg, pl = queries
+    base, rest = np.split(toks, [int(len(toks) * 0.6)])
+    batches = [base] + np.array_split(rest, N_DELTAS)
+    cfg = NGramConfig(sigma=SIGMA, tau=TAU, vocab_size=corpus.NYT.vocab_size,
+                      combine_route="hash")
+    reg = obs_metrics.MetricsRegistry()
+    if mesh.rank == 0:
+        obs_metrics.set_registry(reg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    svc = StreamingNGramService(cfg, compress=True, block_size=4, wave_tokens=RANK_WAVE,
+                                mesh=mesh, device=mesh.device)
+    sharded, ingests = None, []
+    for batch in batches:
+        b0, s0 = mesh.comm_bytes, mesh.comm_seconds
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = svc.ingest(batch)
+        torch.cuda.synchronize()
+        t_ingest = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sharded = shard_generational(svc.gen, mesh=mesh, prev=sharded)
+        torch.cuda.synchronize()
+        t_shard = time.perf_counter() - t0
+        snap = reg.snapshot()["counters"]
+        ingests.append(dict(
+            positions=len(batch), s=t_ingest, job_s=rep["job_s"], waves=rep["waves"],
+            merges=rep["merges"], rungs=rep["segment_rows"], shard_s=t_shard,
+            segments=sharded.n_segments, sent=mesh.comm_bytes - b0,
+            comm_s=mesh.comm_seconds - s0, builds=snap.get("serve.shard_builds"),
+            reuses=snap.get("serve.shard_reuses")))
+    ingest_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    look = svc.lookup(g, ln)
+    look_s = time.perf_counter() - t0
+
+    def service_continuations():
+        t0 = time.perf_counter()
+        rows = np.concatenate([svc.continuations(pg[i:i + RANK_BATCH], pl[i:i + RANK_BATCH],
+                                                 k=TOP_K)
+                               for i in range(0, len(pg), RANK_BATCH)])
+        return rows, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    cont, cont_s, cont_peak = rank_turns(mesh, service_continuations)
+    torch.cuda.reset_peak_memory_stats()
+    sent0 = mesh.comm_bytes
+    sh_look, sh_look_s = rank_batches(mesh, sharded, g, ln, "lookup")
+    sh_cont, sh_cont_s = rank_batches(mesh, sharded, pg, pl, "continuations")
+    obs_metrics.set_registry(None)
+    return dict(ingests=ingests, ingest_peak=ingest_peak, look_s=look_s, cont_s=cont_s,
+                cont_peak=cont_peak, sh_look_s=sh_look_s, sh_cont_s=sh_cont_s,
+                sh_sent=mesh.comm_bytes - sent0, sh_peak=torch.cuda.max_memory_allocated(),
+                sh_segments=sharded.n_segments, gen=repr(svc.gen),
+                digest=digest(look, cont, sh_look, sh_cont),
+                answers=(look, cont, sh_look, sh_cont) if mesh.rank == 0 else None)
+
+
 def rank_main(mesh, toks_path: str, stats_path: str, queries) -> dict:
-    """Phase 10 on one rank: the four methods, then the sharded index, with
-    this rank's kernel launches counted from the start, then the two
+    """Phase 10 on one rank: the four methods, the sharded index, the mesh
+    waves, the service across ranks and its sharded generational index,
+    with this rank's kernel launches counted from the start, then the two
     reduce-scatters at APRIORI-INDEX's totals."""
     from repro_torch.pipeline import stages as pstages
     ops.launches.clear()
@@ -906,6 +1041,9 @@ def rank_main(mesh, toks_path: str, stats_path: str, queries) -> dict:
     st = np.load(stats_path)
     stats = NGramStats(st["grams"], st["lengths"], st["counts"])
     out["index"] = rank_index(mesh, stats, queries, ("flat", "compressed"))
+    del stats
+    out["waves"] = rank_waves(mesh, toks)
+    out["service"] = rank_service(mesh, toks, queries)
     out["launches"] = dict(ops.launches)
     out["reduce_scatter"] = rank_reduce_scatter(mesh, mesh.size * -(-len(toks)
                                                                   // mesh.size))
@@ -923,10 +1061,12 @@ def rank_nccl(mesh, stats_path: str, queries) -> dict:
     return out
 
 
-def phase_ranks(dev, main: dict, methods: dict) -> dict:
-    """The multi-rank batch path: the four methods and the sharded index on
+def phase_ranks(dev, main: dict, methods: dict, stream: dict, wave: dict) -> dict:
+    """The multi-rank paths: the four methods, the sharded index, the mesh
+    waves, the service across ranks and its sharded generational index on
     ``N_RANKS`` gloo ranks sharing the card, the flat sharded index on one
-    NCCL rank, each held against phase 3's single-device output."""
+    NCCL rank, each held against the single-device output of phase 3, 5, 6
+    or 8."""
     t_phase = time.perf_counter()
     vocab = corpus.NYT.vocab_size
     want = main["stats"]
@@ -947,6 +1087,13 @@ def phase_ranks(dev, main: dict, methods: dict) -> dict:
     nd, tot, terms, counts = continuations(idx, torch.as_tensor(pg, device=dev),
                                            torch.as_tensor(pl, device=dev), k=TOP_K)
     want_cont = torch.cat([nd[:, None], tot[:, None], terms, counts], 1).cpu().numpy()
+    # phase 5's service: every batch ingested (and compacted since, which
+    # changes no answer)
+    svc5 = stream["svc"]
+    want_svc = (svc5.lookup(g, ln), np.concatenate([
+        svc5.continuations(pg[i:i + RANK_BATCH], pl[i:i + RANK_BATCH], k=TOP_K)
+        for i in range(0, len(pg), RANK_BATCH)]))
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     ranks = spawn_ranks(N_RANKS, rank_main, str(toks_path), str(stats_path), queries,
@@ -999,6 +1146,76 @@ def phase_ranks(dev, main: dict, methods: dict) -> dict:
               f"{ix['retries']}; bytes sent a rank "
               f"{[r['index'][layout]['sent'] for r in ranks]}")
 
+    # (a) the mesh waves against phases 3, 6 and 8
+    for label, w in lead["waves"].items():
+        suffix = label.startswith("SUFFIX")
+        one = wave["runs"][("SUFFIX-sigma" if suffix else "apriori_scan")
+                           + f", {wave_label(RANK_WAVE)}"]
+        grams, lengths, cnts = w["stats"]
+        check(np.array_equal(grams, want.grams) and np.array_equal(lengths, want.lengths)
+              and np.array_equal(cnts, want.counts),
+              f"ranks: mesh waves, {label}: output == phase 3's (and phase 6's) stats")
+        check(all(r["waves"][label]["digest"] == w["digest"] for r in ranks),
+              f"ranks: mesh waves, {label}: every rank returns the same output")
+        c = w["counters"]
+        single = one["counters"]
+        # APRIORI-SCAN's waves emit at tau 1: phase 8's records, not phase 6's
+        check(c["map_records"] == (want.counters if suffix else single)["map_records"],
+              f"ranks: mesh waves, {label}: map_records == phase {3 if suffix else 8}'s")
+        for key in ("jobs", "waves", "fold_rows"):
+            check(c[key] == single[key], f"ranks: mesh waves, {label}: {key} == phase 8's")
+        ws = [r["waves"][label] for r in ranks]
+        print(f"ranks: mesh waves, {label}, waves of 2**{RANK_WAVE.bit_length() - 1} on "
+              f"{N_RANKS} gloo ranks ({card_line()}): first {w['first']:.3f} s, warm median "
+              f"{np.median(w['warm']):.3f} s (max over ranks "
+              f"{max(np.median(x['warm']) for x in ws):.3f}, n={len(w['warm'])}) vs one "
+              f"device's waves warm median {one['warm_s']:.3f} s; retries {c['retries']}, "
+              f"fold_rows {c['fold_rows']:,}, shuffle_records {c['shuffle_records']:,}; "
+              f"counters {c}; bytes sent a rank (warm) "
+              f"{[int(np.median(x['sent'])) for x in ws]}, seconds in collectives a rank "
+              f"{[round(float(np.median(x['comm_s'])), 3) for x in ws]}; peak device "
+              f"memory a rank (GiB) {[round(x['peak'] / 2**30, 2) for x in ws]}")
+    on, off = (lead["waves"][k] for k in ("SUFFIX-sigma", "SUFFIX-sigma, no fold thread"))
+    print(f"ranks: mesh waves, the fold thread across {N_RANKS} ranks ({card_line()}), "
+          f"runs in turns: warm median {np.median(on['warm']):.3f} s with it "
+          f"{[round(t, 3) for t in on['warm']]}, {np.median(off['warm']):.3f} s without "
+          f"{[round(t, 3) for t in off['warm']]} (first {on['first']:.3f} / "
+          f"{off['first']:.3f} s)")
+
+    # (b) the service across ranks and (c) its sharded generational index
+    sv = lead["service"]
+    look, cont, sh_look, sh_cont = sv["answers"]
+    check(np.array_equal(look, want_svc[0]) and np.array_equal(cont, want_svc[1]),
+          f"ranks: service across {N_RANKS} ranks: {len(g):,} lookups and {len(pg):,} "
+          "continuations == phase 5's service")
+    check(np.array_equal(sh_look, want_svc[0]) and np.array_equal(sh_cont, want_svc[1]),
+          f"ranks: sharded generational index: {len(g):,} lookups and {len(pg):,} "
+          f"continuations ({N_EMPTY} of length 0) == phase 5's service")
+    check(all(r["service"]["digest"] == sv["digest"] for r in ranks),
+          "ranks: service and sharded generational index: every rank answers the same")
+    for step, ing in enumerate(sv["ingests"]):
+        label = "base" if step == 0 else f"delta {step}"
+        print(f"ranks: service, {label}: {ing['positions']:,} positions in {ing['waves']} "
+              f"waves across {N_RANKS} gloo ranks ({card_line()}): ingest {ing['s']:.3f} s "
+              f"(job {ing['job_s']:.3f} s), merges {ing['merges']}, rungs {ing['rungs']}; "
+              f"shard_generational {ing['shard_s']:.3f} s, {ing['segments']} segments, "
+              f"builds {ing['builds']} reuses {ing['reuses']} (rank 0, running totals); "
+              f"bytes sent a rank {[r['service']['ingests'][step]['sent'] for r in ranks]}, "
+              f"seconds in collectives a rank "
+              f"{[round(r['service']['ingests'][step]['comm_s'], 3) for r in ranks]}")
+    svs = [r["service"] for r in ranks]
+    print(f"ranks: service across {N_RANKS} ranks ({card_line()}): {sv['gen']}; "
+          f"{len(g):,} lookups in {sv['look_s']:.3f} s, {len(pg):,} continuations in "
+          f"{sv['cont_s']:.3f} s (batches of {RANK_BATCH}, rank by rank); sharded "
+          f"generational index: {len(g):,} lookups in {sv['sh_look_s']:.3f} s = "
+          f"{len(g) / sv['sh_look_s']:,.0f}/s, {len(pg):,} continuations in "
+          f"{sv['sh_cont_s']:.3f} s = {len(pg) / sv['sh_cont_s']:,.0f}/s over "
+          f"{sv['sh_segments']} segments; bytes sent a rank "
+          f"{[x['sh_sent'] for x in svs]}; peak device memory a rank (GiB): ingests "
+          f"{[round(x['ingest_peak'] / 2**30, 2) for x in svs]}, service continuations "
+          f"{[round(x['cont_peak'] / 2**30, 2) for x in svs]}, sharded queries "
+          f"{[round(x['sh_peak'] / 2**30, 2) for x in svs]}")
+
     n_totals = N_RANKS * -(-len(main["toks"]) // N_RANKS)
     print(f"ranks: reduce-scatter of int32 [{n_totals:,}] (APRIORI-INDEX's totals) "
           f"on {N_RANKS} gloo ranks ({card_line()}), in turns, median s a rank: "
@@ -1029,7 +1246,9 @@ def phase_ranks(dev, main: dict, methods: dict) -> dict:
           f"rank in {nccl_s:.1f} s; kernel launches in the ranks {dict(launches)}; "
           f"phase {time.perf_counter() - t_phase:.1f} s")
     print("ranks: checks passed (four methods == one device on every rank, map_records, "
-          "sharded flat and compressed answers == one device, NCCL rank, launches)")
+          "sharded flat and compressed answers == one device, mesh waves == phases 3, 6 "
+          "and 8, the service and its sharded generational index == phase 5's service, "
+          "NCCL rank, launches)")
     return dict(launches=dict(launches))
 
 
@@ -2985,7 +3204,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the ranks run last: torch.profiler loses device events in an old
     # process (PERF.md section 7), so phase 4 must not wait for them
-    ranks = phase_ranks(dev, main_run, methods)         # phase 10
+    ranks = phase_ranks(dev, main_run, methods, stream, wave)  # phase 10
     done("phase 10 (ranks)")
     for row in rows:
         row["launches_by_path"]["frontend"] = fe["launches"].get(row["name"], 0)

@@ -8,7 +8,8 @@ batched queries.
 ingest; ``query`` answers batched point-count and top-k-continuation queries
 against any of them; ``serve`` shards a frozen index across the ranks of
 a mesh with the job shuffle's own hash partitioner (``build_sharded_index``,
-``serve_queries``) and describes the layout to the frontend
+``serve_queries``), a generational index segment by segment
+(``shard_generational``), and describes the layout to the frontend
 (``describe_topology``).
 """
 from . import build, compress, merge, query, serve
@@ -23,8 +24,9 @@ from .merge import (DeferredSegmentAccumulator, GenerationalIndex,
                     generational_from_stats, merge_indexes, merge_segments,
                     segment_to_stats, stats_union)
 from .query import continuations, lookup
-from .serve import (ShardedNGramIndex, build_sharded_index,
-                    empty_prefix_continuations, make_server)
+from .serve import (ShardedGenerationalIndex, ShardedNGramIndex,
+                    build_sharded_index, empty_prefix_continuations, make_server,
+                    shard_generational)
 from .serve import serve as serve_queries
 
 __all__ = ["build", "compress", "merge", "query", "serve", "IndexSegment", "NGramIndex",
@@ -36,5 +38,6 @@ __all__ = ["build", "compress", "merge", "query", "serve", "IndexSegment", "NGra
            "TieredSegmentAccumulator", "PairwiseSegmentAccumulator",
            "generational_from_stats", "merge_indexes", "merge_segments",
            "segment_to_stats", "stats_union", "lookup", "continuations",
-           "ShardedNGramIndex", "build_sharded_index",
-           "empty_prefix_continuations", "make_server", "serve_queries"]
+           "ShardedGenerationalIndex", "ShardedNGramIndex", "build_sharded_index",
+           "empty_prefix_continuations", "make_server", "shard_generational",
+           "serve_queries"]

@@ -380,38 +380,51 @@ class TieredSegmentAccumulator:
     rungs left.  Merges are associative and their order is a pure function of
     the row set, so the result equals every other accumulator's.
     ``fold_rows`` counts every input row fed through a merge, as ``repro``'s.
+
+    ``global_rows``: on a rank that folds its own part of a row set split
+    over ranks (the mesh waves), a callable mapping this rank's row count of
+    a rung to the count over all ranks; the size ratio then decides on the
+    whole rungs, so every rank merges when ``repro``'s one fold does and the
+    ranks' ``fold_rows`` sum to its.
     """
 
     def __init__(self, *, size_ratio: int = DEFAULT_SIZE_RATIO,
-                 route: str = "sort"):
+                 route: str = "sort", global_rows=None):
         if size_ratio < 1:
             raise ValueError("size_ratio must be >= 1")
         self.size_ratio = size_ratio
         self.route = route
-        self.rungs: list[tuple[IndexSegment, int]] = []   # newest first
+        self._global = global_rows or (lambda rows: rows)
+        # newest first: (segment, its rows, the rung's rows over the ranks)
+        self.rungs: list[tuple[IndexSegment, int, int]] = []
         self.fold_rows = 0
 
-    def _merge_front(self, n: int) -> None:
-        segs = [s for s, _ in reversed(self.rungs[:n])]   # elder first
-        self.fold_rows += sum(r for _, r in self.rungs[:n])
+    def _merge_front(self, n: int) -> IndexSegment:
+        segs = [s for s, _, _ in reversed(self.rungs[:n])]   # elder first
+        self.fold_rows += sum(r for _, r, _ in self.rungs[:n])
         del self.rungs[:n]
-        merged = _merge_owned(segs, route=self.route)
-        self.rungs.insert(0, (merged, merged.n_rows))
+        return _merge_owned(segs, route=self.route)
+
+    def _stack(self, seg: IndexSegment, rows: int) -> None:
+        self.rungs.insert(0, (seg, rows, self._global(rows)))
 
     def push(self, seg: IndexSegment, *, n_rows: int | None = None) -> None:
         """Stack one segment (of ``n_rows`` real rows, when the caller knows
         them), then compact rungs under the size-ratio policy."""
-        self.rungs.insert(0, (seg, seg.n_rows if n_rows is None else n_rows))
+        self._stack(seg, seg.n_rows if n_rows is None else n_rows)
         while (len(self.rungs) >= 2 and
-               self.rungs[0][1] * self.size_ratio >= self.rungs[1][1]):
-            self._merge_front(2)
+               self.rungs[0][2] * self.size_ratio >= self.rungs[1][2]):
+            merged = self._merge_front(2)
+            self._stack(merged, merged.n_rows)
 
     def result(self) -> IndexSegment:
-        """Fold the remaining rungs into the one final sorted segment."""
+        """Fold the remaining rungs into the one final sorted segment (no
+        size is asked: nothing is decided after it)."""
         if not self.rungs:
             raise ValueError("no segments accumulated")
         if len(self.rungs) > 1:
-            self._merge_front(len(self.rungs))
+            merged = self._merge_front(len(self.rungs))
+            self.rungs = [(merged, merged.n_rows, None)]
         return self.rungs[0][0]
 
 

@@ -36,8 +36,12 @@ sharded index's from its build), so a transport thread that asks never waits
 on the device.  A generational level no query has read yet therefore reports
 its bare segment's bytes, where ``repro`` would build the artifact first.
 
-The sharded generational index (``ShardedGenerationalIndex``,
-``shard_generational``) waits for the streaming path across ranks.
+:func:`shard_generational` partitions every live segment of a
+:class:`GenerationalIndex` the same way, one :class:`ShardedNGramIndex` a
+segment (a :class:`ShardedGenerationalIndex`), reusing the shards of an
+earlier generation's levels by level id; :func:`serve` sums its segments'
+lookups and folds their continuation sets exactly, as the single-device
+generational index does.
 """
 from __future__ import annotations
 
@@ -47,9 +51,9 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import U32
 from repro_torch.core.stats import NGramStats
 from repro_torch.kernels import ops as kops
-from repro_torch.launch.mesh import STREAMING_NOT_PORTED
 from repro_torch.mapreduce import pack as packing
 from repro_torch.mapreduce import shuffle
 from repro_torch.obs import metrics as obs_metrics
@@ -57,11 +61,12 @@ from repro_torch.obs import trace as obs_trace
 from . import query as q
 from .build import NGramIndex, build_index
 from .compress import CompressedNGramIndex, compress_index
-from .merge import GenerationalIndex
+from .merge import GenerationalIndex, merge_continuation_results, segment_to_stats
 
-__all__ = ["ShardedNGramIndex", "shard_of_rows", "build_sharded_index",
-           "result_width", "make_server", "empty_prefix_continuations", "serve",
-           "shard_generational", "describe_topology"]
+__all__ = ["ShardedNGramIndex", "ShardedGenerationalIndex", "shard_of_rows",
+           "build_sharded_index", "result_width", "make_server",
+           "empty_prefix_continuations", "serve", "shard_generational",
+           "describe_topology"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -135,16 +140,97 @@ def build_sharded_index(stats: NGramStats, *, vocab_size: int, mesh,
     return ShardedNGramIndex(ix, mesh, nbytes)
 
 
-def shard_generational(*args, **kwargs):
-    """Not ported yet: the sharded generational index belongs to the
-    streaming path across ranks."""
-    raise NotImplementedError(STREAMING_NOT_PORTED)
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardedGenerationalIndex:
+    """One :class:`ShardedNGramIndex` a live generational segment, newest
+    first.  Segment sizes differ by design, so each keeps its own shard
+    capacity, and the fold across segments runs after each segment's
+    answers are back on every rank.  ``level_ids`` are the levels each
+    shard was built from (``GenerationalIndex.level_ids``) and ``layout``
+    the (compress, block_size) of the build: together the key under which
+    :func:`shard_generational` reuses a shard."""
+
+    shards: tuple
+    generation: int
+    mesh: object
+    level_ids: tuple = ()
+    layout: tuple = ()
+
+    @property
+    def n_segments(self) -> int:
+        return len(self.shards)
+
+    @property
+    def n_parts(self) -> int:
+        return self.mesh.size
+
+    @property
+    def axis_name(self) -> str:
+        return self.mesh.axis_name
+
+    @property
+    def sigma(self) -> int:
+        return self.shards[0].sigma
+
+    @property
+    def nbytes(self) -> int:
+        return sum(s.nbytes for s in self.shards)
+
+
+def shard_generational(gen: GenerationalIndex, *, mesh, compress: bool | None = None,
+                       block_size: int | None = None,
+                       prev: ShardedGenerationalIndex | None = None
+                       ) -> ShardedGenerationalIndex:
+    """Partition every live segment of ``gen`` over the ranks of ``mesh``
+    (every rank calls it with its own copy of the same index).
+
+    Layout defaults to the index's own (``compress``, ``block_size``).  Empty
+    segments are skipped when a non-empty one exists: a shard of nothing
+    would cost every batch a routed round trip to add zeros.  ``prev``, a
+    sharded index of an earlier generation of ``gen`` on the same mesh and
+    layout, lends the shards of every level it shares by level id (levels
+    are immutable), so only new and merged levels are partitioned, built
+    and compressed.  Rank 0 counts ``serve.shard_builds`` and
+    ``serve.shard_reuses``.  Shards live on the index's device.
+    """
+    if not gen.level_ids:
+        raise ValueError("cannot shard an empty GenerationalIndex")
+    compress = gen.compress if compress is None else compress
+    block_size = gen.block_size if block_size is None else block_size
+    layout = (bool(compress), int(block_size))
+    cache: dict = {}
+    if prev is not None and prev.mesh is mesh and prev.layout == layout:
+        cache = dict(zip(prev.level_ids, prev.shards))
+    ids, segments = gen.level_ids, gen.segments
+    pairs = [(lid, ix) for lid, ix, rows in zip(ids, segments, gen.level_rows)
+             if rows] or [(ids[0], segments[0])]
+    reused = sum(lid in cache for lid, _ in pairs)
+    leader = mesh.rank == 0
+    with obs_trace.span("serve.shard_generational") if leader else obs_trace.NULL_SPAN as sp:
+        if sp:
+            sp.set(segments=len(pairs), reused=reused)
+        shards = tuple(
+            cache[lid] if lid in cache else
+            build_sharded_index(segment_to_stats(ix.to_segment()),
+                                vocab_size=gen.vocab_size, mesh=mesh,
+                                compress=compress, block_size=block_size,
+                                device=gen.device)
+            for lid, ix in pairs)
+    reg = obs_metrics.get_registry() if leader else obs_metrics.null_registry
+    if reg:
+        reg.counter("serve.shard_builds").add(len(pairs) - reused)
+        reg.counter("serve.shard_reuses").add(reused)
+    return ShardedGenerationalIndex(shards=shards, generation=gen.generation,
+                                    mesh=mesh, level_ids=tuple(lid for lid, _ in pairs),
+                                    layout=layout)
 
 
 def describe_topology(index_like) -> dict:
     """JSON-able shard/segment map -- the frontend's ``/v1/system/topology``.
 
-    A :class:`ShardedNGramIndex` (kind ``"sharded"``) publishes its
+    A :class:`ShardedGenerationalIndex` (kind ``"sharded_generational"``)
+    lists its segments' shards newest first by level id; a
+    :class:`ShardedNGramIndex` (kind ``"sharded"``) publishes its
     partitioning: every query's answer lives on rank ``hash_u32(lead_term)
     % n_parts``, the job shuffle's own partitioner, so ``n_parts`` and the
     partitioner name are a complete routing contract for an external
@@ -152,6 +238,17 @@ def describe_topology(index_like) -> dict:
     its segments newest first, with stable level ids so clients can diff
     generations; one flat or compressed index is kind ``"index"``.
     """
+    if isinstance(index_like, ShardedGenerationalIndex):
+        return {
+            "kind": "sharded_generational",
+            "generation": int(index_like.generation),
+            "n_parts": int(index_like.n_parts),
+            "axis": index_like.axis_name,
+            "partitioner": "hash_u32(lead_term) % n_parts",
+            "nbytes": int(index_like.nbytes),
+            "segments": [{"level_id": int(lid), "nbytes": int(sh.nbytes)}
+                         for lid, sh in zip(index_like.level_ids, index_like.shards)],
+        }
     if isinstance(index_like, ShardedNGramIndex):
         return {
             "kind": "sharded",
@@ -266,8 +363,64 @@ def empty_prefix_continuations(sharded: ShardedNGramIndex, *, k: int = 8
     return out
 
 
-def serve(sharded: ShardedNGramIndex, grams, lengths, *, mode: str = "lookup",
-          k: int = 8, capacity_factor: float = 2.0,
+def _serve_generational(sharded: ShardedGenerationalIndex, grams, lengths, *,
+                        mode: str, k: int, **kw) -> np.ndarray:
+    """Every segment's answers through :func:`serve`, folded: lookups
+    summed (with ``repro``'s uint32 overflow error), continuations from each
+    segment's complete candidate set (``query.generational_continuation_sets``)
+    merged exactly (``merge.merge_continuation_results``).
+
+    A first fetch at ``k`` gives every segment's exact number of distinct
+    continuations of each query; a query whose every segment has at most
+    ``k`` is complete there, and the others are fetched again in groups of
+    one width, the power of two that holds their largest set.  So a batch
+    moves each query's candidates at its own width, not at the widest
+    query's (a common lead term has thousands), and the answers equal one
+    fold of the whole batch: each query's fold reads only its own sets.
+    """
+    shards = sharded.shards
+    if mode == "lookup":
+        acc = np.zeros((len(lengths),), np.int64)
+        for sh in shards:
+            acc += serve(sh, grams, lengths, mode="lookup", **kw)
+        if acc.size and int(acc.max()) > U32:
+            raise ValueError(
+                f"summed cf {int(acc.max())} across live segments overflows "
+                "uint32; compact the index or raise tau")
+        return acc
+    grams = grams.cpu().numpy() if isinstance(grams, torch.Tensor) else np.asarray(grams)
+    lengths = (lengths.cpu().numpy() if isinstance(lengths, torch.Tensor)
+               else np.asarray(lengths))
+
+    def fetcher(rows):
+        def fetch(sh, m):
+            res = _serve_on_device(sh, grams[rows], lengths[rows],
+                                   mode="continuations", k=m, **kw)
+            return res[:, 0], res[:, 1], res[:, 2:2 + m], res[:, 2 + m:]
+        return fetch
+
+    out = np.zeros((len(lengths), result_width("continuations", k)), np.int64)
+    if not len(lengths):
+        return out
+    every = np.arange(len(lengths))
+    first = [fetcher(every)(sh, k) for sh in shards]
+    need = torch.stack([nd for nd, *_ in first]).max(dim=0).values.cpu().numpy()
+    width = np.where(need <= k, k, 1 << np.ceil(np.log2(np.maximum(need, 1))).astype(np.int64))
+    for w in np.unique(width):
+        rows = np.flatnonzero(width == w)
+        if w == k:
+            at = torch.as_tensor(rows, device=first[0][0].device)
+            per = [tuple(x[at] for x in p) for p in first]
+        else:
+            per, _ = q.generational_continuation_sets(shards, fetcher(rows), k=int(w))
+        nd, total, terms, counts = merge_continuation_results(per, k=k)
+        out[rows] = torch.cat([nd[:, None], total[:, None], terms, counts],
+                              dim=1).cpu().numpy()
+    return out
+
+
+def serve(sharded: ShardedNGramIndex | ShardedGenerationalIndex, grams, lengths, *,
+          mode: str = "lookup", k: int = 8, capacity_factor: float = 2.0,
           max_retries: int = 6) -> np.ndarray:
     """Answer one query batch across the ranks, every rank with the same
     batch, doubling the capacity while a pair overflows.
@@ -280,8 +433,23 @@ def serve(sharded: ShardedNGramIndex, grams, lengths, *, mode: str = "lookup",
     (``b_local = ceil(B / P)``).  Length-0 continuation prefixes get the
     cached :func:`empty_prefix_continuations` answer.  Rank 0 records the
     ``serve.batch`` span and the ``serve.*`` instruments, as ``repro``'s
-    single controller does.
+    single controller does.  A :class:`ShardedGenerationalIndex` is served
+    a segment at a time, and the answers fold on every rank.
     """
+    if isinstance(sharded, ShardedGenerationalIndex):
+        return _serve_generational(sharded, grams, lengths, mode=mode, k=k,
+                                   capacity_factor=capacity_factor,
+                                   max_retries=max_retries)
+    out = _serve_on_device(sharded, grams, lengths, mode=mode, k=k,
+                           capacity_factor=capacity_factor,
+                           max_retries=max_retries).cpu().numpy()
+    return out[:, 0] if mode == "lookup" else out
+
+
+def _serve_on_device(sharded: ShardedNGramIndex, grams, lengths, *, mode: str, k: int,
+                     capacity_factor: float, max_retries: int) -> torch.Tensor:
+    """:func:`serve` of one sharded index, its answers [B, result_width]
+    left on the index's device."""
     mesh, idx = sharded.mesh, sharded.index
     grams = torch.as_tensor(np.asarray(grams) if not isinstance(grams, torch.Tensor)
                             else grams)
@@ -310,11 +478,11 @@ def serve(sharded: ShardedNGramIndex, grams, lengths, *, mode: str = "lookup",
             reg.counter("serve.queries").add(b)
             reg.counter("serve.retries").add(retries)
             reg.histogram("serve.batch_seconds").observe(time.perf_counter() - t0)
-    out = mesh.all_gather(mine).reshape(mesh.size * b_local, -1)[:b].cpu().numpy()
+    out = mesh.all_gather(mine).reshape(mesh.size * b_local, -1)[:b]
     if mode == "continuations":
-        empty = lengths.cpu().numpy() == 0
-        if empty.any():
+        empty = (lengths == 0).to(out.device)
+        if bool(empty.any()):
             if k not in sharded._empty:
                 sharded._empty[k] = empty_prefix_continuations(sharded, k=k)
-            out[empty] = sharded._empty[k]
-    return out[:, 0] if mode == "lookup" else out
+            out[empty] = torch.as_tensor(sharded._empty[k], device=out.device)
+    return out

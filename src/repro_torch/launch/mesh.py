@@ -44,17 +44,7 @@ import torch.distributed as dist
 
 from repro_torch import resolve_device
 
-__all__ = ["DataMesh", "pick_backend", "rank_device", "spawn_ranks", "mesh_size",
-           "STREAMING_NOT_PORTED"]
-
-#: what the streaming path across ranks answers until it is ported: the
-#: mesh waves, the sharded generational index, ``StreamingNGramService(
-#: mesh=)``, and the CLIs' wave, streaming and frontend modes with
-#: ``--devices``
-STREAMING_NOT_PORTED = (
-    "the streaming path across ranks (mesh waves, sharded generational "
-    "index, service with a mesh) is not ported to repro_torch yet: "
-    "ROADMAP.md Queue 1 item 1(b)")
+__all__ = ["DataMesh", "pick_backend", "rank_device", "spawn_ranks", "mesh_size"]
 
 #: how long a rank waits in a collective for the others before it fails
 COLLECTIVE_TIMEOUT = datetime.timedelta(minutes=10)
@@ -212,6 +202,17 @@ class DataMesh:
         blocks = self.all_to_all(t).view(self.size, t.shape[0] // self.size,
                                          *t.shape[1:])
         return blocks.sum(0, dtype=t.dtype)
+
+    def all_gather_rows(self, t: torch.Tensor) -> list[torch.Tensor]:
+        """Every rank's ``t`` [n_rank, ...] in rank order, where the ranks'
+        row counts differ: one gather of the counts, then one of the rows
+        padded to the largest."""
+        sizes = self.all_gather(torch.tensor([t.shape[0]], device=t.device)
+                                ).view(-1).tolist()
+        padded = t.new_zeros((max(max(sizes), 1), *t.shape[1:]))
+        padded[:t.shape[0]] = t
+        rows = self.all_gather(padded)
+        return [rows[p, :n] for p, n in enumerate(sizes)]
 
     def all_gather_object(self, obj) -> list:
         """Every rank's picklable ``obj``, in rank order: one pickle a rank,

@@ -13,13 +13,12 @@ job out of core through the wave engine.  The job runs on the card
 ``--devices N`` runs the job across N local ranks
 (:func:`repro_torch.launch.mesh.spawn_ranks`): gloo ranks on the CPU with
 ``--device cpu``; on the card, NCCL when the host has a card for each rank,
-else gloo ranks sharing the card.  Rank 0 prints what ``repro``'s
+else gloo ranks sharing the card.  With ``--wave-tokens`` every wave runs
+across the ranks (the mesh waves).  Rank 0 prints what ``repro``'s
 ``ngram --devices N`` prints, and writes the trace and metrics files.
 
 Where this CLI differs from ``repro``'s:
 
-  * ``--devices N`` with ``--wave-tokens`` exits with the message the
-    service's ``mesh=`` raises: the waves across ranks are not ported yet.
   * ``--merge-route`` defaults to ``merge`` (the ``merge_path`` tree on the
     card), where ``repro`` defaults to ``kway``: the port's ``kway`` folds
     on the host.  Every route gives the same output.
@@ -30,7 +29,7 @@ from __future__ import annotations
 import argparse
 import time
 
-from repro_torch.launch.mesh import STREAMING_NOT_PORTED, spawn_ranks
+from repro_torch.launch.mesh import spawn_ranks
 
 
 def main(argv=None) -> None:
@@ -67,7 +66,7 @@ def main(argv=None) -> None:
                          "instead of the fold thread")
     ap.add_argument("--devices", type=int, default=0,
                     help=">1: run the job across N local ranks (with "
-                         "--wave-tokens: not ported, exits)")
+                         "--wave-tokens, every wave across them)")
     ap.add_argument("--device", default=None,
                     help="device the job runs on: the card unless cpu is "
                          "given (no card: the run raises)")
@@ -78,8 +77,6 @@ def main(argv=None) -> None:
                          "summary table")
     args = ap.parse_args(argv)
     if args.devices > 1:
-        if args.wave_tokens is not None:
-            raise SystemExit(STREAMING_NOT_PORTED)
         spawn_ranks(args.devices, run, args, device=args.device)
     else:
         run(None, args)
@@ -124,7 +121,7 @@ def run(mesh, args) -> None:
         stats = WaveExecutor(cfg, wave_tokens=args.wave_tokens,
                              accumulator=args.accumulator,
                              merge_route=args.merge_route,
-                             overlap=not args.no_overlap,
+                             overlap=not args.no_overlap, mesh=mesh,
                              device=device).run(tokens)
     else:
         kw = {"bucket_ids": years} if args.series else {}

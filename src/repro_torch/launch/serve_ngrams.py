@@ -21,17 +21,18 @@ streams each ingest through the wave engine.
 service answers point-lookup / top-k / streaming-completion requests
 through the continuous batcher and admission layer until interrupted.
 
-``--devices N`` (N > 1) in the micro-batch mode serves through the
-hash-routed sharded index across N local ranks
+``--devices N`` (N > 1) runs N local ranks
 (:func:`repro_torch.launch.mesh.spawn_ranks`, the backend rule of
-``launch/mesh.py``); rank 0 prints and records the trace and metrics.
+``launch/mesh.py``): the micro-batch mode serves through the hash-routed
+sharded index across them; ``--streaming`` runs every ingest's job across
+them (the mesh waves with ``--wave-tokens``), each rank keeping the same
+generational index, and rank 0 alone answers the query loop.  Rank 0
+prints and records the trace and metrics.  ``--serve`` with ``--devices``
+serves from one device, as ``repro``'s does.
 
 Everything runs on the card (``--device cpu`` runs the kernels' plain
 versions on the host instead).  Where this CLI differs from ``repro``'s:
 
-  * ``--devices N`` with ``--streaming`` or ``--serve`` exits with the
-    message the service's ``mesh=`` raises: the streaming path across
-    ranks is not ported yet.
   * ``--use-kernels`` is gone: the device of the data decides whether a
     kernel runs (a CUDA tensor launches it, a CPU tensor runs its plain
     version).
@@ -46,7 +47,7 @@ from __future__ import annotations
 import argparse
 import time
 
-from repro_torch.launch.mesh import STREAMING_NOT_PORTED, spawn_ranks
+from repro_torch.launch.mesh import spawn_ranks
 
 _REEXPORTS = {
     # lazy (PEP 562), as repro's driver keeps them: importing this module
@@ -75,8 +76,9 @@ def _percentiles(lat_s: list[float]) -> str:
             f"max={a.max():.2f}ms")
 
 
-def _build_streaming_service(args):
-    """Corpus + config + service, shared by --streaming and --serve."""
+def _build_streaming_service(args, mesh=None):
+    """Corpus + config + service, shared by --streaming and --serve; with a
+    ``mesh``, this rank's service."""
     from repro_torch.core.stats import NGramConfig
     from repro_torch.data import corpus as corpus_mod
     from repro_torch.serve.service import StreamingNGramService
@@ -90,8 +92,8 @@ def _build_streaming_service(args):
                                 block_size=args.block_size,
                                 cache_capacity=args.cache_capacity,
                                 wave_tokens=args.wave_tokens,
-                                overlap=not args.no_overlap,
-                                device=args.device)
+                                overlap=not args.no_overlap, mesh=mesh,
+                                device=args.device if mesh is None else mesh.device)
     return prof, tokens, svc
 
 
@@ -119,26 +121,36 @@ def run_serve(args) -> None:
         serve_http(fe, host, int(port), block=True)
 
 
-def run_streaming(args) -> None:
-    """Generational serving loop: base build, then ingest/query interleave."""
+def run_streaming(mesh, args) -> None:
+    """Generational serving loop: base build, then ingest/query interleave.
+    With a ``mesh`` (one rank of it) every ingest runs across the ranks;
+    rank 0 answers the queries, prints, and records the trace and metrics."""
     import numpy as np
     from repro_torch.index.merge import segment_to_stats
     from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import report as obs_report
     from repro_torch.serve.service import make_query_stream
 
-    prof, tokens, svc = _build_streaming_service(args)
+    leader = mesh is None or mesh.rank == 0
+    finish_obs = obs_report.setup(args.trace, args.metrics) if leader else None
+    if mesh is not None and leader:
+        print(f"mesh: {mesh.size} ranks on {mesh.device.type}, backend {mesh.backend}")
+    prof, tokens, svc = _build_streaming_service(args, mesh)
     nb = max(args.ingest_batches, 1)
     base, rest = np.split(tokens, [int(len(tokens) * 0.6)])
     deltas = np.array_split(rest, nb)
     rep = svc.ingest(base)
-    print(f"base: {len(base)} tokens -> {rep['ingested_rows']} grams "
-          f"(job {rep['job_s']:.2f}s, freeze {rep['ingest_s']:.2f}s)")
+    if leader:
+        print(f"base: {len(base)} tokens -> {rep['ingested_rows']} grams "
+              f"(job {rep['job_s']:.2f}s, freeze {rep['ingest_s']:.2f}s)")
 
     batch = args.stream_batch
     for step, delta in enumerate(deltas):
         t0 = time.perf_counter()
         rep = svc.ingest(delta)
         t_ing = time.perf_counter() - t0
+        if not leader:
+            continue
         stats = segment_to_stats(svc.gen.segments[0].to_segment())
         # fresh query stream per step (seed=step), split in two cold halves:
         # one drives the pipelined path (throughput), one the per-batch sync
@@ -171,9 +183,11 @@ def run_streaming(args) -> None:
               f"merges={rep['merges']} segments={rep['segments']}) | pipelined "
               f"{n_pipe / t_pipe:>8,.0f} qps | sync {_percentiles(lat)} "
               f"cache_hit={svc.cache.hit_rate:.0%}")
-    svc.cache.publish_metrics()
-    print(f"final: {svc.gen!r}, {svc.gen.nbytes / 2**20:.1f} MiB, "
-          f"cache {len(svc.cache)} entries hit_rate={svc.cache.hit_rate:.0%}")
+    if leader:
+        svc.cache.publish_metrics()
+        print(f"final: {svc.gen!r}, {svc.gen.nbytes / 2**20:.1f} MiB, "
+              f"cache {len(svc.cache)} entries hit_rate={svc.cache.hit_rate:.0%}")
+        finish_obs({"driver": "serve_ngrams", "mode": "streaming"})
 
 
 def run_microbatch(mesh, args) -> None:
@@ -271,9 +285,9 @@ def main(argv=None) -> None:
     ap.add_argument("--batch-sizes", default="1,64,4096")
     ap.add_argument("--topk", type=int, default=8)
     ap.add_argument("--devices", type=int, default=0,
-                    help=">1: serve through the sharded index across N local "
-                         "ranks (with --streaming or --serve: not ported, "
-                         "exits)")
+                    help=">1: run N local ranks: the sharded index, or with "
+                         "--streaming every ingest's job across them (--serve "
+                         "serves from one device)")
     ap.add_argument("--device", default=None,
                     help="device the index lives on: the card unless cpu is "
                          "given (no card: the run raises)")
@@ -320,24 +334,19 @@ def main(argv=None) -> None:
                     help="append a metrics snapshot (JSONL) and print the "
                          "summary table")
     args = ap.parse_args(argv)
-    if args.devices > 1:
-        if args.serve or args.streaming:
-            raise SystemExit(STREAMING_NOT_PORTED)
-        spawn_ranks(args.devices, run_microbatch, args, device=args.device)
-        return
-    if not (args.serve or args.streaming):
-        run_microbatch(None, args)
-        return
-    from repro_torch.obs import report as obs_report
-    finish_obs = obs_report.setup(args.trace, args.metrics)
     if args.serve:
+        from repro_torch.obs import report as obs_report
+        finish_obs = obs_report.setup(args.trace, args.metrics)
         try:
             run_serve(args)
         finally:
             finish_obs({"driver": "serve_ngrams", "mode": "serve"})
         return
-    run_streaming(args)
-    finish_obs({"driver": "serve_ngrams", "mode": "streaming"})
+    mode = run_streaming if args.streaming else run_microbatch
+    if args.devices > 1:
+        spawn_ranks(args.devices, mode, args, device=args.device)
+    else:
+        mode(None, args)
 
 
 if __name__ == "__main__":

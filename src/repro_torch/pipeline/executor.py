@@ -16,7 +16,23 @@ folds the waves' sorted segments (``index.merge``'s accumulators) on a
 background thread while the next waves run; the global tau applies once at
 the end, so its output equals ``run_plan``'s array for array.
 ``run_streaming`` ingests each wave into a ``GenerationalIndex`` instead.
-The waves across ranks (mesh) wait for the streaming path across ranks.
+
+With a :class:`~repro_torch.launch.mesh.DataMesh` of more than one rank
+(the mesh waves, port of ``repro``'s ``shard_map`` waves), every rank runs
+``WaveExecutor(cfg, mesh=mesh, ...).run(tokens)`` with the whole corpus and
+takes its row of each wave's ``[P, n_local]`` split, a sigma - 1 halo from
+the next rank, and every round's hash-partitioned exchange; the shuffle
+sends all evidence of a gram to one rank, so each rank folds its own rows
+and :meth:`WaveExecutor.run` gathers the folded parts once at the end.  Two
+differences in form from ``repro``: a wave fits its rounds' capacities
+before it exchanges anything (one reduction of each round's largest part,
+doubling the wave's sticky scale), where ``repro`` runs the whole wave,
+reads the overflow sum and reruns it at double scale; and one all-to-all
+moves every round's buckets, where ``repro``'s program exchanges round by
+round.  Both reach the same scale and the same ``retries`` (``repro``'s
+with ``overlap=False``; with the fold thread its count depends on thread
+timing), and no overflowing buffer is sent, so ``shuffle(reduce_overflow=)``
+has no use here.
 
 Spans ``plan.run`` and ``round.{emit,stages,materialize}`` mark the
 monolithic job's phases; ``round.materialize`` also covers the next round's
@@ -24,18 +40,25 @@ carry.  PyTorch launches asynchronously, so with tracing on these spans
 synchronize the card at their close: their durations then cover the device
 work they launched.  The wave spans (``wave.run``, ``wave.window.pad``,
 ``wave.window.h2d``, ``wave.submit`` with one ``round.stages`` a wave,
-``wave.collect``, ``wave.fold``, ``wave.finalize``) do not: a wave's
-dispatch must not wait for the card, and its collect waits by itself.
+``wave.collect``, ``wave.fold``, ``wave.finalize``; on a mesh
+``wave.mesh.dispatch``, ``wave.mesh.retry`` and ``wave.mesh.collect`` for
+the submit and collect) do not: a wave's dispatch must not wait for the
+card, and its collect waits by itself.
 """
 from __future__ import annotations
+
+import contextlib
+import queue
+import threading
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device, u32_words
 from repro_torch.kernels import ops as kops
-from repro_torch.launch.mesh import STREAMING_NOT_PORTED, mesh_size
+from repro_torch.launch.mesh import mesh_size
 from repro_torch.mapreduce import pack as packing
+from repro_torch.mapreduce import shuffle as mr_shuffle
 from repro_torch.mapreduce import sort as mr_sort
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
@@ -297,6 +320,69 @@ def _host_tokens(tokens) -> np.ndarray:
     return np.asarray(tokens, np.int32)
 
 
+class _FoldCollectives:
+    """The collectives a mesh run's fold thread needs, issued by the feeder.
+
+    A process group pairs the ranks' collectives by their order, so every
+    collective of a mesh run is issued by the one thread that submits the
+    waves.  The fold thread's (the tiered accumulator's rung sizes over the
+    ranks) come through here: :meth:`sum_int` queues the value and waits,
+    and the feeder answers every request of wave w's fold in :meth:`serve`
+    before it submits wave w + 2 (the last waves' after its last submit, in
+    wave order).  Every rank's fold asks the same questions, since its
+    decisions rest on sizes over all ranks, so every rank issues them in the
+    same order.
+    """
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self._requests: queue.Queue = queue.Queue()
+        self._lock = threading.Lock()
+        self._error: BaseException | None = None
+
+    def sum_int(self, value: int) -> int:
+        """The sum of ``value`` over the ranks (called on the fold thread)."""
+        reply: queue.Queue = queue.Queue(maxsize=1)
+        with self._lock:
+            if self._error is not None:
+                raise RuntimeError("the feeder thread failed") from self._error
+            self._requests.put((value, reply))
+        out = reply.get()
+        if isinstance(out, BaseException):
+            raise RuntimeError("the feeder thread failed") from out
+        return out
+
+    def wave_done(self) -> None:
+        """Mark the end of one wave's fold (called on the fold thread)."""
+        self._requests.put(None)
+
+    def serve(self) -> None:
+        """Answer the requests of the next wave's fold, up to its end."""
+        while True:
+            req = self._requests.get()
+            if req is None:
+                return
+            value, reply = req
+            try:
+                (total,) = self.mesh.sum_ints(value)
+            except BaseException as e:
+                reply.put(e)
+                raise
+            reply.put(total)
+
+    def close(self, error: BaseException) -> None:
+        """The feeder failed: fail every request, waiting or to come."""
+        with self._lock:
+            self._error = error
+            while True:
+                try:
+                    req = self._requests.get_nowait()
+                except queue.Empty:
+                    return
+                if req is not None:
+                    req[1].put(error)
+
+
 class WaveExecutor:
     """Run a :class:`JobPlan` over fixed-size token waves (out of core).
 
@@ -320,13 +406,25 @@ class WaveExecutor:
     ``fold_rows`` (the rows fed through merges) are added, and
     ``shuffle_skew`` is the worst wave's.
 
+    ``mesh``: a :class:`~repro_torch.launch.mesh.DataMesh` of more than one
+    rank runs the mesh waves (:meth:`_submit_wave_mesh`); every rank calls
+    :meth:`run` with the same corpus and gets the same output, equal to the
+    single-device run's, counters included.  Each rank folds the rows its
+    exchanges brought it; the tiered accumulator decides on rung sizes over
+    all ranks, so the ranks' ``fold_rows`` sum to the one fold's.  Every
+    collective runs on the thread that submits the waves (the fold thread's
+    sizes through :class:`_FoldCollectives`).  ``shuffle_skew`` is measured
+    only while a metrics registry is set on some rank, as in ``repro``.
+
     Device memory: O(wave * sigma) records per wave in flight (at most
     ``_WAVES_IN_FLIGHT`` queued beside the one folding), plus the running
-    segments, which hold the exact gram set seen so far.  Waves take no
-    bucketed series (``n_buckets``) and, until the streaming path across
-    ranks is ported, no ``mesh`` of more than one device.  Runs on the card unless ``device``
-    says otherwise.
+    segments, which hold the exact gram set seen so far (on a mesh, the
+    rank's part of it).  Waves take no bucketed series (``n_buckets``).
+    Runs on the card unless ``device`` says otherwise.
     """
+
+    #: doublings of a wave's capacity scale before a mesh wave gives up
+    MAX_RETRIES = 5
 
     def __init__(self, cfg, *, wave_tokens: int | None = None,
                  plan: JobPlan | None = None, merge_route: str = "merge",
@@ -341,13 +439,12 @@ class WaveExecutor:
         if accumulator not in ("defer", "tiered", "pairwise"):
             raise ValueError(f"unknown accumulator {accumulator!r} "
                              "(options: 'defer', 'tiered', 'pairwise')")
-        if mesh_size(mesh) > 1:
-            raise NotImplementedError(STREAMING_NOT_PORTED)
         self.cfg = cfg
         self.wave_tokens = wave_tokens
         self.plan = plan or plan_for(cfg)
         self.merge_route = merge_route
         self.accumulator = accumulator
+        self.mesh = mesh
         # overlap: collect and fold each wave on a background thread (and,
         # on the card, its own stream) while the next waves run; False
         # serializes dispatch and fold on the calling thread
@@ -357,10 +454,18 @@ class WaveExecutor:
         # segment layout, i.e. at cfg.vocab_size; other plans take the
         # stats route
         self._direct = self.plan.effective_lane_vocab(cfg) == cfg.vocab_size
+        # the mesh waves' capacity scale: doubles when a round's largest
+        # part outgrows it and sticks, so later waves start at the proven one
+        self._mesh_scale = 1
+        self._with_skew = False
+
+    @property
+    def _use_mesh(self) -> bool:
+        return mesh_size(self.mesh) > 1
 
     # --- wave iteration ---------------------------------------------------- #
 
-    def _windows(self, tokens: np.ndarray):
+    def _windows(self, tokens: np.ndarray, *, to_device: bool = True):
         """Yield (host slab, tok_ext [wave + sigma - 1] on the device, n_live).
 
         The corpus is padded once into pinned memory (on the card), and each
@@ -368,6 +473,8 @@ class WaveExecutor:
         the wave's event has fired.  ``n_live`` is the wave's true token
         count: the last wave of a corpus that is not a multiple of the wave
         gets a partial one, so its emit masks the zero-padded tail.
+        ``to_device=False`` yields no device window (``None``): the mesh
+        waves copy only the rank's row of the slab.
         """
         n = int(tokens.shape[0])
         wave = self.wave_tokens if self.wave_tokens is not None else n
@@ -383,10 +490,12 @@ class WaveExecutor:
         for w in range(n_waves):
             n_live = max(0, min(wave, n - w * wave))
             slab = padded[w * wave: (w + 1) * wave + halo]
-            with obs_trace.span("wave.window.h2d") as sp:
-                if sp:
-                    sp.set(wave=w)
-                tok_ext = slab.to(self.device, non_blocking=True)
+            tok_ext = None
+            if to_device:
+                with obs_trace.span("wave.window.h2d") as sp:
+                    if sp:
+                        sp.set(wave=w)
+                    tok_ext = slab.to(self.device, non_blocking=True)
             yield slab, tok_ext, n_live
 
     # --- dispatch and collect ---------------------------------------------- #
@@ -399,8 +508,11 @@ class WaveExecutor:
         device until :meth:`_collect_wave`.  On the card a CUDA event marks
         the wave's end: the collect waits for it alone, not for the waves
         enqueued after it.  ``slab``, the wave's pinned host tokens, rides
-        along until the collect.
+        along until the collect.  A mesh wave goes to
+        :meth:`_submit_wave_mesh`.
         """
+        if self._use_mesh:
+            return self._submit_wave_mesh(slab, n_live)
         cfg, plan = self.cfg, self.plan
         with obs_trace.span("wave.submit") as sp:
             if sp:
@@ -410,14 +522,19 @@ class WaveExecutor:
                 if sp_s:
                     sp_s.set(fused_rounds=plan.rounds)
                 rounds = _wave_rounds(cfg, plan, tok_ext, n_live)
-            done = None
-            if tok_ext.is_cuda:
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(tok_ext.device))
             rec_bytes = packing.record_bytes(
                 cfg.sigma, plan.effective_lane_vocab(cfg), n_meta=plan.map.n_meta)
-            return {"rounds": rounds, "rec_bytes": rec_bytes, "done": done,
-                    "slab": slab}
+            return {"rounds": rounds, "rec_bytes": rec_bytes,
+                    "done": self._wave_event(tok_ext), "slab": slab}
+
+    @staticmethod
+    def _wave_event(t: torch.Tensor):
+        """On the card, a CUDA event recorded after the wave's work."""
+        if not t.is_cuda:
+            return None
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(t.device))
+        return done
 
     @staticmethod
     def _await(pend: dict) -> None:
@@ -432,6 +549,8 @@ class WaveExecutor:
         for (terms, flags, counts), *rest in pend["rounds"]:
             for t in (terms, flags, counts, *rest):
                 t.record_stream(stream)
+        if "rows" in pend:
+            pend["rows"].record_stream(stream)
 
     @staticmethod
     def _wave_counters(pend: dict) -> dict:
@@ -455,6 +574,8 @@ class WaveExecutor:
 
     def _collect_wave(self, pend: dict):
         """Materialize a submitted wave -> its exact ``NGramStats`` partial."""
+        if pend.get("mesh"):
+            return self._collect_wave_mesh(pend)
         with obs_trace.span("wave.collect") as sp:
             self._await(pend)
             counters = self._wave_counters(pend)
@@ -475,59 +596,312 @@ class WaveExecutor:
                                       device=self.device)
         return WavePartial(seg, len(wave_stats), wave_stats.counters)
 
+    def _candidate_rows(self, rounds) -> tuple[torch.Tensor, torch.Tensor]:
+        """The kept (key, count) rows of a wave's rounds, unsorted: each
+        round's (flags, counts, sorted key lanes) become packed candidate
+        rows (``stages.segment_candidates``, ``_COLLECT_ROWS`` reducer rows
+        at a time), compacted to the live ones."""
+        from repro_torch.core.common import prefix_masks
+        cfg = self.cfg
+        masks = prefix_masks(cfg.sigma, cfg.vocab_size, self.device)
+        key_parts, cnt_parts = [], []
+        for flags, counts, lanes in rounds:
+            for r0 in range(0, max(lanes.shape[0], 1), _COLLECT_ROWS):
+                rows = slice(r0, r0 + _COLLECT_ROWS)
+                keys, cnts = stages.segment_candidates(
+                    flags[rows], counts[rows], lanes[rows], masks,
+                    sigma=cfg.sigma, reduce_kind=self.plan.reduce.kind)
+                live = cnts > 0
+                key_parts.append(keys[live])
+                cnt_parts.append(cnts[live])
+                del keys, cnts, live
+        return torch.cat(key_parts), torch.cat(cnt_parts)
+
+    def _sorted_partial(self, keys: torch.Tensor, cnts: torch.Tensor,
+                        counters: dict) -> WavePartial:
+        """A wave's kept rows sorted into its segment (every key unique)."""
+        from repro_torch.index.build import IndexSegment
+        keys, (cnts,) = mr_sort.sort_with_payload(keys, [cnts])
+        seg = IndexSegment(keys=keys, counts=cnts, sigma=self.cfg.sigma,
+                           vocab_size=self.cfg.vocab_size)
+        return WavePartial(seg, int(keys.shape[0]), counters)
+
     def _collect_wave_segment(self, pend: dict) -> WavePartial:
         """Collect a submitted wave straight into a sorted segment, on its
         device.
 
         Each round's reducer output becomes packed candidate rows
-        (``stages.segment_candidates``, ``_COLLECT_ROWS`` reducer rows at a
-        time); the kept rows of every round are compacted and sorted by
-        ``mapreduce.sort``'s lexicographic order.
+        (:meth:`_candidate_rows`); the kept rows of every round are sorted
+        by ``mapreduce.sort``'s lexicographic order.
         Every kept key of a wave is unique (rounds emit disjoint lengths, and
         a sorted reducer block flags each run once), so the order is a pure
         function of the row set and equals ``repro``'s host collect, and the
         stats route's (``segment_from_wave_stats``), row for row.  Plans
-        whose lanes pack with another vocabulary take the stats route.
+        whose lanes pack with another vocabulary take the stats route.  A
+        mesh wave goes to :meth:`_collect_wave_segment_mesh`.
         """
+        if pend.get("mesh"):
+            return self._collect_wave_segment_mesh(pend)
         if not self._direct:
             return self._partial_from_stats(self._collect_wave(pend))
-        from repro_torch.core.common import prefix_masks
-        from repro_torch.index.build import IndexSegment
-        cfg = self.cfg
         with obs_trace.span("wave.collect") as sp:
             self._await(pend)
             counters = self._wave_counters(pend)
-            masks = prefix_masks(cfg.sigma, cfg.vocab_size, self.device)
-            key_parts, cnt_parts = [], []
-            for (_, flags, counts), _, _, _, lanes in pend["rounds"]:
-                for r0 in range(0, max(lanes.shape[0], 1), _COLLECT_ROWS):
-                    rows = slice(r0, r0 + _COLLECT_ROWS)
-                    keys, cnts = stages.segment_candidates(
-                        flags[rows], counts[rows], lanes[rows], masks,
-                        sigma=cfg.sigma, reduce_kind=self.plan.reduce.kind)
-                    live = cnts > 0
-                    key_parts.append(keys[live])
-                    cnt_parts.append(cnts[live])
-                    del keys, cnts, live
-            keys, (cnts,) = mr_sort.sort_with_payload(torch.cat(key_parts),
-                                                      [torch.cat(cnt_parts)])
-            del key_parts, cnt_parts
-            seg = IndexSegment(keys=keys, counts=cnts, sigma=cfg.sigma,
-                               vocab_size=cfg.vocab_size)
+            keys, cnts = self._candidate_rows(
+                [(flags, counts, lanes)
+                 for (_, flags, counts), _, _, _, lanes in pend["rounds"]])
+            part = self._sorted_partial(keys, cnts, counters)
+            del keys, cnts
             if sp:
-                sp.set(rows=int(keys.shape[0]), shuffle_records=counters.get(
+                sp.set(rows=part.n_rows, shuffle_records=counters.get(
                     "shuffle_records", 0))
-            return WavePartial(seg, int(keys.shape[0]), counters)
+            return part
+
+    # --- the mesh waves ---------------------------------------------------- #
+
+    def _fit_mesh_scale(self, need: list[int], bases: list[int]) -> int:
+        """Double the sticky capacity scale until every round's capacity
+        (``bases[k]`` times the scale) holds its largest part over the
+        ranks (``need[k]``).  Returns the doublings, each a
+        ``wave.mesh.retry`` span: the reruns ``repro`` makes of a wave that
+        overflowed, at most ``MAX_RETRIES``."""
+        doubled = 0
+        while any(n > self._mesh_scale * b for n, b in zip(need, bases)):
+            if doubled >= self.MAX_RETRIES:
+                raise RuntimeError("wave shuffle overflow persisted at capacity "
+                                   f"scale {self._mesh_scale}")
+            doubled += 1
+            self._mesh_scale *= 2
+            with obs_trace.span("wave.mesh.retry") as sp:
+                if sp:
+                    sp.set(retry=doubled, scale=self._mesh_scale)
+        return doubled
+
+    def _mesh_rows(self, rounds) -> tuple[torch.Tensor, torch.Tensor]:
+        """This rank's kept rows of a mesh wave (unsorted): the direct
+        candidates, or on the stats route each round's reducer output
+        materialized and frozen (``segment_from_wave_stats``)."""
+        if self._direct:
+            return self._candidate_rows([(f, c, lanes)
+                                         for (_, f, c), lanes in rounds])
+        from repro_torch.index.build import segment_from_wave_stats
+        stats = None
+        for dense, _ in rounds:
+            part = materialize(dense, 1)
+            stats = part if stats is None else stats.merged_with(part)
+        seg = segment_from_wave_stats(stats, vocab_size=self.cfg.vocab_size,
+                                      device=self.device)
+        return seg.keys, seg.counts
+
+    def _mesh_counters(self, cnt: np.ndarray, hist, rec_bytes: int,
+                       retries: int) -> dict:
+        """A mesh wave's counters from its reduced ``[rounds, 3]`` block
+        (map records, shuffled records, overflow) and, when measured, its
+        reduced skew histograms ``[rounds, _SKEW_BUCKETS]``."""
+        from repro_torch.core.stats import add_counters
+        counters: dict = {}
+        if retries:
+            add_counters(counters, retries=retries)
+        for k in range(cnt.shape[0]):
+            shuf = int(cnt[k, 1])
+            add_counters(counters, jobs=1, map_records=int(cnt[k, 0]),
+                         shuffle_records=shuf, shuffle_bytes=shuf * rec_bytes)
+            if hist is not None and shuf:
+                skew = float(hist[k].max() * _SKEW_BUCKETS / max(hist[k].sum(), 1))
+                counters["shuffle_skew"] = max(counters.get("shuffle_skew", 0.0),
+                                               skew)
+        return counters
+
+    def _submit_wave_mesh(self, slab: torch.Tensor, n_live: int, *,
+                          gather: bool = False) -> dict:
+        """Run one mesh wave's round chain on this rank, with every
+        collective the wave needs, in one fixed order: the halo, the
+        capacity fit, the exchange, one reduction of the counters (and one
+        of the skew histograms when measured), and with ``gather`` the
+        gather of every rank's kept rows (the streaming ingest's).
+
+        The window ``slab`` [wave + sigma - 1] splits as ``[P, n_local]``
+        with ``n_local = max(ceil(len / P), sigma - 1, 1)``; this rank emits
+        over its row and a sigma - 1 halo from the next rank (zeros on the
+        last), with ``clip(n_live - rank * n_local, 0, n_local)`` live
+        positions.  Each round emits, combines, keys and partitions
+        (``hash_partition``) its records; at ``tau_eff = 1`` a round's carry
+        is a function of the rank's own window and emits, so every round
+        partitions before any exchange.  One reduction then fits all the
+        rounds' capacities (the scale times ``max(8, int(capacity_factor *
+        emit rows / P) + 1)`` each), and one all-to-all moves every round's
+        buckets; each round then sorts and reduces what it received.
+        """
+        from repro_torch.core.common import halo as halo_of
+        cfg, plan, mesh = self.cfg, self.plan, self.mesh
+        n_parts, halo = mesh.size, cfg.sigma - 1
+        lane_vocab = plan.effective_lane_vocab(cfg)
+        n_l = packing.n_lanes(cfg.sigma, lane_vocab)
+        combine_route = plan.combine.route if plan.combine is not None else None
+        rec_bytes = packing.record_bytes(cfg.sigma, lane_vocab, n_meta=plan.map.n_meta)
+        win_len = int(slab.shape[0])
+        n_local = max(-(-win_len // n_parts), halo, 1)
+        lo = min(mesh.rank * n_local, win_len)
+        own = slab[lo:lo + n_local]
+        with obs_trace.span("wave.mesh.dispatch") as sp:
+            if sp:
+                sp.set(n_live=n_live, rounds=plan.rounds, n_local=n_local,
+                       scale=self._mesh_scale)
+            tok = torch.zeros((n_local,), dtype=torch.int32, device=self.device)
+            tok[:own.shape[0]].copy_(own, non_blocking=True)
+            tok_ext = torch.cat([tok, halo_of(tok[:halo], mesh)]) if halo else tok
+            n_live_local = min(max(n_live - mesh.rank * n_local, 0), n_local)
+            parts, hists = [], []
+            carry = None
+            for k in range(1, plan.rounds + 1):
+                records, valid, emit_extras = plan.map.emit(
+                    tok_ext, None, n_live_local, cfg, carry, k)
+                base = max(8, int(cfg.capacity_factor * records.shape[0]
+                                  / n_parts) + 1)
+                map_rec = valid.sum()
+                del valid
+                if combine_route is not None:
+                    records = stages.combine(records, n_l, False,
+                                             route=combine_route)
+                live = records[:, n_l] > 0
+                key = stages.partition_keys(records, n_l, kind=plan.shuffle.key,
+                                            vocab_size=lane_vocab)
+                if self._with_skew:
+                    hists.append(kops.hash_partition(key, live,
+                                                     n_parts=_SKEW_BUCKETS)[1])
+                part, hist = kops.hash_partition(key, live, n_parts=n_parts)
+                parts.append((records, part, hist, map_rec, base))
+                del key, live
+                if k < plan.rounds and plan.update_carry is not None:
+                    carry = plan.update_carry(cfg, 1, k, tok_ext, None, {},
+                                              emit_extras, carry)
+                del emit_extras
+            del carry
+            need = mesh.all_reduce(torch.stack([h.max() for _, _, h, _, _ in parts]),
+                                   "max").tolist()
+            retries = self._fit_mesh_scale(need, [b for *_, b in parts])
+            bufs, caps, overflow = [], [], []
+            for records, part, hist, _, base in parts:
+                caps.append(self._mesh_scale * base)
+                buf, over = mr_shuffle.bucketize(records, part, n_parts, caps[-1],
+                                                 counts=hist)
+                bufs.append(buf)
+                overflow.append(over)
+            recv = mesh.all_to_all(torch.cat(bufs, dim=1))   # [P, sum(caps), W]
+            del bufs
+            rounds, cnt_rows, off = [], [], 0
+            for (_, _, _, map_rec, _), cap, over in zip(parts, caps, overflow):
+                local = recv[:, off:off + cap].reshape(-1, recv.shape[-1])
+                off += cap
+                cnt_rows.append(torch.stack([map_rec.to(torch.int64),
+                                             (local[:, n_l] > 0).sum(), over]))
+                rec = stages.sort_stage(local, n_keys=n_l)
+                del local
+                if plan.reduce.kind == "suffix":
+                    dense = stages.reduce_suffix(rec, sigma=cfg.sigma,
+                                                 vocab_size=lane_vocab)
+                else:
+                    # position payloads feed only the tau > 1 carries
+                    dense = stages.reduce_exact(rec, sigma=cfg.sigma,
+                                                vocab_size=lane_vocab)
+                rounds.append((dense[:3], rec[:, :n_l]))
+                del rec, dense
+            del parts, recv
+            cnt = mesh.all_reduce(torch.stack(cnt_rows)).cpu().numpy()
+            hist = (mesh.all_reduce(torch.stack(hists)).cpu().numpy()
+                    if self._with_skew else None)
+            if int(cnt[:, 2].sum()):
+                raise RuntimeError("a fitted wave exchange overflowed")
+            counters = self._mesh_counters(cnt, hist, rec_bytes, retries)
+            pend = {"mesh": True, "rounds": rounds, "counters": counters,
+                    "slab": slab}
+            if gather:
+                keys, cnts = self._mesh_rows(rounds)
+                pend["rows"] = torch.cat(mesh.all_gather_rows(
+                    torch.cat([keys, cnts[:, None]], dim=1)))
+                pend["rounds"] = []
+                del keys, cnts
+            del rounds
+            pend["done"] = self._wave_event(tok)
+            return pend
+
+    def _collect_wave_segment_mesh(self, pend: dict) -> WavePartial:
+        """A mesh wave's sorted segment: this rank's kept rows, or with the
+        gather every rank's (the rank sets are disjoint, since the exchange
+        sends all evidence of a gram to one rank), sorted on this rank."""
+        with obs_trace.span("wave.mesh.collect") as sp:
+            self._await(pend)
+            counters = pend["counters"]
+            if "rows" in pend:
+                rows = pend.pop("rows")
+                keys, cnts = rows[:, :-1], rows[:, -1]
+            else:
+                keys, cnts = self._mesh_rows(pend["rounds"])
+            part = self._sorted_partial(keys, cnts, counters)
+            del keys, cnts
+            if sp:
+                sp.set(rows=part.n_rows, retries=counters.get("retries", 0),
+                       shuffle_records=counters.get("shuffle_records", 0))
+            return part
+
+    def _collect_wave_mesh(self, pend: dict):
+        """A gathered mesh wave -> ``NGramStats`` (``iter_wave_stats``)."""
+        from repro_torch.index.merge import segment_to_stats
+        part = self._collect_wave_segment_mesh(pend)
+        out = segment_to_stats(part.segment)
+        out.counters = dict(part.counters)
+        return out
+
+    def _gather_segment(self, seg, min_count: int):
+        """Every rank's rows of its folded segment with cf >= ``min_count``,
+        merged into segment order on every rank (the parts are disjoint)."""
+        from repro_torch.index import merge
+        from repro_torch.index.build import IndexSegment
+        r = seg.n_rows
+        keys, cnts = seg.keys[:r], seg.counts[:r]
+        if min_count > 1:
+            keep = cnts >= min_count
+            keys, cnts = keys[keep], cnts[keep]
+        parts = [IndexSegment(keys=p[:, :-1], counts=p[:, -1], sigma=seg.sigma,
+                              vocab_size=seg.vocab_size)
+                 for p in self.mesh.all_gather_rows(
+                     torch.cat([keys, cnts[:, None]], dim=1))
+                 if p.shape[0]]
+        if len(parts) > 1:
+            return merge.merge_segments(parts, route=self.merge_route)
+        return parts[0] if parts else IndexSegment(
+            keys=keys[:0], counts=cnts[:0], sigma=seg.sigma,
+            vocab_size=seg.vocab_size)
 
     # --- public iteration -------------------------------------------------- #
 
-    def iter_wave_stats(self, tokens):
-        """Per-wave exact partials (``tau = 1``), double-buffered: wave i + 1
-        is enqueued before wave i is materialized."""
+    def _submit_gathered(self, tok_ext, n_live: int, slab=None) -> dict:
+        """:meth:`_submit_wave`, with a mesh wave's rows gathered to every
+        rank (the per-wave outputs of ``iter_wave_stats`` and
+        ``run_streaming``)."""
+        if self._use_mesh:
+            return self._submit_wave_mesh(slab, n_live, gather=True)
+        return self._submit_wave(tok_ext, n_live, slab)
+
+    def _start(self, tokens) -> np.ndarray:
+        """The corpus on the host, checked; on a mesh, whether this run
+        measures the skew (some rank has a metrics registry: one reduction,
+        so that every rank runs the same collectives)."""
         tokens = _host_tokens(tokens)
         self.cfg.validate_tokens(tokens)
-        drv = DoubleBufferedDriver(self._submit_wave, collect=self._collect_wave)
-        for slab, tok_ext, n_live in self._windows(tokens):
+        if self._use_mesh:
+            self._with_skew = bool(self.mesh.max_int(
+                int(bool(obs_metrics.get_registry()))))
+        return tokens
+
+    def iter_wave_stats(self, tokens):
+        """Per-wave exact partials (``tau = 1``), double-buffered: wave i + 1
+        is enqueued before wave i is materialized.  On a mesh every rank
+        gets every wave's whole partial."""
+        tokens = self._start(tokens)
+        drv = DoubleBufferedDriver(self._submit_gathered, collect=self._collect_wave)
+        for slab, tok_ext, n_live in self._windows(tokens,
+                                                   to_device=not self._use_mesh):
             res, _ = drv.submit(tok_ext, n_live, slab)
             if res is not None:
                 yield res
@@ -535,8 +909,10 @@ class WaveExecutor:
         if res is not None:
             yield res
 
-    def _for_each_wave(self, tokens, consume, *, collect=None) -> None:
-        """Run ``consume(collect(wave))`` for every wave, in wave order.
+    def _for_each_wave(self, tokens, consume, *, collect=None, submit=None,
+                       fold_calls: _FoldCollectives | None = None) -> None:
+        """Run ``consume(collect(submit(wave)))`` for every wave, in wave
+        order.
 
         The calling thread only pads, copies and enqueues waves; a fold
         thread collects each one and runs ``consume`` (the accumulator push
@@ -546,18 +922,17 @@ class WaveExecutor:
         waits for each wave's event.  A queue of ``_WAVES_IN_FLIGHT`` bounds
         the waves in flight; one FIFO fold thread keeps wave order, so the
         fold sequence is the serial one.  ``overlap=False`` serializes.
+        ``fold_calls``: the fold thread's collectives, which this thread
+        serves (see :class:`_FoldCollectives`).
         """
         collect = collect or self._collect_wave
-        tokens = _host_tokens(tokens)
-        self.cfg.validate_tokens(tokens)
+        submit = submit or self._submit_wave
+        tokens = self._start(tokens)
+        windows = self._windows(tokens, to_device=not self._use_mesh)
         if not self.overlap:
-            for slab, tok_ext, n_live in self._windows(tokens):
-                consume(collect(self._submit_wave(tok_ext, n_live, slab)))
+            for slab, tok_ext, n_live in windows:
+                consume(collect(submit(tok_ext, n_live, slab)))
             return
-        import contextlib
-        import queue
-        import threading
-
         work: queue.Queue = queue.Queue(maxsize=_WAVES_IN_FLIGHT)
         failure: list[BaseException] = []
         side = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
@@ -576,17 +951,31 @@ class WaveExecutor:
                     except BaseException as e:      # re-raised by the feeder
                         failure.append(e)
                     finally:
+                        if pend is not None and fold_calls is not None:
+                            fold_calls.wave_done()
                         del pend                    # free the wave's tensors
                         work.task_done()
 
         folder = threading.Thread(target=fold_loop, name="wave-fold",
                                   daemon=True)
         folder.start()
+        submitted = served = 0
         try:
-            for slab, tok_ext, n_live in self._windows(tokens):
+            for slab, tok_ext, n_live in windows:
                 if failure:
                     break
-                work.put(self._submit_wave(tok_ext, n_live, slab))
+                if fold_calls is not None and submitted - served >= 2:
+                    fold_calls.serve()
+                    served += 1
+                work.put(submit(tok_ext, n_live, slab))
+                submitted += 1
+            while fold_calls is not None and served < submitted:
+                fold_calls.serve()
+                served += 1
+        except BaseException as e:
+            if fold_calls is not None:
+                fold_calls.close(e)
+            raise
         finally:
             work.put(None)
             folder.join()
@@ -598,10 +987,29 @@ class WaveExecutor:
 
     # --- whole-job execution ----------------------------------------------- #
 
+    def _accumulator(self):
+        """The fold of :meth:`run`, and the collectives its fold thread
+        needs (on a mesh, the tiered accumulator's rung sizes)."""
+        from repro_torch.index import merge
+        if self.accumulator != "tiered":
+            cls = {"defer": merge.DeferredSegmentAccumulator,
+                   "pairwise": merge.PairwiseSegmentAccumulator}[self.accumulator]
+            return cls(route=self.merge_route), None
+        calls = global_rows = None
+        if self._use_mesh:
+            if self.overlap:
+                calls = _FoldCollectives(self.mesh)
+                global_rows = calls.sum_int
+            else:
+                global_rows = lambda rows: self.mesh.sum_ints(rows)[0]  # noqa: E731
+        return merge.TieredSegmentAccumulator(route=self.merge_route,
+                                              global_rows=global_rows), calls
+
     def run(self, tokens):
         """Run the job over waves -> ``NGramStats`` in canonical order, equal
         to the monolithic job's.  ``fold_rows`` in the counters is the rows
-        the accumulator fed through ``merge_segments``."""
+        the accumulator fed through ``merge_segments`` (on a mesh, summed
+        over the ranks' folds)."""
         from repro_torch.core.stats import NGramStats
         from repro_torch.index import merge
 
@@ -614,10 +1022,7 @@ class WaveExecutor:
                 ("jobs", "map_records", "shuffle_records", "shuffle_bytes",
                  "retries", "overflow", "waves", "fold_rows"), 0)
             counters["shuffle_skew"] = 0.0
-            acc = {"defer": merge.DeferredSegmentAccumulator,
-                   "tiered": merge.TieredSegmentAccumulator,
-                   "pairwise": merge.PairwiseSegmentAccumulator,
-                   }[self.accumulator](route=self.merge_route)
+            acc, fold_calls = self._accumulator()
 
             def fold(part: WavePartial):
                 counters["waves"] += 1
@@ -627,15 +1032,22 @@ class WaveExecutor:
                         sp.set(wave=counters["waves"] - 1, rows=part.n_rows)
                     acc.push(part.segment, n_rows=part.n_rows)
 
-            self._for_each_wave(tokens, fold, collect=self._collect_wave_segment)
+            self._for_each_wave(tokens, fold, collect=self._collect_wave_segment,
+                                fold_calls=fold_calls)
             with obs_trace.span("wave.finalize") as sp:
                 # tau filters before the term unpack: only survivors pay it
-                out = merge.segment_to_stats(acc.result(), min_count=self.cfg.tau)
-                counters["fold_rows"] = acc.fold_rows
+                if self._use_mesh:
+                    out = merge.segment_to_stats(
+                        self._gather_segment(acc.result(), self.cfg.tau))
+                    (counters["fold_rows"],) = self.mesh.sum_ints(acc.fold_rows)
+                else:
+                    out = merge.segment_to_stats(acc.result(),
+                                                 min_count=self.cfg.tau)
+                    counters["fold_rows"] = acc.fold_rows
                 out = NGramStats(out.grams, out.lengths, out.counts,
                                  obs_metrics.normalize_counters(counters))
                 if sp:
-                    sp.set(rows=len(out), fold_rows=acc.fold_rows)
+                    sp.set(rows=len(out), fold_rows=counters["fold_rows"])
             return out
 
     def run_streaming(self, tokens, *, gen=None, compress: bool = False,
@@ -643,7 +1055,9 @@ class WaveExecutor:
         """Stream waves straight into a :class:`GenerationalIndex`: each
         wave's exact partial is ingested as a fresh L0 segment on the fold
         thread, so point and top-k answers equal a from-scratch build over
-        the whole corpus at ``tau = 1``.  Returns ``(index, reports)``, one
+        the whole corpus at ``tau = 1``.  On a mesh each wave's rows are
+        gathered to every rank first, so every rank's index and reports
+        equal the single-device run's.  Returns ``(index, reports)``, one
         ingest report a wave."""
         from repro_torch.index.merge import GenerationalIndex
         if gen is None:
@@ -658,5 +1072,6 @@ class WaveExecutor:
             reports.append(gen.ingest_segment(
                 part.segment if part.n_rows else None, n_rows=part.n_rows))
 
-        self._for_each_wave(tokens, ingest, collect=self._collect_wave_segment)
+        self._for_each_wave(tokens, ingest, collect=self._collect_wave_segment,
+                            submit=self._submit_gathered)
         return gen, reports

@@ -16,8 +16,12 @@ batch go to the index in one dispatch.  Answers
 come back as host numpy int64 arrays of uint32 values.  With
 ``wave_tokens`` an ingest streams through the wave engine
 (``pipeline.WaveExecutor``), so a delta larger than device memory ingests
-too; the service across ranks (``mesh``) waits for the streaming path
-across ranks.
+too.  With a ``mesh`` (a :class:`~repro_torch.launch.mesh.DataMesh`) every
+rank builds the service and calls ``ingest`` with the same delta: the job
+runs across the ranks (the mesh waves with ``wave_tokens``, the distributed
+job otherwise), every rank ingests the same stats into its own index, and
+each rank answers queries alone, as ``repro``'s single-controller service
+does.
 
 ``microbatch_drive`` and ``make_query_stream`` are the synthetic-workload
 helpers the CLI drivers share.
@@ -29,7 +33,6 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.launch.mesh import STREAMING_NOT_PORTED as MESH_NOT_PORTED
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from .cache import LRUQueryCache
@@ -66,7 +69,8 @@ class StreamingNGramService:
     ``device``: it raises).  ``route`` defaults to ``"merge"``, not
     ``repro``'s ``"kway"``: the port's ``kway`` compacts on the host, and a
     default service keeps its compactions on the card.  ``overlap`` is the
-    wave ingest's fold thread (``WaveExecutor(overlap=)``).
+    wave ingest's fold thread (``WaveExecutor(overlap=)``).  ``mesh``: the
+    ranks the ingest's job runs across (a mesh of one is one device).
     """
 
     #: cache key of one point lookup
@@ -83,11 +87,10 @@ class StreamingNGramService:
                  cache_capacity: int = 65536, size_ratio: int = 4,
                  route: str = "merge", wave_tokens: int | None = None, mesh=None,
                  overlap: bool = True, device=None):
-        if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
         from repro_torch.index.merge import GenerationalIndex
         self.cfg = cfg
         self.wave_tokens = wave_tokens
+        self.mesh = mesh
         self.overlap = overlap
         self.gen = GenerationalIndex(
             sigma=cfg.sigma, vocab_size=cfg.vocab_size, compress=compress,
@@ -101,7 +104,7 @@ class StreamingNGramService:
 
         With ``wave_tokens`` the delta streams through one reused
         ``WaveExecutor`` instead of one monolithic job; the stats, and so
-        the index, are the same either way.
+        the index, are the same either way, and with a ``mesh`` too.
         """
         with obs_trace.span("svc.ingest") as sp:
             t0 = time.perf_counter()
@@ -109,12 +112,12 @@ class StreamingNGramService:
                 if self._wave_ex is None:
                     from repro_torch.pipeline import WaveExecutor
                     self._wave_ex = WaveExecutor(self.cfg, wave_tokens=self.wave_tokens,
-                                                 overlap=self.overlap,
+                                                 mesh=self.mesh, overlap=self.overlap,
                                                  device=self.gen.device)
                 stats = self._wave_ex.run(tokens)
             else:
                 from repro_torch.core import run_job
-                stats = run_job(tokens, self.cfg, device=self.gen.device)
+                stats = run_job(tokens, self.cfg, self.mesh, device=self.gen.device)
             t_job = time.perf_counter() - t0
             obs_metrics.get_registry().merge_job_counters(stats.counters)
             t0 = time.perf_counter()

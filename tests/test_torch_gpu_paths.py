@@ -12,7 +12,9 @@ and the two-phase sigma split), the wave engine (each method's wave run,
 frontend (HTTP bodies of a service on the card against one on the CPU, the
 card's searches launched from the batcher's thread), and the multi-rank
 batch path (two gloo ranks sharing the card: the four methods and the
-sharded index).  ``merge_path`` is
+sharded index), and the streaming path across ranks (two gloo ranks sharing
+the card against two on the CPU: the mesh waves, ``run_streaming`` and
+``shard_generational``).  ``merge_path`` is
 also held against its plain version at runs above 2**26 rows.  The file
 imports no JAX: it runs on a GPU host that has none, and every case skips
 without a card.
@@ -414,3 +416,70 @@ def test_cuda_one_nccl_rank_matches_cpu(cuda_device):
     assert len(r["objects"]) == 1 and r["objects"][0]["rank"] == 0
     np.testing.assert_array_equal(r["objects"][0]["rows"], g[:3])
     assert r["comm_seconds"] > 0
+
+
+def _mesh_waves_on_ranks(mesh, toks, g, ln):
+    """The mesh waves (SUFFIX-sigma on the hash combiner and APRIORI-SCAN
+    under the tiered fold with the fold thread, NAIVE deferred without it), ``run_streaming`` and
+    ``shard_generational`` with a re-shard, on one rank of ``mesh`` (runs in
+    each spawned rank)."""
+    from repro_torch.index import continuations, serve_queries, shard_generational
+    from repro_torch.kernels import ops as kops
+    kops.launches.clear()
+    out = {}
+    for method, acc, overlap in (("suffix_sigma", "tiered", True),
+                                 ("apriori_scan", "tiered", True),
+                                 ("naive", "defer", False)):
+        cfg = NGramConfig(sigma=SIGMA, tau=TAU, vocab_size=VOCAB, method=method,
+                          combine_route="hash" if method == "suffix_sigma" else "sort")
+        st = WaveExecutor(cfg, wave_tokens=7_000, mesh=mesh, accumulator=acc,
+                          overlap=overlap, device=mesh.device).run(toks)
+        out[method] = (st.grams, st.lengths, st.counts, dict(st.counters))
+    cfg1 = NGramConfig(sigma=SIGMA, tau=1, vocab_size=VOCAB)
+    gen, reports = WaveExecutor(cfg1, wave_tokens=10_000, mesh=mesh,
+                                device=mesh.device).run_streaming(
+                                    toks, compress=True, size_ratio=2)
+    out["reports"] = [{k: r[k] for k in ("ingested_rows", "merges", "segment_rows")}
+                      for r in reports]
+    sh = shard_generational(gen, mesh=mesh)
+    pl = np.maximum(ln - 1, 0)
+    out["lookup"] = serve_queries(sh, g, ln)
+    out["cont"] = serve_queries(sh, g, pl, mode="continuations", k=8)
+    nd, tot, terms, counts = continuations(gen, g, pl, k=8)
+    out["gen_cont"] = torch.cat([nd[:, None], tot[:, None], terms, counts], 1).cpu().numpy()
+    out["merges"] = gen.ingest(run_job(toks, cfg1, device=mesh.device))["merges"]
+    out["reshard"] = serve_queries(shard_generational(gen, mesh=mesh, prev=sh), g, ln)
+    out["launches"] = dict(kops.launches)
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_two_gloo_ranks_stream_as_on_the_cpu(cuda_device):
+    """Two gloo ranks sharing the card: the mesh waves' stats and counters,
+    the streaming ingest's reports and the sharded generational index's
+    answers equal two gloo ranks on the CPU; the ranks on the card launch
+    all eight kernels."""
+    from repro_torch.launch.mesh import spawn_ranks
+    toks = draw(30_000, 4)
+    rows = np.random.default_rng(2).integers(0, 20_000, 2000)
+    stats = cpu_stats(30_000, 4)
+    rows %= len(stats)
+    g, ln = stats.grams[rows].copy(), stats.lengths[rows].copy()
+    g[::3, 0] = VOCAB                                     # misses among the hits
+    card = spawn_ranks(2, _mesh_waves_on_ranks, toks, g, ln, device=cuda_device,
+                       backend="gloo")
+    host = spawn_ranks(2, _mesh_waves_on_ranks, toks, g, ln, device="cpu")
+    for r in card + host:
+        for key in ("suffix_sigma", "apriori_scan", "naive"):
+            got, want = r[key], host[0][key]
+            for a, b in zip(got[:3], want[:3]):
+                np.testing.assert_array_equal(a, b)
+            assert got[3] == want[3], key
+        assert r["reports"] == host[0]["reports"]
+        assert r["merges"] == host[0]["merges"] >= 1      # a compressed rung merges
+        for key in ("lookup", "cont", "gen_cont", "reshard"):
+            np.testing.assert_array_equal(r[key], host[0][key])
+    np.testing.assert_array_equal(host[0]["cont"], host[0]["gen_cont"])
+    for kernel in ("suffix_pack", "hash_partition", "lcp_boundary", "hash_combine",
+                   "merge_path", "block_expand", "bsearch", "block_decode"):
+        assert any(r["launches"].get(kernel, 0) > 0 for r in card), kernel

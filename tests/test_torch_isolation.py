@@ -221,34 +221,46 @@ def test_clis_refuse_cpu_without_a_device(monkeypatch):
 
 
 def test_ranks_run_without_jax_or_repro(tmp_path):
-    """``launch/mesh.py`` and a 2-rank job and sharded index, through
-    ``ngram --devices 2`` and ``spawn_ranks``: every rank is a fresh process,
-    so ``jax`` is blocked by a package on the path that fails to import."""
+    """``launch/mesh.py`` and a 2-rank job, sharded index, mesh waves and
+    streaming service, through ``ngram --devices 2`` (with and without
+    ``--wave-tokens``), ``serve_ngrams --streaming --devices 2`` and
+    ``spawn_ranks``: every rank is a fresh process, so ``jax`` is blocked by
+    a package on the path that fails to import."""
     (tmp_path / "jax").mkdir()
     (tmp_path / "jax" / "__init__.py").write_text(
         "raise ImportError('jax is blocked here')\n")
     env = dict(os.environ, PYTHONPATH=f"{tmp_path}{os.pathsep}{ROOT / 'src'}")
     code = textwrap.dedent("""
         import sys
-        from repro_torch.launch import mesh, ngram
-        from repro_torch.index import build_sharded_index, serve_queries  # noqa: F401
+        from repro_torch.launch import mesh, ngram, serve_ngrams
+        from repro_torch.index import (build_sharded_index, serve_queries,  # noqa: F401
+                                       shard_generational)
         ngram.main(['--devices', '2', '--device', 'cpu', '--tokens', '3000',
                     '--sigma', '3', '--tau', '2'])
+        ngram.main(['--devices', '2', '--device', 'cpu', '--tokens', '3000',
+                    '--sigma', '3', '--tau', '2', '--wave-tokens', '1000',
+                    '--accumulator', 'tiered'])
+        serve_ngrams.main(['--devices', '2', '--device', 'cpu', '--tokens', '3000',
+                           '--streaming', '--wave-tokens', '1000', '--queries', '400'])
         print(mesh.spawn_ranks(2, mesh.DataMesh.max_int, 7, device='cpu'))
     """) + NO_REPRO
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           env=env, cwd=ROOT, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "mesh: 2 ranks on cpu, backend gloo" in proc.stdout
-    assert "'capacity'" in proc.stdout and proc.stdout.strip().endswith("[7, 7]")
+    assert proc.stdout.count("mesh: 2 ranks on cpu, backend gloo") == 3
+    assert "'capacity'" in proc.stdout and "'waves': 4" in proc.stdout
+    assert "ingest[3]" in proc.stdout and proc.stdout.strip().endswith("[7, 7]")
 
 
 def test_ranks_refuse_cpu_without_a_device(monkeypatch):
-    """On a mesh, the jobs, the sharded index and ``spawn_ranks`` run on the
-    card by default and raise without one, before any collective."""
+    """On a mesh, the jobs, the sharded index, the mesh waves, the service
+    and ``spawn_ranks`` run on the card by default and raise without one,
+    before any collective."""
     from repro_torch.core import NGramConfig, run_job
     from repro_torch.index import build_sharded_index
     from repro_torch.launch.mesh import DataMesh, spawn_ranks
+    from repro_torch.pipeline import WaveExecutor
+    from repro_torch.serve import StreamingNGramService
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     mesh = DataMesh(rank=0, size=2, device=torch.device("cpu"), backend="gloo")
     toks = np.asarray([1, 2, 0, 2, 1], np.int32)
@@ -257,7 +269,10 @@ def test_ranks_refuse_cpu_without_a_device(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             run_job(toks, NGramConfig(sigma=2, tau=1, vocab_size=3, method=method),
                     mesh=mesh)
+    cfg = NGramConfig(sigma=2, tau=1, vocab_size=3)
     for call in (lambda: build_sharded_index(stats, vocab_size=3, mesh=mesh),
+                 lambda: WaveExecutor(cfg, wave_tokens=4, mesh=mesh),
+                 lambda: StreamingNGramService(cfg, wave_tokens=4, mesh=mesh),
                  lambda: spawn_ranks(2, DataMesh.max_int, 1)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

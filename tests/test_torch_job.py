@@ -189,8 +189,15 @@ def test_unported_options_raise():
     with pytest.raises(ValueError):
         run_job(toks, NGramConfig(sigma=2, tau=1, vocab_size=3, n_buckets=2),
                 device="cpu")
-    # the service across ranks waits for the streaming path across ranks
+    # the service takes a mesh now; a mesh of one rank is one device
+    import torch
+    from repro_torch.launch.mesh import DataMesh
     from repro_torch.serve import StreamingNGramService
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        StreamingNGramService(NGramConfig(sigma=2, tau=1, vocab_size=3),
-                              mesh=object(), device="cpu")
+    cfg = NGramConfig(sigma=2, tau=1, vocab_size=3)
+    one = DataMesh(rank=0, size=1, device=torch.device("cpu"), backend="gloo")
+    svc = StreamingNGramService(cfg, mesh=one, device="cpu")
+    assert svc.mesh is one
+    svc.ingest(toks)
+    np.testing.assert_array_equal(
+        svc.lookup(np.asarray([[1, 2], [2, 0], [2, 1]], np.int32), np.asarray([2, 1, 2])),
+        [1, 2, 0])

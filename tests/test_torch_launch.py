@@ -8,15 +8,20 @@ the ``--metrics`` file (and, for the streaming driver, every ``gen.*`` and
 ``cache.*`` counter).  ``--wave-tokens`` must print what the monolithic run
 prints.  ``--devices 3`` runs 3 gloo ranks on the CPU and must print and
 count as ``repro``'s CLI on a 3-device host mesh (a fresh process, since
-JAX fixes its device count at start); ``--devices`` on the streaming path
-must exit with the not-ported message.  Each CLI runs in this process
-(``main(argv)``; ``repro``'s reads ``sys.argv``), except ``repro``'s
-multi-device runs and the exit checks, which run ``python -m`` as a user
-would.
+JAX fixes its device count at start): the job, the mesh waves
+(``--wave-tokens``), and the streaming driver with waves and without;
+``--serve --devices 2`` serves from one device, as ``repro``'s does.  Each
+CLI runs in this process (``main(argv)``; ``repro``'s reads ``sys.argv``),
+except ``repro``'s multi-device runs and the frontend, which run
+``python -m`` as a user would.
 """
+import json
 import os
+import socket
 import subprocess
 import sys
+import time
+import urllib.request
 from pathlib import Path
 
 import pytest
@@ -30,10 +35,8 @@ import repro.obs.metrics as jmetrics
 import repro.obs.trace as jtrace
 import repro_torch.obs.metrics as metrics
 import repro_torch.obs.trace as trace
-from repro_torch.core import NGramConfig
 from repro_torch.launch import ngram, serve_ngrams
 from repro_torch.obs import report
-from repro_torch.serve.service import MESH_NOT_PORTED, StreamingNGramService
 
 # The tensors here are small, and a parallel test run shares the host's cores
 # between its workers: intra-op threads (which spin between parallel regions)
@@ -173,44 +176,6 @@ def test_serve_ngrams_microbatch_counts_as_repro(tmp_path, capsys, monkeypatch):
         [f"serve_{m} batch={b:>5}" for m in ("lookup", "topk") for b in (64, 512)]
 
 
-@pytest.mark.parametrize("module", ["repro_torch.launch.ngram",
-                                    "repro_torch.launch.serve_ngrams"])
-def test_devices_flag_exits_not_ported(module):
-    """``--devices`` on the streaming path across ranks (the waves, the
-    streaming driver) exits with the message naming it; so does the
-    service given a mesh."""
-    mode = "--wave-tokens=5000" if module.endswith(".ngram") else "--streaming"
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    proc = subprocess.run([sys.executable, "-m", module, "--devices", "2", mode,
-                           "--device", "cpu"], capture_output=True, text=True,
-                          env=env, cwd=ROOT, timeout=120)
-    assert proc.returncode == 1
-    assert proc.stderr.strip() == MESH_NOT_PORTED
-    assert "1(b)" in MESH_NOT_PORTED
-    with pytest.raises(NotImplementedError) as err:
-        StreamingNGramService(NGramConfig(sigma=2, tau=1, vocab_size=3), mesh=object(),
-                              device="cpu")
-    assert str(err.value) == MESH_NOT_PORTED
-
-
-def test_streaming_across_ranks_refuses():
-    """The frontend mode with ``--devices``, the waves and the sharded
-    generational index refuse with the same message."""
-    from repro_torch.index.serve import shard_generational
-    from repro_torch.launch.mesh import DataMesh
-    from repro_torch.pipeline import WaveExecutor
-    with pytest.raises(SystemExit) as err:
-        serve_ngrams.main(["--devices", "2", "--serve", "127.0.0.1:0", "--device", "cpu"])
-    assert str(err.value) == MESH_NOT_PORTED
-    mesh = DataMesh(rank=0, size=2, device=torch.device("cpu"), backend="gloo")
-    cfg = NGramConfig(sigma=2, tau=1, vocab_size=3)
-    for call in (lambda: WaveExecutor(cfg, wave_tokens=4, mesh=mesh, device="cpu"),
-                 lambda: shard_generational(None, mesh=mesh)):
-        with pytest.raises(NotImplementedError) as err:
-            call()
-        assert str(err.value) == MESH_NOT_PORTED
-
-
 def run_repro_devices(module: str, argv: list, tmp_path, n: int = 3):
     """``repro``'s CLI on an ``n``-device host mesh, as a fresh process (the
     device count is fixed before JAX starts)."""
@@ -263,3 +228,84 @@ def test_serve_ngrams_devices_counts_as_repro(tmp_path, capfd):
     assert head(out) == head(jout) and len(head(out)) == 1
     assert [ln.split(" qps")[0] for ln in out.splitlines() if ln.startswith("serve_")] == \
         [f"serve_{m} batch={b:>5}" for m in ("lookup", "topk") for b in (64, 512)]
+
+
+def test_ngram_devices_wave_tokens_prints_and_counts_as_repro(tmp_path, capfd):
+    """The mesh waves through the CLI: the tiered fold with the fold thread
+    (``repro``'s without it, whose ``retries`` do not depend on thread
+    timing) prints and counts as ``repro``'s on 3 devices."""
+    flags = ["--method", "apriori_scan", "--tokens", "20000", "--sigma", "4", "--tau", "3",
+             "--top", "15", "--wave-tokens", "6000", "--accumulator", "tiered"]
+    out, rec = run_port_devices(ngram, flags, tmp_path, capfd)
+    jout, jrec = run_repro_devices("repro.launch.ngram", flags + ["--no-overlap"], tmp_path)
+    assert "mesh: 3 ranks on cpu, backend gloo" in out
+    assert job_lines(out) == job_lines(jout)
+    assert sum(ln.startswith("  cf=") for ln in job_lines(out)) == 15
+    assert instruments(rec) == instruments(jrec)
+    assert instruments(rec)["job.waves"] == 4 and instruments(rec)["job.fold_rows"] > 0
+    assert report.validate_metrics(rec["metrics"]) == []
+
+
+@pytest.mark.parametrize("waves", [["--wave-tokens", "8192"], []], ids=["waves", "job"])
+def test_serve_ngrams_streaming_devices_counts_as_repro(waves, tmp_path, capfd):
+    """The streaming driver on 3 ranks: the ingest lines, the final index
+    and every ``job.*``, ``gen.*``, ``cache.*`` and ``serve.*`` counter and
+    row gauge equal ``repro``'s on 3 devices."""
+    flags = ["--streaming", "--compress", "--tokens", "40000", "--queries", "4000",
+             *waves]
+    out, rec = run_port_devices(serve_ngrams, flags, tmp_path, capfd)
+    jout, jrec = run_repro_devices("repro.launch.serve_ngrams", flags + ["--no-overlap"],
+                                   tmp_path)
+    assert "mesh: 3 ranks on cpu, backend gloo" in out
+    prefixes = ("job.", "gen.", "cache.", "serve.")
+    got, want = instruments(rec, prefixes), instruments(jrec, prefixes)
+    assert got.keys() == want.keys()
+    for k, v in got.items():
+        if "bytes" not in k:
+            assert v == want[k], k
+    assert got["gen.merges"] >= 1
+    assert got["job.waves"] > 4 if waves else got["job.jobs"] == 5
+    lines = lambda o: [ln.split(" in ")[0] for ln in o.splitlines()
+                       if ln.startswith("ingest[")]
+    assert len(lines(out)) == 4 and lines(out) == lines(jout)
+    final = [ln for ln in out.splitlines() if ln.startswith("final:")]
+    jfinal = [ln for ln in jout.splitlines() if ln.startswith("final:")]
+    assert len(final) == 1 and final[0].split(", ")[:3] == jfinal[0].split(", ")[:3]
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_serve_devices_serves_from_one_device():
+    """``--serve --devices 2`` builds its service on one device, as
+    ``repro``'s does: it answers ``/healthz``, and its topology is one
+    generational index, not a sharded one."""
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve_ngrams", "--serve",
+         f"127.0.0.1:{port}", "--devices", "2", "--device", "cpu", "--tokens", "3000",
+         "--sigma", "3", "--tau", "2"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+    try:
+        line = ""
+        deadline = time.monotonic() + 120
+        while "serving on" not in line:
+            line = proc.stdout.readline()
+            assert line or proc.poll() is None, proc.stderr.read()[-3000:]
+            assert time.monotonic() < deadline
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=30) as r:
+            assert r.status == 200 and json.loads(r.read()) == {"status": "ok"}
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/v1/system/topology",
+                                    timeout=30) as r:
+            topo = json.loads(r.read())
+        assert topo["index"]["kind"] == "generational"
+        assert topo["devices"]["backend"] in ("cpu", "cuda")
+    finally:
+        proc.kill()
+        proc.wait(timeout=30)
+        proc.stdout.close()
+        proc.stderr.close()

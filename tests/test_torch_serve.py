@@ -140,10 +140,21 @@ def test_default_route_compacts_on_the_merge_route_as_kway_and_repro():
 
 
 def test_unported_service_options_raise():
-    """The multi-device job (``mesh``) raises, with waves or without; the
-    wave ingest (``wave_tokens``) is ported and constructs."""
+    """Every option of the service is ported: the wave ingest
+    (``wave_tokens``) and the job across ranks (``mesh``), with waves or
+    without, construct; a mesh of one rank ingests and answers as one
+    device (the ranks themselves: ``tests/test_torch_mesh_waves.py``)."""
+    import torch
+    from repro_torch.launch.mesh import DataMesh
     cfg = NGramConfig(sigma=2, tau=1, vocab_size=3)
     assert StreamingNGramService(cfg, wave_tokens=64, device="cpu").wave_tokens == 64
-    for kw in ({}, {"wave_tokens": 64}):
-        with pytest.raises(NotImplementedError):
-            StreamingNGramService(cfg, mesh=object(), device="cpu", **kw)
+    one = DataMesh(rank=0, size=1, device=torch.device("cpu"), backend="gloo")
+    toks = np.asarray([1, 2, 0, 2, 1, 2], np.int32)
+    g = np.asarray([[1, 2], [2, 1], [2, 0], [3, 3]], np.int32)
+    ln = np.asarray([2, 2, 1, 2], np.int32)
+    want = StreamingNGramService(cfg, device="cpu")
+    want.ingest(toks)
+    for kw in ({}, {"wave_tokens": 4}):
+        svc = StreamingNGramService(cfg, mesh=one, device="cpu", **kw)
+        svc.ingest(toks)
+        np.testing.assert_array_equal(svc.lookup(g, ln), want.lookup(g, ln))

@@ -495,9 +495,10 @@ def test_wave_errors():
 
     class Mesh:
         size = 2
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 1\(b\)"):
-        WaveExecutor(cfg, wave_tokens=8, mesh=Mesh(), device="cpu")
+    # a mesh of ranks runs the mesh waves (tests/test_torch_mesh_waves.py)
+    assert WaveExecutor(cfg, wave_tokens=8, mesh=Mesh(), device="cpu")._use_mesh
     Mesh.size = 1                     # a one-device mesh is one device
+    assert not WaveExecutor(cfg, wave_tokens=8, mesh=Mesh(), device="cpu")._use_mesh
     assert WaveExecutor(cfg, wave_tokens=8, mesh=Mesh(), device="cpu").run(
         np.asarray([1, 2, 3], np.int32)).to_dict() == {(1,): 1, (2,): 1, (3,): 1,
                                                        (1, 2): 1, (2, 3): 1,
