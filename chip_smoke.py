@@ -176,6 +176,34 @@ line):
                  sum) at APRIORI-INDEX's totals, in turns.  Gloo ranks on
                  one card measure correctness and host staging, not NVLink
                  scaling.
+  11. lm      -- LM serving, last, after freeing the earlier phases' tensors
+                 (it runs no kernel of the port: every op is PyTorch's own).
+                 (a) Each of the five LM archs' REDUCED config in float32,
+                 the same seeded weights on the card and on the CPU: prefill
+                 2x12 and 6 decode steps of fixed tokens (mixtral's window of
+                 8 wraps its ring), every logit within 1e-4 of the CPU's,
+                 TF32 off.  (b) ``python -m repro_torch.launch.serve --arch
+                 llama3.2-1b`` at repro's defaults (batch 4, prompt 32, 32
+                 steps) as a subprocess, its two lines parsed, its ids equal
+                 to the in-process run's.  (b, c) Each arch at full width in
+                 bf16 (mixtral at 16 of its 32 layers, the one cut: all 32
+                 exceed the card), through ``serve.generate`` cold (as the
+                 CLI runs it) and warm: finite logits; at decode steps 0, 15
+                 and 30, each sequence's logits within 0.25 (max abs) and
+                 0.05 (rms relative) of the last-position logits of a
+                 prefill of the same tokens.  A MoE sequence routed
+                 otherwise (a near tie moved by bf16 rounding) or short of a
+                 claim (prefill and decode have other capacities) in the
+                 serving run or the prefill is excused from that and
+                 counted, and every MoE sequence is held to both limits
+                 against a prefill routed as the serving run was.  The same
+                 rule must then catch a planted cache fault (each decode
+                 step's token masked from its own cache slot, the served
+                 tokens fed again) at every checked step.
+                 ``lm:`` lines give prefill ms (cold and warm) and its share
+                 of the dense bf16 peak (``lm_model_flops``), decode ms a
+                 step and tokens/s, the bytes a step must read and that time
+                 at 3.35 TB/s, and peak memory over what was held before.
 
 The last lines are one JSON object describing each kernel, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.  The
@@ -185,11 +213,14 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
+import gc
 import hashlib
 import ctypes
 import dataclasses
 import json
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -218,6 +249,10 @@ from repro_torch.obs import trace  # noqa: E402
 from repro_torch.pipeline import WaveExecutor, plan_for, stages  # noqa: E402
 from repro_torch.pipeline import executor as pipeline_executor  # noqa: E402
 from repro_torch.serve import StreamingNGramService  # noqa: E402
+from repro_torch import configs as lm_configs  # noqa: E402
+from repro_torch.launch import serve as lm_serve  # noqa: E402
+from repro_torch.models import moe as lm_moe  # noqa: E402
+from repro_torch.models import transformer as lm  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bandwidth, and
 # the 32-bit non-tensor rate, the table's figure for the scalar integer work
@@ -268,6 +303,27 @@ RANK_KERNELS = ("suffix_pack", "hash_partition", "lcp_boundary", "hash_combine",
 #: phase 10's mesh waves: phase 8's middle wave size
 RANK_WAVE = 1 << 23
 PHASE10_DIR = Path(__file__).resolve().parent / "build" / "phase10"
+#: phase 11: LM serving.  repro's launch/serve.py defaults (batch 4, prompt
+#: 32, 32 decode steps); the five LM archs at full width, mixtral at 16 of
+#: its 32 layers (all 32 are about 93 GB in bf16, more than the card holds)
+LM_ARCHS = ("llama3.2-1b", "mixtral-8x7b", "deepseek-moe-16b", "minicpm3-4b",
+            "phi3-medium-14b")
+LM_LAYERS = {"mixtral-8x7b": 16}
+LM_BATCH, LM_PROMPT, LM_STEPS = 4, 32, 32
+#: the decode steps held against a prefill of the same tokens (first, middle, last)
+LM_CHECKED = (0, 15, 30)
+#: warm runs after the cold one; the median's times are reported
+LM_WARM = 3
+#: (a) reduced configs in float32, card against the CPU: prefill 2x12, 6 steps
+LM_SMALL_PROMPT, LM_SMALL_STEPS = 12, 6
+LM_F32_TOL = 1e-4
+#: H100 SXM dense bf16 peak (NVIDIA data sheet, at 700 W)
+BF16_FLOPS_PER_S = 989e12
+#: (b, c) a decode step's logits against a prefill of the same tokens, in
+#: bf16: max abs error and rms error over the prefill's rms (PERF.md section
+#: 6 gives the sound readings and the planted fault's that each sits between)
+LM_BF16_ATOL = 0.25
+LM_BF16_REL = 0.05
 
 
 def check(cond: bool, what: str) -> None:
@@ -3136,6 +3192,368 @@ def block_edge_cases(dev):
     return cases
 
 
+def lm_small_run(model, toks: torch.Tensor) -> list:
+    """Prefill the first LM_SMALL_PROMPT tokens, then decode the rest one at
+    a time (teacher-forced, so the card and the CPU see the same tokens):
+    the float32 logits of the prefill and of each step."""
+    p = LM_SMALL_PROMPT
+    with torch.inference_mode():
+        cache, logits = lm.prefill(model, toks[:, :p], max_seq=toks.shape[1])
+        out = [logits]
+        for i in range(p, toks.shape[1]):
+            logits, cache = lm.decode_step(model, cache, toks[:, i], i)
+            out.append(logits)
+    return [o.cpu() for o in out]
+
+
+def lm_reduced_on_card(dev) -> None:
+    """(a) Each arch's REDUCED config (float32) with the same seeded weights on
+    the card and on the CPU: prefill 2x12 and 6 decode steps (mixtral's
+    window of 8 rolls the prompt into its ring and wraps it), every logit
+    within LM_F32_TOL (rtol and atol) of the CPU's.  TF32 is off for the
+    check, so the card's float32 matmuls are float32."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for arch in LM_ARCHS:
+            cfg = lm_configs.get(arch).make_reduced()
+            cpu = lm.init_params(cfg, "cpu", torch.Generator().manual_seed(0))
+            card = copy.deepcopy(cpu).to(dev)
+            rng = np.random.default_rng(11)
+            toks = torch.as_tensor(rng.integers(
+                1, cfg.vocab_size, (2, LM_SMALL_PROMPT + LM_SMALL_STEPS)))
+            want, got = lm_small_run(cpu, toks), lm_small_run(card, toks.to(dev))
+            err = max((g - w).abs().max().item() for g, w in zip(got, want))
+            ok = all(torch.allclose(g, w, rtol=LM_F32_TOL, atol=LM_F32_TOL)
+                     for g, w in zip(got, want))
+            t = lm.cache_len(cfg, LM_SMALL_PROMPT + LM_SMALL_STEPS)
+            print(f"lm: {arch} reduced f32, card vs cpu, prefill 2x{LM_SMALL_PROMPT} + "
+                  f"{LM_SMALL_STEPS} steps (cache {t} slots): max_abs_err {err:.3e} "
+                  f"(tol {LM_F32_TOL} rtol and atol, TF32 off)")
+            check(ok, f"{arch} reduced: the card's logits equal the CPU's")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Every ``router_topk`` call's expert ids ([T, k], on the card) in call
+    order, one a MoE layer a forward or decode step."""
+    calls, real = [], lm_moe.router_topk
+
+    def record(x, w_router, cfg):
+        ids, gates, logits = real(x, w_router, cfg)
+        calls.append(ids.clone())
+        return ids, gates, logits
+    lm_moe.router_topk = record
+    try:
+        yield calls
+    finally:
+        lm_moe.router_topk = real
+
+
+def kept_claims(ids: torch.Tensor, moe) -> torch.Tensor:
+    """[T, k] bool: the claims of a call with these expert ids that the
+    capacity kept (both dispatches drop the same claims)."""
+    pos = lm_moe.claim_positions(ids, moe.n_experts)
+    return pos < moe.capacity(ids.shape[0])
+
+
+def served_routes(calls: list, n_layers: int, step: int, moe) -> list:
+    """For each MoE layer, the expert ids the serving run gave the tokens of
+    each sequence up to decode step ``step`` (its prompt in the prefill, then
+    one token a step), and which of those claims the capacity kept: [B * n, k]
+    each, in a prefill's token order (n = prompt + step + 1)."""
+    b, p = LM_BATCH, LM_PROMPT
+    n = p + step + 1
+    out = []
+    for layer in range(n_layers):
+        pre = calls[layer]                                          # [B*P, k]
+        steps = [calls[n_layers * (1 + j) + layer] for j in range(step + 1)]
+        ids = torch.cat([pre.reshape(b, p, -1), torch.stack(steps, 1)], 1)
+        keep = torch.cat([kept_claims(pre, moe).reshape(b, p, -1),
+                          torch.stack([kept_claims(s, moe) for s in steps], 1)], 1)
+        out.append((ids.reshape(b * n, -1), keep.reshape(b * n, -1)))
+    return out
+
+
+def route_changed(served: list, ref_calls: list, moe) -> torch.Tensor:
+    """[B] bool: the sequences with a token routed to another set of experts,
+    or a claim lost to the capacity, in the serving run or in the prefill,
+    at any layer."""
+    changed = torch.zeros(LM_BATCH, dtype=torch.bool, device=ref_calls[0].device)
+    for (ids, keep), ref in zip(served, ref_calls):
+        differ = (ids.sort(-1).values != ref.sort(-1).values).any(-1)
+        lost = ~keep.all(-1) | ~kept_claims(ref, moe).all(-1)
+        changed |= (differ | lost).reshape(LM_BATCH, -1).any(-1)
+    return changed
+
+
+@contextlib.contextmanager
+def pinned_routes(model, served: list):
+    """A prefill inside routes every token as the serving run did: each MoE
+    layer takes the served expert ids (its gates recomputed from its own
+    router logits and renormalised over them, as ``router_topk`` does), the
+    claims the serving run dropped get gate 0, and the capacity holds every
+    claim.  So the prefill computes, in exact arithmetic, what the serving
+    run computed for these tokens."""
+    layers = iter(served)
+    real = lm_moe.router_topk
+
+    def pinned(x, w_router, cfg):
+        ids, keep = next(layers)
+        logits = torch.matmul(x.float(), w_router.float())
+        gates = torch.softmax(logits, dim=-1).gather(-1, ids)
+        gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+        return ids, (gates * keep).to(x.dtype), logits
+    ffns = [(layer.ffn, layer.ffn.cfg) for layer in model.layers]
+    lm_moe.router_topk = pinned
+    for ffn, cfg in ffns:
+        ffn.cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+    try:
+        yield
+    finally:
+        lm_moe.router_topk = real
+        for ffn, cfg in ffns:
+            ffn.cfg = cfg
+
+
+def lm_step_bytes(model, cache: dict) -> int:
+    """Bytes one decode step must move: every weight but the embedding table
+    (the GShard dispatch reads every expert), the batch's embedding rows,
+    the whole cache read once and the new entries written."""
+    cfg = model.cfg
+    weights = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+                  if n != "embed")
+    cache_read = sum(c.numel() * c.element_size() for c in cache.values())
+    written = sum(c[:, :, 0].numel() * c.element_size() for c in cache.values())
+    return weights + LM_BATCH * cfg.d_model * model.embed.element_size() + cache_read + written
+
+
+def serve_cli_llama() -> list:
+    """(b) ``python -m repro_torch.launch.serve --arch llama3.2-1b`` at
+    repro's defaults, on the card by default: its two lines, parsed."""
+    log = PHASE10_DIR.parent / "phase11" / "serve_llama.log"
+    log.parent.mkdir(parents=True, exist_ok=True)
+    proc = run_cli(["repro_torch.launch.serve", "--arch", "llama3.2-1b"], log)
+    check(proc.wait(timeout=300) == 0, f"serve CLI exited 0 (log {log})")
+    out = log.read_text()
+    m = re.search(r"prefill (\d+)x(\d+) in ([0-9.]+)ms; decode (\d+) steps @ ([0-9.]+) tok/s",
+                  out)
+    ids = re.search(r"sample generation ids: (\[.*\])", out)
+    check(m is not None and ids is not None, f"serve CLI printed repro's two lines: {out!r}")
+    check((int(m[1]), int(m[2]), int(m[4])) == (LM_BATCH, LM_PROMPT, LM_STEPS - 1),
+          "serve CLI ran repro's defaults")
+    print(f"lm: llama3.2-1b CLI (python -m repro_torch.launch.serve --arch llama3.2-1b): "
+          f"prefill {m[3]} ms, decode {m[5]} tok/s (first calls, as repro's CLI)")
+    return json.loads(ids[1])
+
+
+def lm_full(dev, arch: str, card: str, cli_ids: list | None) -> dict:
+    """(b, c) One arch at full width, through ``serve.generate`` as the CLI
+    runs it (cold), then LM_WARM times more (warm); each checked decode step's logits
+    against the last-position logits of a prefill of the same tokens."""
+    cfg = lm_configs.get(arch).make()
+    if arch in LM_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=LM_LAYERS[arch])
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_peak()
+    held = torch.cuda.memory_allocated()
+    model = lm.init_params(cfg, dev, torch.Generator(dev).manual_seed(0))
+    prompts = lm_serve.draw_prompts(cfg, LM_BATCH, LM_PROMPT)
+    with recorded_routes() as routes:
+        cold = lm_serve.generate(model, prompts, LM_STEPS)
+    warm = [lm_serve.generate(model, prompts, LM_STEPS) for _ in range(LM_WARM)]
+    peak = device_peak() - held
+    check(all(bool(torch.isfinite(lg).all()) for lg in cold.logits), f"{arch}: finite logits")
+    check(all(torch.equal(cold.tokens, w.tokens) for w in warm),
+          f"{arch}: the warm runs generate as the cold")
+    prefill_s = statistics.median(w.prefill_s for w in warm)
+    decode_s = statistics.median(w.decode_s for w in warm)
+    if cli_ids is not None:
+        check(cold.tokens[0, :16].tolist() == cli_ids,
+              f"{arch}: the CLI generated what the in-process run did")
+
+    prompts = prompts.to(dev)
+    with torch.inference_mode():
+        longest = torch.cat([prompts, cold.tokens], 1)  # every token the run saw
+        x_all, _, _ = lm.forward(model, longest)
+        refs = []
+        for i in LM_CHECKED:
+            seq = longest[:, : LM_PROMPT + i + 1]
+            with recorded_routes() as ref_routes:
+                _, ref = lm.prefill(model, seq, max_seq=seq.shape[1])
+            refs.append((seq, ref, ref_routes))
+        rows = decode_rows(model, cold.logits, routes, refs)
+        for r, (_, ref, _) in zip(rows, refs):
+            whole = torch.matmul(x_all[:, LM_PROMPT + r["step"]], model.lm_head).float()
+            r["floor"] = (whole - ref).abs().amax(-1).cpu()
+            r["ref_max"] = ref.abs().amax(-1).cpu()
+        with recorded_routes() as fault_routes, self_slot_masked(model):
+            fault_logits = forced_decode(model, prompts, cold.tokens)
+        fault_rows = decode_rows(model, fault_logits, fault_routes, refs)
+        cache, _ = lm.prefill(model, prompts, max_seq=LM_PROMPT + LM_STEPS)
+        step_bytes = lm_step_bytes(model, cache)
+    del model, cache, x_all, refs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    steps = LM_STEPS - 1
+    flops = lm_configs.base.lm_model_flops(cfg, "prefill", LM_BATCH, LM_PROMPT)
+    out = {"arch": arch, "layers": cfg.n_layers, "peak_gib": peak / 2**30,
+           "prefill_ms": (cold.prefill_s * 1e3, prefill_s * 1e3),
+           "step_ms": (cold.decode_s * 1e3 / steps, decode_s * 1e3 / steps),
+           "tok_s": LM_BATCH * steps / decode_s, "step_bytes": step_bytes,
+           "bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+           "mfu": flops / prefill_s / BF16_FLOPS_PER_S, "rows": rows,
+           "fault_rows": fault_rows}
+    print(f"lm: {arch} ({cfg.n_layers} layers, bf16) on {card}: prefill "
+          f"{LM_BATCH}x{LM_PROMPT} {out['prefill_ms'][1]:.2f} ms warm (median of {LM_WARM}) "
+          f"({out['prefill_ms'][0]:.2f} cold), {out['mfu']:.4f} of dense bf16 peak "
+          f"({flops / 1e12:.3f} TFLOP); decode {out['step_ms'][1]:.3f} ms a step warm "
+          f"({out['step_ms'][0]:.3f} cold), {out['tok_s']:.1f} tok/s; a step reads "
+          f"{step_bytes / 1e9:.3f} GB, {out['bound_ms']:.3f} ms at 3.35 TB/s "
+          f"({out['step_ms'][1] / out['bound_ms']:.2f}x); peak {out['peak_gib']:.2f} GiB")
+    for r in rows:
+        print(f"lm: {arch} decode step {r['step']} vs prefill of the same "
+              f"{LM_PROMPT + r['step'] + 1} tokens, by sequence: {readings(r)}; prefill "
+              f"vs the {LM_PROMPT + LM_STEPS}-token forward "
+              f"{[round(v, 4) for v in r['floor'].tolist()]}; |logit| max "
+              f"{[round(v, 2) for v in r['ref_max'].tolist()]}")
+    for r in fault_rows:
+        print(f"lm: {arch} planted fault (token masked from its own slot), decode step "
+              f"{r['step']}, by sequence: {readings(r)}")
+    return out
+
+
+def readings(r: dict) -> str:
+    """A row's errors by sequence, as the ``lm:`` lines print them."""
+    def fmt(key):
+        return [round(v, 4) for v in r[key].tolist()]
+    out = f"max_abs_err {fmt('max_abs')}, rel_rms {fmt('rel')}"
+    if "pinned" in r:
+        out += (f"; rerouted or dropped {r['excused'].tolist()}; against the prefill "
+                f"routed as served max_abs_err {fmt('pinned')}, rel_rms {fmt('pinned_rel')}")
+    return out
+
+
+def errors(got: torch.Tensor, ref: torch.Tensor) -> tuple:
+    """[B] max abs error and [B] rms error over the reference's rms."""
+    d = got - ref
+    rel = d.square().mean(-1).sqrt() / ref.square().mean(-1).sqrt()
+    return d.abs().amax(-1).cpu(), rel.cpu()
+
+
+def decode_rows(model, step_logits: list, routes: list, refs: list) -> list:
+    """For each checked decode step i, step i's logits (``step_logits[i +
+    1]``, after the prefill's) against the prefill of the same tokens in
+    ``refs``; for a MoE arch also whether each sequence was routed apart
+    (``routes`` are the serving run's ``router_topk`` calls) and the errors
+    against a prefill routed as served."""
+    cfg = model.cfg
+    rows = []
+    for i, (seq, ref, ref_routes) in zip(LM_CHECKED, refs):
+        got = step_logits[i + 1]
+        row = {"step": i, "excused": torch.zeros(LM_BATCH, dtype=torch.bool)}
+        row["max_abs"], row["rel"] = errors(got, ref)
+        if cfg.moe is not None:
+            served = served_routes(routes, cfg.n_layers, i, cfg.moe)
+            row["excused"] = route_changed(served, ref_routes, cfg.moe).cpu()
+            with pinned_routes(model, served):
+                _, pinned = lm.prefill(model, seq, max_seq=seq.shape[1])
+            row["pinned"], row["pinned_rel"] = errors(got, pinned)
+        rows.append(row)
+    return rows
+
+
+def forced_decode(model, prompts: torch.Tensor, tokens: torch.Tensor) -> list:
+    """``serve.generate``'s prefill and decode steps with ``tokens`` fed in
+    place of the argmax: the prefill's logits, then each step's."""
+    cache, logits = lm.prefill(model, prompts, max_seq=LM_PROMPT + LM_STEPS)
+    out = [logits]
+    for i in range(LM_STEPS - 1):
+        logits, cache = lm.decode_step(model, cache, tokens[:, i], LM_PROMPT + i)
+        out.append(logits)
+    return out
+
+
+@contextlib.contextmanager
+def self_slot_masked(model):
+    """A planted cache fault: in every decode step each layer's attention
+    leaves the new token's own cache slot out of ``live``, so the token does
+    not attend to itself (the prefill is untouched)."""
+    attns = [layer.attn for layer in model.layers]
+    for attn in attns:
+        def masked(h, cache, slot, live, positions, real=attn.decode):
+            live = live.clone()
+            live[slot] = False
+            return real(h, cache, slot, live, positions)
+        attn.decode = masked
+    try:
+        yield
+    finally:
+        for attn in attns:
+            del attn.decode
+
+
+def rule_breaches(r: dict, b: int) -> list:
+    """What a checked (step, sequence) breaks of the rule: its decode logits
+    within LM_BF16_ATOL (max abs) and LM_BF16_REL (rms relative) of the
+    last-position logits of a prefill of the same tokens.  For a MoE arch, a
+    sequence whose tokens were routed to another set of experts, or lost a
+    claim to the capacity, in the serving run or in that prefill (bf16
+    rounding moves near ties; prefill and decode have other capacities) is
+    excused from that; every sequence of a MoE arch is held to both limits
+    against a prefill routed as the serving run was (``pinned_routes``)."""
+    held = [("the prefill's", "max_abs", "rel")] if not bool(r["excused"][b]) else []
+    if "pinned" in r:
+        held.append(("the prefill routed as served", "pinned", "pinned_rel"))
+    out = []
+    for what, a, rel in held:
+        if not (r[a][b].item() <= LM_BF16_ATOL and r[rel][b].item() <= LM_BF16_REL):
+            out.append(f"against {what}: max_abs_err {r[a][b].item():.4f} (limit "
+                       f"{LM_BF16_ATOL}), rel_rms {r[rel][b].item():.4f} (limit {LM_BF16_REL})")
+    return out
+
+
+def lm_decode_rule(run: dict) -> None:
+    """Every checked (step, sequence) of a full-width run keeps the rule
+    (``rule_breaches``), and the planted fault's run breaks it at every
+    checked step (in one sequence or more)."""
+    excused = caught = 0
+    for r, f in zip(run["rows"], run["fault_rows"]):
+        for b in range(LM_BATCH):
+            where = f"{run['arch']} step {r['step']} sequence {b}"
+            excused += bool(r["excused"][b])
+            breaches = rule_breaches(r, b)
+            check(not breaches, f"{where}: decode logits equal a prefill's ({breaches})")
+        at_step = sum(bool(rule_breaches(f, b)) for b in range(LM_BATCH))
+        check(at_step > 0, f"{run['arch']} step {r['step']}: the rule catches the planted "
+              f"fault (token masked from its own slot) in some sequence")
+        caught += at_step
+    n = len(run["rows"]) * LM_BATCH
+    pinned = (f"; all {n} within them of the prefill routed as served"
+              if "pinned" in run["rows"][0] else "")
+    print(f"lm: {run['arch']}: {n - excused} of {n} checked positions within "
+          f"{LM_BF16_ATOL} (max abs) and {LM_BF16_REL} (rms relative) of the prefill's "
+          f"logits, {excused} excused (rerouted or dropped){pinned}; the planted fault "
+          f"broke the rule at {caught} of {n}, at every checked step")
+
+
+def phase_lm(dev, card: str) -> list:
+    """Phase 11: LM serving (see the module docstring)."""
+    t0 = time.perf_counter()
+    lm_reduced_on_card(dev)
+    cli_ids = serve_cli_llama()
+    runs = [lm_full(dev, arch, card, cli_ids if arch == "llama3.2-1b" else None)
+            for arch in LM_ARCHS]
+    for run in runs:
+        lm_decode_rule(run)
+    print(f"lm: phase 11 took {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script checks the port on a GPU",
@@ -3209,6 +3627,15 @@ def main() -> int:
     for row in rows:
         row["launches_by_path"]["frontend"] = fe["launches"].get(row["name"], 0)
         row["launches_by_path"]["ranks"] = ranks["launches"].get(row["name"], 0)
+    # the LM path runs no kernel of the port: free the n-gram phases' tensors
+    # for the full-width models
+    del main_run, methods, stream, ext, wave, fe, ranks, after_waves
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"lm: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated "
+          f"before phase 11")
+    phase_lm(dev, card)                                 # phase 11
+    done("phase 11 (lm)")
 
     print(json.dumps({"kernels": rows}))
     print(card)

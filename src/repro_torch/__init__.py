@@ -16,7 +16,10 @@ monolithic job's output, so a corpus larger than one job can hold on the
 card still runs.  The serving tier (``serve``: batcher, admission,
 ``QueryFrontend``, HTTP/SSE), observability (``obs``: metrics registry,
 reports, tracer) and the driver CLIs (``launch.ngram``,
-``launch.serve_ngrams``) sit on top, as in ``repro``.
+``launch.serve_ngrams``) sit on top, as in ``repro``.  Beside the n-gram
+path, ``repro``'s LM serving: the arch registry (``configs``: the five LM
+archs), the model stack (``models.{layers,moe,transformer}``: GQA, MLA,
+sliding windows, MoE; prefill and cached decode) and ``launch.serve``.
 
 Lane representation.  ``repro`` keeps packed term lanes, record weights,
 hash values and index counts as ``uint32``.  torch has no ``>>``, ``<``,
@@ -42,8 +45,9 @@ kernels read the words as ``uint32_t`` (``kernels.bitpack``).
 
 Devices.  Entry points (``core.run_job``, ``index.build_index``,
 ``index.compress_index``, ``index.GenerationalIndex``,
-``serve.StreamingNGramService``) run on the card unless the caller passes
-``device="cpu"``; with no card and no device given they raise.  Each kernel
+``serve.StreamingNGramService``, ``models.transformer.init_params``) run
+on the card unless the caller passes ``device="cpu"``; with no card and no
+device given they raise.  Each kernel
 wrapper in ``kernels.ops`` launches its CUDA kernel on a CUDA tensor and runs
 the plain PyTorch version on a CPU tensor.
 """

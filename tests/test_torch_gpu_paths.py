@@ -14,7 +14,8 @@ card's searches launched from the batcher's thread), and the multi-rank
 batch path (two gloo ranks sharing the card: the four methods and the
 sharded index), and the streaming path across ranks (two gloo ranks sharing
 the card against two on the CPU: the mesh waves, ``run_streaming`` and
-``shard_generational``).  ``merge_path`` is
+``shard_generational``), and LM serving (each reduced arch's prefill
+and decode steps, card against CPU in float32).  ``merge_path`` is
 also held against its plain version at runs above 2**26 rows.  The file
 imports no JAX: it runs on a GPU host that has none, and every case skips
 without a card.
@@ -483,3 +484,40 @@ def test_cuda_two_gloo_ranks_stream_as_on_the_cpu(cuda_device):
     for kernel in ("suffix_pack", "hash_partition", "lcp_boundary", "hash_combine",
                    "merge_path", "block_expand", "bsearch", "block_decode"):
         assert any(r["launches"].get(kernel, 0) > 0 for r in card), kernel
+
+
+@pytest.mark.cuda
+def test_cuda_reduced_lm_serving_matches_cpu(cuda_device):
+    """Each LM arch's REDUCED config (float32) with the same seeded weights on
+    the card and on the CPU: prefill 2x12, then 6 decode steps of fixed
+    tokens (mixtral's window of 8 wraps its ring), every logit within 1e-4
+    (rtol and atol) of the CPU's.  TF32 is off, so the card's float32
+    matmuls are float32 and differ from the CPU's only in the order of
+    their sums."""
+    import copy
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+
+    def run(model, toks):
+        with torch.inference_mode():
+            cache, logits = tf.prefill(model, toks[:, :12], max_seq=18)
+            out = [logits]
+            for i in range(12, 18):
+                logits, cache = tf.decode_step(model, cache, toks[:, i], i)
+                out.append(logits)
+        return [o.cpu() for o in out]
+
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for arch in configs.all_archs():
+            cfg = configs.get(arch).make_reduced()
+            cpu = tf.init_params(cfg, "cpu", torch.Generator().manual_seed(0))
+            card = copy.deepcopy(cpu).to(cuda_device)
+            toks = torch.as_tensor(np.random.default_rng(3).integers(1, cfg.vocab_size,
+                                                                     (2, 18)))
+            for got, want in zip(run(card, toks.to(cuda_device)), run(cpu, toks)):
+                torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
