@@ -204,6 +204,30 @@ line):
                  of the dense bf16 peak (``lm_model_flops``), decode ms a
                  step and tokens/s, the bytes a step must read and that time
                  at 3.35 TB/s, and peak memory over what was held before.
+  12. train   -- LM training, after phase 11 (it runs no kernel of the port
+                 either).  (a) Each LM arch's REDUCED config in float32, the
+                 same seeded weights on the card and on the CPU: one
+                 ``make_train_step`` on a 4x16 batch; loss, gradient norm,
+                 every gradient and first-moment leaf within 1e-4 of the
+                 CPU's (of the leaf's max abs), every updated parameter by
+                 Adam's rule (``train_reduced_on_card``), TF32 off.  (b)
+                 llama3.2-1b at full width and depth in bf16 with remat,
+                 through ``launch.train.train`` at repro's CLI defaults
+                 (batch 8, seq 128, its Zipf corpus): 10 steps, the loss at
+                 step 9 below step 0's.  (c) 3 steps with remat off.  (d) In
+                 a process of its own under deterministic algorithms
+                 (``CUBLAS_WORKSPACE_CONFIG`` set before cuBLAS starts): the
+                 first step's gradients bit-equal with and without remat,
+                 and a 10-step run checkpointing every 6 steps with a
+                 failure injected at step 8 (one save of params and moments,
+                 about 15 GB, and one restore, in ``build/phase12``, checked
+                 for free space first and removed after) whose final params,
+                 moments and step are bit-equal to an uninterrupted run's.
+                 ``train:`` lines give warm step ms and tokens/s, the share
+                 of the dense bf16 peak (``lm_model_flops``), peak GiB
+                 against weights + grads + moments, remat off beside on,
+                 save and restore seconds with the bytes, and the
+                 deterministic step beside the plain one.
 
 The last lines are one JSON object describing each kernel, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.  The
@@ -219,7 +243,9 @@ import hashlib
 import ctypes
 import dataclasses
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -253,6 +279,13 @@ from repro_torch import configs as lm_configs  # noqa: E402
 from repro_torch.launch import serve as lm_serve  # noqa: E402
 from repro_torch.models import moe as lm_moe  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
+from repro_torch.data import loader as lm_loader  # noqa: E402
+from repro_torch.launch import train as lm_train  # noqa: E402
+from repro_torch.training import fault_tolerance as lm_fault  # noqa: E402
+from repro_torch.training import optimizer as lm_optimizer  # noqa: E402
+from repro_torch.training import train_loop as lm_train_loop  # noqa: E402
+from repro_torch.training import tree as lm_tree  # noqa: E402
+from repro_torch.training.tree import Stacked, named_leaves  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bandwidth, and
 # the 32-bit non-tensor rate, the table's figure for the scalar integer work
@@ -324,6 +357,20 @@ BF16_FLOPS_PER_S = 989e12
 #: 6 gives the sound readings and the planted fault's that each sits between)
 LM_BF16_ATOL = 0.25
 LM_BF16_REL = 0.05
+#: phase 12: LM training at repro's launch/train.py defaults (batch 8, seq
+#: 128, its Zipf corpus of 200,000 tokens): llama3.2-1b at full width and
+#: depth in bf16 with remat, 10 steps; 3 with remat off
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_CORPUS_TOKENS = 8, 128, 200_000
+TRAIN_STEPS = 10
+TRAIN_REMAT_OFF_STEPS = 3
+#: the recovery check: a checkpoint every 6 steps, a failure at step 8 (one
+#: save, one restore)
+TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 6, 8
+#: (a) reduced configs in float32, one train step on the card against the CPU
+TRAIN_OPT = dict(peak_lr=1e-3, warmup_steps=2, decay_steps=50)
+TRAIN_F32_TOL = 1e-4
+PHASE12_DIR = Path(__file__).resolve().parent / "build" / "phase12"
 
 
 def check(cond: bool, what: str) -> None:
@@ -1512,7 +1559,7 @@ def phase_streaming(dev, main: dict) -> dict:
           f"at rest {final.nbytes_at_rest:,} bytes vs {flat_bytes_u32(final):,} flat "
           f"(uint32) = {flat_bytes_u32(final) / final.nbytes_at_rest:.3f}x")
     print(f"stream: direct build of the union: build_index {t_flat:.3f} s (device), "
-          f"compress_index {t_compress:.3f} s (host numpy build + copy to the card)")
+          f"compress_index {t_compress:.3f} s (torch build on the card)")
     print("stream: spans (count, ms) " + ", ".join(
         f"{k} {n} {ms:.1f}" for k, (n, ms) in sorted(spans.items())))
     decode_ms = [ev["dur"] / 1e3 for ev in tracer.events if ev["name"] == "compress.decode"]
@@ -1803,6 +1850,7 @@ def phase_waves(dev, main: dict, stream: dict) -> dict:
     want_c = continuations(flat, pg_dev, pl_dev, k=TOP_K)
     t0 = time.perf_counter()
     direct = compress_index(flat, block_size=4, device=dev)
+    sync()
     t_direct = time.perf_counter() - t0
     del flat
     torch.cuda.empty_cache()
@@ -3554,6 +3602,272 @@ def phase_lm(dev, card: str) -> list:
     return runs
 
 
+# ------------------------------------------------------------------ phase 12
+def tree_leaves(tree) -> dict:
+    """name -> float64 host tensor of every leaf of a training tree
+    (Stacked leaves stacked)."""
+    return {n: (torch.stack(tuple(v)) if isinstance(v, Stacked) else v)
+            .detach().double().cpu() for n, v in named_leaves(tree)}
+
+
+def leaf_err(got: dict, want: dict) -> float:
+    """Largest over leaves of the max abs error over the leaf's max abs."""
+    return max(float((got[n] - want[n]).abs().max() / max(float(want[n].abs().max()), 1e-30))
+               for n in want)
+
+
+def reduced_train_step(model, batch: dict) -> dict:
+    """One ``make_train_step`` of ``model`` (trainable), with the gradient
+    it takes: the loss, the gradient norm and lr, and every gradient, moment
+    and updated parameter leaf on the host."""
+    dev = model.device
+    b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    params = lm.param_tree(model)
+    loss, _, grads = lm_train_loop.value_and_grad(
+        lambda p, x: lm.loss_fn(model, x), params, b)
+    step = lm_train_loop.make_train_step(lambda p, x: lm.loss_fn(model, x),
+                                         lm_optimizer.OptimizerConfig(**TRAIN_OPT))
+    params, state, m = step(params, lm_optimizer.init_state(params), b)
+    return {"loss": float(loss), "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"]),
+            "grads": tree_leaves(grads), "m": tree_leaves(state["m"]),
+            "params": tree_leaves(params)}
+
+
+def train_reduced_on_card(dev) -> None:
+    """(a) Each arch's REDUCED config in float32, the same seeded weights on
+    the card and on the CPU: one ``make_train_step`` on one batch.  The
+    loss, the gradient norm, every gradient leaf and every first moment
+    (linear in the gradient) within TRAIN_F32_TOL of the CPU's (max abs
+    error over the leaf's max abs); every updated parameter within 1e-6 of
+    its leaf's scale, but for entries whose gradient is so near 0 that a
+    rounding flips its sign in Adam's ``m / sqrt(v)`` and moves it by up
+    to 2 lr: fewer than 1e-3 of a leaf's, each within 2 lr.  TF32 is off."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for arch in LM_ARCHS:
+            cfg = lm_configs.get(arch).make_reduced()
+            cpu = lm.init_params(cfg, "cpu", torch.Generator().manual_seed(0))
+            card = copy.deepcopy(cpu).to(dev)
+            batch = lm_loader.SyntheticLMLoader(cfg.vocab_size, 16, 4).batch_at(0)
+            want = reduced_train_step(cpu.requires_grad_(True), batch)
+            got = reduced_train_step(card.requires_grad_(True), batch)
+            lr = want["lr"]
+            loss_err = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+            gn_err = abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
+            g_err, m_err = leaf_err(got["grads"], want["grads"]), leaf_err(got["m"], want["m"])
+            p_max, flipped = 0.0, 0
+            for n, w in want["params"].items():
+                d = (got["params"][n] - w).abs()
+                tight = 1e-6 * float(w.abs().max())
+                p_max = max(p_max, float(d.max()) / lr)
+                far = int((d > tight + 1e-6 * lr).sum())
+                flipped += far
+                check(float(d.max()) <= tight + 2 * lr and far < 1e-3 * d.numel(),
+                      f"{arch} reduced: updated {n} within the update rule")
+            print(f"train: {arch} reduced f32, card vs cpu, one make_train_step on "
+                  f"4x16: loss err {loss_err:.2e}, grad norm err {gn_err:.2e}, gradient "
+                  f"{g_err:.2e} and first moment {m_err:.2e} of the leaf's max abs (tol "
+                  f"{TRAIN_F32_TOL}); updated params max {p_max:.3e} lr apart, {flipped} "
+                  f"entries past 1e-6 of their leaf (TF32 off)")
+            check(max(loss_err, gn_err, g_err, m_err) <= TRAIN_F32_TOL,
+                  f"{arch} reduced: the card's train step equals the CPU's")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def state_bytes(model) -> tuple[int, int, int]:
+    """(parameters, bytes of the weights, bytes of weights + grads + float32
+    moments)."""
+    n = sum(p.numel() for p in model.parameters())
+    w = sum(p.numel() * p.element_size() for p in model.parameters())
+    return n, w, 2 * w + 8 * n
+
+
+def first_train_batch(cfg, dev) -> dict:
+    """``launch.train``'s batch of step 0, on ``dev``."""
+    loader = lm_loader.LMBatchLoader(lm_train.train_corpus(cfg, TRAIN_CORPUS_TOKENS),
+                                     TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    return {k: torch.as_tensor(v, device=dev) for k, v in loader.batch_at(0).items()}
+
+
+def train_full(dev, cfg, steps: int) -> dict:
+    """``launch.train.train`` of ``cfg`` for ``steps`` steps on the card, no
+    checkpoint: step seconds, losses, peak over what was held before."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_peak()
+    held = torch.cuda.memory_allocated()
+    ckpt = PHASE12_DIR / f"main_{int(cfg.remat)}"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        run = lm_train.train(cfg, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                             corpus_tokens=TRAIN_CORPUS_TOKENS,
+                             ckpt_dir=str(ckpt), ckpt_every=steps + 1, device=dev)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    out = {"peak": device_peak() - held, "step_s": run.step_s, "losses": run.losses,
+           "bytes": state_bytes(run.model), "retries": run.retries}
+    # where a warm step's time goes: the loss and its gradient, then the update
+    model, state = run.model, run.state
+    batch = first_train_batch(cfg, dev)
+    grad_s, update_s = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, grads = lm_train_loop.value_and_grad(lambda p, b: lm.loss_fn(model, b),
+                                                   state["params"], batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, state["opt"], _ = lm_optimizer.apply_updates(
+            state["params"], grads, state["opt"], lm_optimizer.OptimizerConfig())
+        torch.cuda.synchronize()
+        grad_s.append(t1 - t0)
+        update_s.append(time.perf_counter() - t1)
+        del grads
+    out["grad_s"], out["update_s"] = statistics.median(grad_s), statistics.median(update_s)
+    del run, model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_child(out_path: str) -> None:
+    """The recovery check, in a process of its own started with
+    ``CUBLAS_WORKSPACE_CONFIG`` set, under deterministic algorithms: the
+    first step's gradients with and without remat; an uninterrupted run of
+    TRAIN_STEPS; a run checkpointing every TRAIN_CKPT_EVERY steps with a
+    failure injected at TRAIN_FAIL_AT (one save, one restore).  Writes its
+    readings as JSON to ``out_path``."""
+    torch.use_deterministic_algorithms(True)
+    dev = torch.device("cuda")
+    cfg = lm_configs.get(TRAIN_ARCH).make()
+    model = lm.init_params(cfg, dev, torch.Generator(dev).manual_seed(0)).requires_grad_(True)
+    batch = first_train_batch(cfg, dev)
+    grads = []
+    for remat in (True, False):
+        model.cfg = dataclasses.replace(cfg, remat=remat)
+        _, _, g = lm_train_loop.value_and_grad(lambda p, b: lm.loss_fn(model, b),
+                                               lm.param_tree(model), batch)
+        grads.append(lm_tree.tensors(g))
+    remat_equal = all(torch.equal(a, b) for a, b in zip(*grads))
+    _, weights, need = state_bytes(model)
+    del model, grads, g
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    root = PHASE12_DIR / "recovery"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    free = shutil.disk_usage(root).free
+    ckpt_bytes = need - weights          # weights and moments on disk, no grads
+    check(free >= 1.25 * ckpt_bytes, f"phase 12 needs {1.25 * ckpt_bytes / 1e9:.1f} GB free "
+          f"under {root} for its checkpoint; the disk has {free / 1e9:.1f} GB")
+    try:
+        whole = lm_train.train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                               corpus_tokens=TRAIN_CORPUS_TOKENS,
+                               ckpt_dir=str(root / "whole"), ckpt_every=TRAIN_STEPS + 1,
+                               device=dev)
+        ref = lm_tree.tensors(whole.state)
+        whole_losses, whole_step_s = whole.losses, whole.step_s
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        cut = lm_train.train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                             corpus_tokens=TRAIN_CORPUS_TOKENS,
+                             ckpt_dir=str(root / "cut"), ckpt_every=TRAIN_CKPT_EVERY,
+                             device=dev, injector=lm_fault.FailureInjector({TRAIN_FAIL_AT}))
+        got = lm_tree.tensors(cut.state)
+        equal = len(got) == len(ref) and all(torch.equal(a, b) for a, b in zip(got, ref))
+        events = cut.ckpt.events
+        result = {"remat_equal": remat_equal, "equal": equal, "n_tensors": len(ref),
+                  "retries": cut.retries, "steps_run": len(cut.step_s),
+                  "losses": whole_losses, "cut_losses": cut.losses,
+                  "step_s": whole_step_s, "events": events, "free": free}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    Path(out_path).write_text(json.dumps(result))
+
+
+def train_recovery(card: str) -> dict:
+    """Run :func:`train_child` in a fresh process and read its readings."""
+    PHASE12_DIR.mkdir(parents=True, exist_ok=True)
+    out, log = PHASE12_DIR / "recovery.json", PHASE12_DIR / "recovery.log"
+    out.unlink(missing_ok=True)
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with open(log, "w") as f:
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--train-child", str(out)], env=env, stdout=f,
+                              stderr=subprocess.STDOUT, timeout=900)
+    check(proc.returncode == 0, f"the recovery process exited 0 (log {log}: "
+          f"{log.read_text()[-3000:]})")
+    return json.loads(out.read_text())
+
+
+def phase_train(dev, card: str) -> dict:
+    """Phase 12: LM training (see the module docstring)."""
+    t0 = time.perf_counter()
+    train_reduced_on_card(dev)
+    cfg = lm_configs.get(TRAIN_ARCH).make()
+    on = train_full(dev, cfg, TRAIN_STEPS)
+    off = train_full(dev, dataclasses.replace(cfg, remat=False), TRAIN_REMAT_OFF_STEPS)
+    rec = train_recovery(card)
+
+    n_params, _, wgm = on["bytes"]
+    flops = lm_configs.base.lm_model_flops(cfg, "train", TRAIN_BATCH, TRAIN_SEQ)
+    warm = statistics.median(on["step_s"][1:])
+    warm_off = statistics.median(off["step_s"][1:])
+    det = statistics.median(rec["step_s"][1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    losses = on["losses"]
+    check(all(np.isfinite(losses)) and len(losses) == TRAIN_STEPS and on["retries"] == 0,
+          "the full-width run took every step, its losses finite")
+    check(losses[-1] < losses[0], f"the loss falls: step 0 {losses[0]:.4f}, step "
+          f"{TRAIN_STEPS - 1} {losses[-1]:.4f}")
+    print(f"train: {TRAIN_ARCH} ({cfg.n_layers} layers, d {cfg.d_model}, bf16, remat) "
+          f"through launch.train on {card}: batch {TRAIN_BATCH}x{TRAIN_SEQ}, "
+          f"{n_params / 1e9:.3f} G params; step "
+          f"{warm * 1e3:.2f} ms warm (median of {TRAIN_STEPS - 1}; first "
+          f"{on['step_s'][0] * 1e3:.1f} ms), {tokens / warm:.0f} tokens/s, "
+          f"{flops / warm / BF16_FLOPS_PER_S:.4f} of dense bf16 peak ({flops / 1e12:.3f} "
+          f"TFLOP a step, lm_model_flops); peak {on['peak'] / 2**30:.2f} GiB against "
+          f"weights + grads + moments {wgm / 2**30:.2f} GiB; loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} by step {TRAIN_STEPS - 1}")
+    print(f"train: a warm step's parts (median of 3): loss and gradient "
+          f"{on['grad_s'] * 1e3:.2f} ms, AdamW update {on['update_s'] * 1e3:.2f} ms")
+    print(f"train: remat off, {TRAIN_REMAT_OFF_STEPS} steps: step {warm_off * 1e3:.2f} ms "
+          f"warm (remat on {warm * 1e3:.2f}; loss and gradient {off['grad_s'] * 1e3:.2f} "
+          f"ms), peak {off['peak'] / 2**30:.2f} GiB (remat on {on['peak'] / 2**30:.2f})")
+    check(rec["remat_equal"], "the first step's gradients with and without remat are "
+          "bit-equal (deterministic algorithms)")
+    save = next(e for e in rec["events"] if e["kind"] == "save")
+    restore = next(e for e in rec["events"] if e["kind"] == "restore")
+    check(rec["retries"] == 1 and rec["steps_run"] == TRAIN_STEPS + TRAIN_FAIL_AT
+          - TRAIN_CKPT_EVERY and len(rec["events"]) == 2,
+          f"the recovery run made one save and one restore and replayed from step "
+          f"{TRAIN_CKPT_EVERY} ({rec['retries']} restarts, {rec['steps_run']} steps run)")
+    check(rec["equal"], f"the recovered run's final params, moments and step "
+          f"({rec['n_tensors']} tensors) are bit-equal to the uninterrupted run's")
+    check(rec["cut_losses"][-1] == rec["losses"][-1], "the recovered run's last loss is "
+          "the uninterrupted run's")
+    print(f"train: recovery on {card}, deterministic algorithms "
+          f"(CUBLAS_WORKSPACE_CONFIG=:4096:8, a process of its own): {TRAIN_STEPS} steps, "
+          f"a checkpoint every {TRAIN_CKPT_EVERY}, a failure at step {TRAIN_FAIL_AT}: "
+          f"final params, moments and step bit-equal to an uninterrupted run "
+          f"({rec['n_tensors']} tensors); save {save['copy_s']:.2f} s to host + "
+          f"{save['write_s']:.2f} s written ({save['bytes'] / 1e9:.3f} GB), restore "
+          f"{restore['seconds']:.2f} s ({restore['bytes'] / 1e9:.3f} GB, a warm read: "
+          f"the file cache holds the files just written); {rec['free'] / 1e9:.0f} GB "
+          f"free under the checkpoint directory")
+    print(f"train: deterministic step {det * 1e3:.2f} ms warm against {warm * 1e3:.2f} "
+          f"ms ({det / warm:.3f}x); first step's gradients bit-equal with and without "
+          f"remat")
+    print(f"train: phase 12 took {time.perf_counter() - t0:.1f} s")
+    return {"warm_s": warm, "rec": rec}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script checks the port on a GPU",
@@ -3636,6 +3950,10 @@ def main() -> int:
           f"before phase 11")
     phase_lm(dev, card)                                 # phase 11
     done("phase 11 (lm)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train(dev, card)                              # phase 12
+    done("phase 12 (train)")
 
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -3646,4 +3964,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--train-child"]:      # phase 12's recovery process
+        train_child(sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

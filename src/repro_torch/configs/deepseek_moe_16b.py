@@ -22,7 +22,7 @@ REDUCED = LMConfig(
     attn=AttentionConfig("gqa", n_heads=4, n_kv=4, d_head=16),
     moe=MoEConfig(n_experts=8, top_k=2, d_ff_expert=32, n_shared=2,
                   d_ff_shared=64, capacity_factor=2.0),
-    dtype=torch.float32,
+    dtype=torch.float32, remat=False,
 )
 
 register_lm("deepseek-moe-16b", FULL, REDUCED, long_ok=False,

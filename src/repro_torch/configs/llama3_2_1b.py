@@ -16,7 +16,7 @@ REDUCED = LMConfig(
     name="llama3.2-1b-smoke",
     n_layers=2, d_model=64, vocab_size=512, d_ff=128,
     attn=AttentionConfig("gqa", n_heads=4, n_kv=2, d_head=16),
-    dtype=torch.float32,
+    dtype=torch.float32, remat=False,
 )
 
 register_lm("llama3.2-1b", FULL, REDUCED, long_ok=False)

@@ -19,7 +19,7 @@ REDUCED = LMConfig(
     n_layers=2, d_model=64, vocab_size=512, d_ff=128,
     attn=AttentionConfig("mla", n_heads=4, n_kv=4, d_head=24,
                          q_lora=32, kv_lora=16, d_nope=16, d_rope=8, d_v=16),
-    dtype=torch.float32,
+    dtype=torch.float32, remat=False,
 )
 
 register_lm("minicpm3-4b", FULL, REDUCED, long_ok=False,

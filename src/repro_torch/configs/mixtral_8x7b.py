@@ -20,7 +20,7 @@ REDUCED = LMConfig(
     n_layers=2, d_model=64, vocab_size=512, d_ff=128,
     attn=AttentionConfig("gqa", n_heads=4, n_kv=2, d_head=16, window=8),
     moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=64, capacity_factor=2.0),
-    dtype=torch.float32,
+    dtype=torch.float32, remat=False,
 )
 
 register_lm("mixtral-8x7b", FULL, REDUCED, long_ok=True,

@@ -27,8 +27,8 @@ at build instead of a converted copy per query batch.  The decoded caches
 are int32 (``sec_cache``, the fanout caches, in blocks) and int64
 (``cumsum_cache``).
 
-The build stays host numpy, as in ``repro``; its arrays then go to the
-index's device.  Row order, sentinel padding and tie-breaks are inherited
+The build runs in torch on the index's device (``repro``'s is host numpy;
+the bytes are the same).  Row order, sentinel padding and tie-breaks are inherited
 exactly from the flat index: :func:`compress_index` is a pure re-encoding,
 and every query answers bit-identically to the flat layout.
 """
@@ -40,11 +40,11 @@ import math
 import numpy as np
 import torch
 
-from repro_torch import U32, resolve_device
+from repro_torch import U32, resolve_device, u32_words
 from repro_torch.core.stats import NGramStats
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
-from repro_torch.kernels.bitpack import as_words, extract_bits, pack_bits
+from repro_torch.kernels.bitpack import as_words, extract_bits, pack_words
 from repro_torch.kernels.ref import search_steps
 from repro_torch.mapreduce import pack as packing
 from repro_torch.obs import metrics as obs_metrics
@@ -83,33 +83,39 @@ class EliasFano:
     universe: int
 
     @staticmethod
-    def encode(values: np.ndarray, universe: int | None = None, *,
+    def encode(values, universe: int | None = None, *,
                device=None) -> "EliasFano":
-        """Host encode (numpy) of ``values``; the words go to ``device``."""
-        v = np.asarray(values, np.uint64)
+        """Encode ``values`` (a tensor or an array of non-negative integers)
+        in torch on ``device`` (the card unless told otherwise)."""
+        device = resolve_device(device)
+        if not isinstance(values, torch.Tensor):
+            values = torch.as_tensor(np.asarray(values).astype(np.int64))
+        v = values.reshape(-1).to(device=device, dtype=torch.int64)
         n = int(v.shape[0])
         if n == 0:
             raise ValueError("cannot Elias-Fano encode an empty sequence")
-        if np.any(np.diff(v.astype(np.int64)) < 0):
+        if n > 1 and bool((v[1:] < v[:-1]).any()):
             raise ValueError("sequence is not monotone non-decreasing")
-        u = int(v.max()) if universe is None else int(universe)
-        if u < int(v.max()):
-            raise ValueError(f"universe {u} < max value {int(v.max())}")
+        v_min, v_max = (int(x) for x in torch.aminmax(v))
+        if v_min < 0:
+            raise ValueError(f"negative value {v_min} in an Elias-Fano sequence")
+        u = v_max if universe is None else int(universe)
+        if u < v_max:
+            raise ValueError(f"universe {u} < max value {v_max}")
         l = max(0, int(math.floor(math.log2(max(u, 1) / n))) if u > n else 0)
         l = min(l, 31)
-        low = pack_bits((v & np.uint64((1 << l) - 1)).astype(np.uint32), l)
-        ones = np.arange(n, dtype=np.uint64) + (v >> np.uint64(l))
+        low = pack_words(v & ((1 << l) - 1), l)
+        ones = torch.arange(n, dtype=torch.int64, device=device) + (v >> l)
         n_bits = n + (u >> l) + 1
         hw = max(1, -(-n_bits // 32))
-        high = np.zeros((hw,), np.uint32)
-        np.bitwise_or.at(high, (ones >> np.uint64(5)).astype(np.int64),
-                         np.uint32(1) << (ones & np.uint64(31)).astype(np.uint32))
-        pop = np.array([bin(int(w)).count("1") for w in high], np.uint32)
-        word_rank = np.zeros((hw + 1,), np.uint32)
-        word_rank[1:] = np.cumsum(pop, dtype=np.uint32)
-        device = resolve_device(device)
-        return EliasFano(as_words(low, device), as_words(high, device),
-                         as_words(word_rank, device), n=n, low_bits=l, universe=u)
+        # the ones are strictly increasing, so each is a distinct bit: a sum
+        # of them is their OR, and a word's rank is a search over them
+        high = torch.zeros(hw, dtype=torch.int64, device=device).index_add_(
+            0, ones >> 5, torch.ones_like(ones) << (ones & 31))
+        word_rank = torch.searchsorted(
+            ones >> 5, torch.arange(hw + 1, dtype=torch.int64, device=device)) & U32
+        return EliasFano(low, u32_words(high, device), u32_words(word_rank, device),
+                         n=n, low_bits=l, universe=u)
 
     def select(self, i: torch.Tensor) -> torch.Tensor:
         """Values [*i.shape] int64 at positions ``i`` (0 <= i < n)."""
@@ -332,57 +338,43 @@ def head_key_layout(sigma: int, term_bits: int):
     return tuple(zip(offs, widths)), -(-o // 32)
 
 
-def _pack_head_keys(row_len: np.ndarray, terms: np.ndarray,
-                    *, term_bits: int) -> np.ndarray:
-    """[n, HL] uint32 dense head keys (host build side of
+def _pack_head_keys(row_len: torch.Tensor, terms: torch.Tensor,
+                    *, term_bits: int) -> torch.Tensor:
+    """[n, HL] int64 dense head keys of uint32 values (build side of
     :func:`head_key_layout`; ``query._dense_qkey`` is the query side -- the
     two must pack bit-identically)."""
     n, sigma = terms.shape
     fields, hl = head_key_layout(sigma, term_bits)
-    lanes = np.zeros((n, hl), np.uint32)
-    cols = [row_len.astype(np.uint64)] + \
-        [terms[:, j].astype(np.uint64) for j in range(sigma)]
+    lanes = torch.zeros((n, hl), dtype=torch.int64, device=terms.device)
+    cols = [row_len] + [terms[:, j] for j in range(sigma)]
     for (o, w), v in zip(fields, cols):
-        v = v & np.uint64((1 << w) - 1)
+        v = v.to(torch.int64) & ((1 << w) - 1)
         r = o + w
         j0 = o // 32
         e0 = 32 * (j0 + 1)
         if r <= e0:
-            lanes[:, j0] |= (v << np.uint64(e0 - r)).astype(np.uint32)
+            lanes[:, j0] |= (v << (e0 - r)) & U32
         else:                       # field straddles a lane boundary
-            lanes[:, j0] |= (v >> np.uint64(r - e0)).astype(np.uint32)
+            lanes[:, j0] |= v >> (r - e0)
             e1 = 32 * ((r - 1) // 32 + 1)
-            lanes[:, (r - 1) // 32] |= (
-                (v << np.uint64(e1 - r)) & np.uint64(0xFFFFFFFF)
-            ).astype(np.uint32)
+            lanes[:, (r - 1) // 32] |= (v << (e1 - r)) & U32
     return lanes
 
 
-def _unpack_terms_host(lanes: np.ndarray, *, vocab_size: int,
-                       sigma: int) -> np.ndarray:
-    """Host-side :func:`packing.unpack_terms` of uint32 lanes -> int32 terms."""
-    bits = packing.bits_for_vocab(vocab_size)
-    per = packing.terms_per_lane(vocab_size)
-    shifts = np.arange(per - 1, -1, -1, dtype=np.uint32) * np.uint32(bits)
-    mask = np.uint32((1 << bits) - 1) if bits < 32 else np.uint32(0xFFFFFFFF)
-    t = (lanes[..., None] >> shifts) & mask
-    t = t.reshape(t.shape[:-2] + (-1,))
-    return t[..., :sigma].astype(np.int32)
-
-
-def _lcp_host(terms: np.ndarray) -> np.ndarray:
+def _lcp(terms: torch.Tensor) -> torch.Tensor:
     """lcp[i] = common prefix length of sorted rows i and i-1 (lcp[0] = 0)."""
-    lcp = np.zeros(terms.shape[0], np.int32)
+    lcp = torch.zeros(terms.shape[0], dtype=torch.int32, device=terms.device)
     if terms.shape[0] > 1:
-        eq = (terms[1:] == terms[:-1]).astype(np.int32)
-        lcp[1:] = np.cumprod(eq, axis=1).sum(axis=1)
+        eq = (terms[1:] == terms[:-1]).to(torch.int32)
+        lcp[1:] = torch.cumprod(eq, dim=1).sum(dim=1, dtype=torch.int32)
     return lcp
 
 
-def _front_code(terms: np.ndarray, row_len: np.ndarray,
+def _front_code(terms: torch.Tensor, row_len: torch.Tensor,
                 *, len_off: int, block_size: int, term_bits: int,
                 lcp_width: int, payload_words: int | None):
-    """(heads, lcps, payload, block_base) uint32 arrays of one view.
+    """(heads [nb, HL] int64 of uint32 values, lcps, payload, block_base
+    word tensors) of one view, built in torch on the terms' device.
 
     terms  : [size, S] int32 decoded term rows (view order, sentinels included)
     len_off: 0 for the point view, 1 for the continuation (prefix) view --
@@ -392,29 +384,20 @@ def _front_code(terms: np.ndarray, row_len: np.ndarray,
     b = block_size
     if size % b:
         raise ValueError(f"size {size} not a multiple of block_size {b}")
-    store_len = np.clip(row_len - len_off, 0, sigma).astype(np.int32)
-    lcp = np.minimum(_lcp_host(terms), store_len)
+    dev = terms.device
+    store_len = (row_len - len_off).clamp(0, sigma).to(torch.int32)
+    lcp = torch.minimum(_lcp(terms), store_len)
     lcp[0::b] = 0                      # block heads restart the coding chain
-    ns = store_len - lcp
-    j = np.arange(sigma)[None, :]
+    j = torch.arange(sigma, device=dev)[None, :]
     stored_mask = (j >= lcp[:, None]) & (j < store_len[:, None])
-    suffix = terms[stored_mask].astype(np.uint32)   # row-major
-    cum = np.zeros(size + 1, np.int64)
-    np.cumsum(ns, out=cum[1:])
-    block_base = cum[0::b].astype(np.uint32)        # [nb+1]: size % b == 0
-    payload = pack_bits(suffix, term_bits, n_words=payload_words)
-    lcps = pack_bits(lcp.astype(np.uint32), lcp_width)
+    suffix = terms[stored_mask]                     # row-major
+    cum = torch.zeros(size + 1, dtype=torch.int64, device=dev)
+    cum[1:] = torch.cumsum(store_len - lcp, dim=0, dtype=torch.int64)
+    block_base = u32_words(cum[0::b], dev)          # [nb+1]: size % b == 0
+    payload = pack_words(suffix, term_bits, n_words=payload_words)
+    lcps = pack_words(lcp, lcp_width)
     heads = _pack_head_keys(row_len[0::b], terms[0::b], term_bits=term_bits)
     return heads, lcps, payload, block_base
-
-
-def _fan_lo_blocks(fan_rows: np.ndarray, block_size: int) -> np.ndarray:
-    """Per-(section, bucket) head-search bracket start, in blocks (int32)."""
-    return (fan_rows // block_size).astype(np.int32)
-
-
-def _host(t: torch.Tensor, dtype) -> np.ndarray:
-    return t.cpu().numpy().astype(dtype)
 
 
 def compress_index(idx: NGramIndex, *, block_size: int = 4,
@@ -424,7 +407,7 @@ def compress_index(idx: NGramIndex, *, block_size: int = 4,
                    cumsum_universe: int | None = None,
                    head_span: int | None = None,
                    device=None) -> CompressedNGramIndex:
-    """Re-encode ``idx`` losslessly (host numpy build) onto ``device``.
+    """Re-encode ``idx`` losslessly, in torch on ``device``.
 
     Runs on the card unless ``device`` says otherwise; with no card and no
     ``device`` it raises.  The capacity overrides force common array shapes
@@ -434,25 +417,28 @@ def compress_index(idx: NGramIndex, *, block_size: int = 4,
     sigma, vocab, size = idx.sigma, idx.vocab_size, idx.size
     tb = packing.bits_for_vocab(vocab)
     lw = lcp_width_for(sigma)
-    section_start = _host(idx.section_start, np.int64)
-    row_len = row_lengths(idx.section_start.cpu(), size).numpy()
-    counts = _host(idx.counts, np.uint32)
-    cw = count_width if count_width is not None else \
-        max(1, int(counts.max()).bit_length() if counts.size else 1)
 
-    terms = _unpack_terms_host(_host(idx.lanes, np.uint32), vocab_size=vocab,
-                               sigma=sigma)
+    def on(t):
+        return t.to(device=device, dtype=torch.int64)
+
+    section_start = on(idx.section_start)
+    row_len = row_lengths(section_start, size)
+    counts = on(idx.counts) & U32
+    cw = count_width if count_width is not None else \
+        max(1, int(counts.max()).bit_length() if counts.numel() else 1)
+
+    terms = packing.unpack_terms(on(idx.lanes) & U32, vocab_size=vocab, sigma=sigma)
     heads, lcps, payload, block_base = _front_code(
         terms, row_len, len_off=0, block_size=block_size,
         term_bits=tb, lcp_width=lw, payload_words=payload_words)
-    c_terms = _unpack_terms_host(_host(idx.cont_prefix, np.uint32),
-                                 vocab_size=vocab, sigma=sigma)
+    c_terms = packing.unpack_terms(on(idx.cont_prefix) & U32, vocab_size=vocab,
+                                   sigma=sigma)
     c_heads, c_lcps, c_payload, c_block_base = _front_code(
         c_terms, row_len, len_off=1, block_size=block_size,
         term_bits=tb, lcp_width=lw, payload_words=cont_payload_words)
+    del terms, c_terms
 
-    fan_t = _host(idx.fanout, np.int64)
-    c_fan_t = _host(idx.cont_fanout, np.int64)
+    fan_t, c_fan_t = on(idx.fanout), on(idx.cont_fanout)
     fan, c_fan = fan_t.reshape(-1), c_fan_t.reshape(-1)
     if head_span is None:
         # widest fanout cell measured in blocks (+1 for a cell straddling one
@@ -460,40 +446,34 @@ def compress_index(idx: NGramIndex, *, block_size: int = 4,
         # runs search_steps(head_span) trips instead of log2(n_blocks)
         head_span = 1
         for t in (fan_t, c_fan_t):
-            if t.size:
-                head_span = max(head_span, int(np.max(
+            if t.numel():
+                head_span = max(head_span, int(torch.max(
                     -(-t[:, 1:] // block_size) - t[:, :-1] // block_size)) + 1)
         head_span = min(head_span, size // block_size)
-    cumsum = _host(idx.cont_cumsum, np.int64)
+    cumsum = on(idx.cont_cumsum)
     for name, seq in (("fanout", fan), ("cont_fanout", c_fan)):
-        if seq.size and np.any(np.diff(seq) < 0):
+        if seq.numel() > 1 and bool((seq[1:] < seq[:-1]).any()):
             raise AssertionError(f"{name} table is not monotone when flattened")
 
-    def words(a):
-        return as_words(a, device)
-
-    def tensor(a):
-        return torch.as_tensor(a, device=device)
-
     return CompressedNGramIndex(
-        heads=words(heads), lcps=words(lcps), payload=words(payload),
-        block_base=words(block_base),
-        counts_packed=words(pack_bits(counts, cw)),
+        heads=u32_words(heads, device), lcps=lcps, payload=payload,
+        block_base=block_base,
+        counts_packed=pack_words(counts, cw),
         ef_section=EliasFano.encode(section_start, universe=size, device=device),
-        cont_heads=words(c_heads), cont_lcps=words(c_lcps),
-        cont_payload=words(c_payload), cont_block_base=words(c_block_base),
-        cont_last_packed=words(pack_bits(_host(idx.cont_last, np.uint32), tb)),
-        cont_counts_packed=words(pack_bits(_host(idx.cont_counts, np.uint32), cw)),
+        cont_heads=u32_words(c_heads, device), cont_lcps=c_lcps,
+        cont_payload=c_payload, cont_block_base=c_block_base,
+        cont_last_packed=pack_words(on(idx.cont_last) & U32, tb),
+        cont_counts_packed=pack_words(on(idx.cont_counts) & U32, cw),
         ef_cont_fanout=EliasFano.encode(c_fan, universe=size, device=device),
         ef_cumsum=EliasFano.encode(
             cumsum, universe=cumsum_universe if cumsum_universe is not None
             else int(cumsum[-1]), device=device),
-        head_lanes=tensor(heads.astype(np.int64)),
-        cont_head_lanes=tensor(c_heads.astype(np.int64)),
-        sec_cache=tensor(section_start.astype(np.int32)),
-        cumsum_cache=tensor(cumsum),
-        fan_cache=tensor(_fan_lo_blocks(fan, block_size)),
-        cont_fan_cache=tensor(_fan_lo_blocks(c_fan, block_size)),
+        head_lanes=heads,
+        cont_head_lanes=c_heads,
+        sec_cache=section_start.to(torch.int32),
+        cumsum_cache=cumsum,
+        fan_cache=(fan // block_size).to(torch.int32),
+        cont_fan_cache=(c_fan // block_size).to(torch.int32),
         sigma=sigma, vocab_size=vocab, size=size,
         fanout_shift=idx.fanout_shift, n_fanout=idx.n_fanout,
         block_size=block_size, head_span=head_span,

@@ -3,7 +3,7 @@
 A stream stores n values of a common ``width`` (<= 32 bits) back to back,
 LSB-first: bit b of the stream lives in word ``b >> 5`` at in-word position
 ``b & 31``, and value i occupies stream bits [i*width, (i+1)*width).  Packing
-is host numpy at build time (:func:`pack_bits`, uint32 words); the port keeps
+runs in torch on the values' device (:func:`pack_words`); the port keeps
 the words as ``torch.int32`` tensors holding the uint32 bit pattern, so a
 stream's bytes equal ``repro``'s.  :func:`extract_bits` reads them in torch:
 each fetched word is widened to int64 and masked with ``U32`` before any
@@ -14,23 +14,30 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch import U32
+from repro_torch import U32, u32_words
 
 
 def words_for(n_values: int, width: int) -> int:
     return -(-(n_values * width) // 32)
 
 
-def pack_bits(values: np.ndarray, width: int,
-              n_words: int | None = None) -> np.ndarray:
-    """Pack ``values`` (uint, each < 2**width) into a uint32 word stream.
+def pack_words(values: torch.Tensor, width: int,
+               n_words: int | None = None) -> torch.Tensor:
+    """Pack ``values`` (integers in ``[0, 2**width)``) into a word stream on
+    their device: an int32 tensor of the uint32 words.
 
     ``n_words`` pads the stream with zero words that no real index addresses.
+    The fields of a stream never overlap, so each word is the sum of the
+    value bits that land in it: two ``index_add_`` passes (the in-word part,
+    then the spill into the next word where a value carries past bit 31)
+    build it with integer adds, the same on the card and the host.
     """
-    values = np.asarray(values, np.uint64)
+    values = values.reshape(-1).to(torch.int64)
     n = values.shape[0]
     if width < 0 or width > 32:
         raise ValueError(f"width must be in [0, 32], got {width}")
+    if n and int(values.min()) < 0:
+        raise ValueError(f"negative value {int(values.min())} in a bit stream")
     if width and n and int(values.max()) >> width:
         raise ValueError(f"value {int(values.max())} overflows width {width}")
     if n * width >= 1 << 32:
@@ -42,21 +49,14 @@ def pack_bits(values: np.ndarray, width: int,
     nw = need if n_words is None else n_words
     if nw < need:
         raise ValueError(f"n_words={nw} < required {need}")
-    words = np.zeros((nw,), np.uint32)
-    if width == 0 or n == 0:
-        return words
-    bitpos = np.arange(n, dtype=np.uint64) * np.uint64(width)
-    # each value straddles at most two words: scatter the in-word part, then
-    # the spill into the next word where the shifted value carries past bit 31
-    w = (bitpos >> np.uint64(5)).astype(np.int64)
-    shifted = values << (bitpos & np.uint64(31))
-    np.bitwise_or.at(words, w,
-                     (shifted & np.uint64(0xFFFFFFFF)).astype(np.uint32))
-    spill = shifted >> np.uint64(32)
-    lanes = np.nonzero(spill)[0]
-    if lanes.size:
-        np.bitwise_or.at(words, w[lanes] + 1, spill[lanes].astype(np.uint32))
-    return words
+    words = torch.zeros(nw + 1, dtype=torch.int64, device=values.device)
+    if width and n:
+        bitpos = torch.arange(n, dtype=torch.int64, device=values.device) * width
+        w = bitpos >> 5
+        shifted = values << (bitpos & 31)           # < 2**63: width + 31 bits
+        words.index_add_(0, w, shifted & U32)
+        words.index_add_(0, w + 1, shifted >> 32)   # zero past the last word
+    return u32_words(words[:nw], values.device)
 
 
 def as_words(words: np.ndarray, device) -> torch.Tensor:

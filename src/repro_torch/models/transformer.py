@@ -20,12 +20,21 @@ port's own from a ``torch.Generator`` on the target device.  The entry
 points take their device from the model, which :func:`init_params` and
 :func:`params_from_numpy` place on the card unless told otherwise.
 
+Training.  The weights are registered frozen, so serving builds no
+autograd graph; a trainer calls ``model.requires_grad_(True)``.  With
+``LMConfig.remat`` (``repro``'s default) a forward that records gradients
+runs each block under ``torch.utils.checkpoint`` (non-reentrant), which
+keeps only the block's inputs and recomputes its activations in the
+backward, as ``jax.checkpoint(body)`` does in ``repro``.
+:func:`param_tree` gives the model's parameters in ``repro``'s tree, each
+layer leaf a :class:`~repro_torch.training.tree.Stacked` of the layers'
+tensors, and :func:`params_to_numpy` that tree stacked ``[L, ...]``.
+
 Not ported: ``repro``'s ``shard_activations`` / ``_constrain`` (sharding
 annotations for a TPU mesh, which compute nothing) and its
 ``sub_quadratic`` property, which sits after a ``return`` in ``_constrain``
-and is unreachable.  Nor are ``remat`` and ``scan_layers``, which choose how
-``repro`` compiles its layers: the port loops over its layers and runs no
-backward yet.
+and is unreachable.  Nor is ``scan_layers``, which chooses how ``repro``
+compiles its layers: the port loops over its layers.
 """
 from __future__ import annotations
 
@@ -35,8 +44,10 @@ from typing import Any
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.training.tree import Stacked
 
 from .layers import (NEG_INF, apply_rope, cross_entropy_loss, decode_attention,
                      gqa_attention, rms_norm, swiglu)
@@ -88,6 +99,7 @@ class LMConfig:
     dtype: Any = torch.bfloat16
     q_chunk: int = 0             # query chunking for long prefill
     loss_chunks: int = 8
+    remat: bool = True           # recompute each block in the backward
     aux_loss_weight: float = 0.01
 
 
@@ -300,7 +312,9 @@ def init_params(cfg: LMConfig, device=None,
     ``generator`` (seed 0 on the device if none is given) straight on the
     device: the card unless ``device`` says otherwise."""
     dev = resolve_device(device)
-    g = generator if generator is not None else torch.Generator(dev).manual_seed(0)
+    g = generator
+    if g is None and dev.type != "meta":      # meta tensors draw nothing
+        g = torch.Generator(dev).manual_seed(0)
 
     def normal(shape, dtype):
         return torch.randn(shape, generator=g, dtype=dtype, device=dev)
@@ -336,6 +350,42 @@ def params_from_numpy(tree: dict, cfg: LMConfig, device=None) -> Transformer:
                        lm_head=tensor(tree["lm_head"]))
 
 
+def _layer_tree(block: Block) -> dict:
+    """One block's parameters under ``repro``'s per-layer names."""
+    tree = dict(block.named_parameters(recurse=False))
+    tree.update(block.attn.named_parameters())
+    tree["ffn"] = dict(block.ffn.named_parameters())
+    return tree
+
+
+def param_tree(model: Transformer) -> dict:
+    """The model's parameters (the tensors themselves, not copies) in
+    ``repro``'s tree: ``embed``, ``final_norm``, ``lm_head`` and ``layers``,
+    whose every leaf is a :class:`Stacked` of the layers' tensors, the port's
+    form of ``repro``'s ``[L, ...]`` leaf."""
+    per_layer = [_layer_tree(block) for block in model.layers]
+
+    def stack(trees):
+        return {k: stack([t[k] for t in trees]) if isinstance(v, dict)
+                else Stacked(t[k] for t in trees) for k, v in trees[0].items()}
+
+    return {"embed": model.embed, "layers": stack(per_layer),
+            "final_norm": model.final_norm, "lm_head": model.lm_head}
+
+
+def params_to_numpy(model: Transformer) -> dict:
+    """The inverse of :func:`params_from_numpy`: ``repro``'s parameter tree
+    as float32 numpy arrays, layers stacked ``[L, ...]`` (a bf16 weight
+    widens exactly)."""
+    def host(leaf):
+        if isinstance(leaf, dict):
+            return {k: host(v) for k, v in leaf.items()}
+        t = torch.stack(tuple(leaf)) if isinstance(leaf, Stacked) else leaf
+        return t.detach().float().cpu().numpy()
+
+    return host(param_tree(model))
+
+
 # ---------------------------------------------------------------------- forward
 def forward(model: Transformer, tokens: torch.Tensor, collect_cache: bool = False):
     """tokens [B, S] -> (x_final [B, S, d], aux_loss, cache or None); the
@@ -344,9 +394,13 @@ def forward(model: Transformer, tokens: torch.Tensor, collect_cache: bool = Fals
     s = tokens.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=model.device)
     x = model.embed[tokens.to(model.device)].to(cfg.dtype)
+    remat = cfg.remat and torch.is_grad_enabled()
     aux, caches = [], []
     for layer in model.layers:
-        x, a, c = layer(x, positions)
+        if remat:
+            x, a, c = checkpoint(layer, x, positions, use_reentrant=False)
+        else:
+            x, a, c = layer(x, positions)
         aux.append(a)
         if collect_cache:
             caches.append(c)
@@ -357,8 +411,9 @@ def forward(model: Transformer, tokens: torch.Tensor, collect_cache: bool = Fals
 
 
 def loss_fn(model: Transformer, batch: dict):
-    """Forward value of ``repro``'s training loss: chunked cross entropy plus
-    the weighted MoE auxiliary loss."""
+    """``repro``'s training loss: chunked cross entropy plus the weighted MoE
+    auxiliary loss -> (loss, {"ce", "aux"}).  Differentiable in the model's
+    parameters once they require grad."""
     cfg = model.cfg
     x, aux, _ = forward(model, batch["tokens"])
     ce = cross_entropy_loss(x, model.lm_head, batch["labels"].to(model.device),

@@ -107,7 +107,8 @@ def test_bit_streams_match_repro(width):
     rng = np.random.default_rng(width)
     n = 300
     vals = rng.integers(0, 1 << width, n, dtype=np.uint64) if width else np.zeros(n)
-    words = bitpack.pack_bits(vals, width)
+    words = bitpack.words_u32(bitpack.pack_words(torch.as_tensor(vals.astype(np.int64)),
+                                                 width))
     np.testing.assert_array_equal(words, jbitpack.pack_bits(vals, width))
     # positions in range, past the end and negative: clamped fetches agree
     pos = np.concatenate([np.arange(n), rng.integers(-50, 2 * n + 50, 200)])

@@ -14,8 +14,9 @@ card's searches launched from the batcher's thread), and the multi-rank
 batch path (two gloo ranks sharing the card: the four methods and the
 sharded index), and the streaming path across ranks (two gloo ranks sharing
 the card against two on the CPU: the mesh waves, ``run_streaming`` and
-``shard_generational``), and LM serving (each reduced arch's prefill
-and decode steps, card against CPU in float32).  ``merge_path`` is
+``shard_generational``), and LM serving and training (each reduced
+arch's prefill and decode steps, and one train step, card against CPU in
+float32).  ``merge_path`` is
 also held against its plain version at runs above 2**26 rows.  The file
 imports no JAX: it runs on a GPU host that has none, and every case skips
 without a card.
@@ -519,5 +520,65 @@ def test_cuda_reduced_lm_serving_matches_cpu(cuda_device):
                                                                      (2, 18)))
             for got, want in zip(run(card, toks.to(cuda_device)), run(cpu, toks)):
                 torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+def test_cuda_reduced_lm_train_step_matches_cpu(cuda_device):
+    """Each LM arch's REDUCED config (float32) with the same seeded weights on
+    the card and on the CPU: one ``make_train_step`` on a 4x16 batch.  The
+    loss, the gradient norm and every gradient and first-moment leaf within
+    1e-4 of the CPU's (max abs error over the leaf's max abs: the sums run
+    in another order); every updated parameter within 1e-6 of its leaf's
+    max abs, but for the few entries (under 1e-3 of a leaf) whose gradient
+    is so near 0 that a rounding flips its sign in Adam's ``m / sqrt(v)``,
+    which moves them by up to 2 lr.  TF32 is off."""
+    import copy
+
+    from repro_torch import configs
+    from repro_torch.data.loader import SyntheticLMLoader
+    from repro_torch.models import transformer as tf
+    from repro_torch.training import optimizer, train_loop
+    from repro_torch.training.tree import Stacked, named_leaves
+
+    def leaves(tree):
+        return {n: (torch.stack(tuple(v)) if isinstance(v, Stacked) else v)
+                .detach().double().cpu() for n, v in named_leaves(tree)}
+
+    def one_step(model, batch):
+        b = {k: torch.from_numpy(v).to(model.device) for k, v in batch.items()}
+        params = tf.param_tree(model)
+        loss, _, grads = train_loop.value_and_grad(
+            lambda p, x: tf.loss_fn(model, x), params, b)
+        step = train_loop.make_train_step(lambda p, x: tf.loss_fn(model, x),
+                                          optimizer.OptimizerConfig(
+                                              peak_lr=1e-3, warmup_steps=2, decay_steps=50))
+        params, state, m = step(params, optimizer.init_state(params), b)
+        return (float(loss), float(m["grad_norm"]), float(m["lr"]), leaves(grads),
+                leaves(state["m"]), leaves(params))
+
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for arch in configs.all_archs():
+            cfg = configs.get(arch).make_reduced()
+            cpu = tf.init_params(cfg, "cpu", torch.Generator().manual_seed(0))
+            card = copy.deepcopy(cpu).to(cuda_device)
+            batch = SyntheticLMLoader(cfg.vocab_size, 16, 4).batch_at(0)
+            want = one_step(cpu.requires_grad_(True), batch)
+            got = one_step(card.requires_grad_(True), batch)
+            for g, w in zip(got[:2], want[:2]):
+                assert abs(g - w) <= 1e-4 * abs(w), arch
+            lr = want[2]
+            for g_tree, w_tree in zip(got[3:5], want[3:5]):
+                for n, w in w_tree.items():
+                    err = (g_tree[n] - w).abs().max() / max(float(w.abs().max()), 1e-30)
+                    assert err <= 1e-4, (arch, n, float(err))
+            for n, w in want[5].items():
+                d = (got[5][n] - w).abs()
+                tight = 1e-6 * float(w.abs().max())
+                assert float(d.max()) <= tight + 2 * lr, (arch, n)
+                assert int((d > tight + 1e-6 * lr).sum()) < 1e-3 * d.numel(), (arch, n)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved

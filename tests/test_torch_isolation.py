@@ -276,3 +276,46 @@ def test_ranks_refuse_cpu_without_a_device(monkeypatch):
                  lambda: spawn_ranks(2, DataMesh.max_int, 1)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_lm_training_runs_without_jax_or_repro():
+    """The training modules, the train CLI and a run with a failure and a
+    restore load nothing of JAX or ``repro`` at run time either."""
+    _run(NO_JAX + textwrap.dedent("""
+        import contextlib, io, tempfile
+        from repro_torch import configs
+        from repro_torch.launch import train
+        from repro_torch.training.fault_tolerance import FailureInjector
+        cfg = configs.get('llama3.2-1b').make_reduced()
+        with tempfile.TemporaryDirectory() as d:
+            run = train.train(cfg, steps=4, batch=2, seq=8, ckpt_dir=d, ckpt_every=2,
+                              device='cpu', injector=FailureInjector({3}))
+            assert run.retries == 1 and len(run.history) == 5
+        with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(io.StringIO()):
+            train.main(['--reduced', '--steps', '2', '--device', 'cpu', '--ckpt-dir', d])
+    """) + NO_REPRO)
+
+
+def test_training_entry_points_refuse_cpu_without_a_device(monkeypatch, tmp_path):
+    """``launch.train.train``, its CLI and a restore onto new tensors run on
+    the card by default and raise without one; given ``device="cpu"`` they
+    run."""
+    from repro_torch import configs
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.checkpoint import CheckpointManager
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = configs.get("llama3.2-1b").make_reduced()
+    ck = CheckpointManager(tmp_path / "ck", async_save=False)
+    ck.save(1, {"w": torch.ones(3)})
+    for call in (lambda: train.train(cfg, steps=1, ckpt_dir=str(tmp_path / "a")),
+                 lambda: train.main(["--reduced", "--steps", "1",
+                                     "--ckpt-dir", str(tmp_path / "b")]),
+                 lambda: tf.init_params(cfg),
+                 lambda: ck.restore(1, {"w": torch.empty(3, device="meta")})):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert ck.restore(1, {"w": torch.empty(3, device="meta")}, device="cpu")[0]["w"].sum() == 3
+    run = train.train(cfg, steps=1, batch=2, seq=8, ckpt_dir=str(tmp_path / "c"),
+                      device="cpu")
+    assert len(run.history) == 1
