@@ -228,6 +228,38 @@ line):
                  against weights + grads + moments, remat off beside on,
                  save and restore seconds with the bytes, and the
                  deterministic step beside the plain one.
+  13. recsys  -- the recsys and GNN archs, after phase 12 (no kernel of the
+                 port on this path either: gathers, ``index_add_`` and
+                 matmuls), float32 as ``repro``'s configs, TF32 off.  (a)
+                 Each of bst, autoint, two-tower-retrieval, xdeepfm and
+                 gin-tu at its REDUCED config, the same seeded weights on the
+                 card and on the CPU: one ``make_train_step``; the loss,
+                 every gradient and every first-moment leaf within 1e-4 of
+                 the CPU's (of the leaf's max abs).  (b) Each at full width
+                 (gin-tu as ``repro``'s build_cell builds it: 5 layers of
+                 width 64, node features bf16 on the wire, at full_graph_sm,
+                 Cora's shape): one loss and gradient at batch 512 on the
+                 card against the same weights copied to the host CPU, with
+                 the same rule.  (c) Warm runs on the card (median of 3):
+                 each recsys arch's train step at train_batch (65,536, or
+                 the largest power of two below it that fits the card; the
+                 cut is printed), serve_p99 (512) and, for two-tower and
+                 BST, retrieval_cand (one query against 1,000,000
+                 candidates); gin-tu's train step at full_graph_sm,
+                 ogb_products (full batch), molecule (128 graphs) and
+                 minibatch_lg (1,024 seeds, fanout 15-10, sampled from a
+                 Reddit-sized random graph).  The ogb_products and Reddit-
+                 sized graphs are made by two processes of their own
+                 (``--graph-child DIR NAME``, logs in ``build/phase13``)
+                 while the card runs the rest; their making is timed apart.
+                 Each prints ms, samples/s or edges/s and the share of the
+                 67 TFLOP/s float32 peak by the ported FLOP functions.  (d)
+                 ``gnn.loss_fn_dst_partitioned`` at full_graph_sm on 4 gloo
+                 ranks sharing the card and at ogb_products on 1 NCCL rank
+                 started beside them:
+                 each loss within 1e-5, each all-reduced gradient within
+                 1e-4, of the one-device ``loss_fn``.  ``recsys:`` and
+                 ``gnn:`` lines.
 
 The last lines are one JSON object describing each kernel, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.  The
@@ -236,6 +268,7 @@ script needs one card; without CUDA it exits non-zero and prints no result.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import copy
 import gc
@@ -286,6 +319,15 @@ from repro_torch.training import optimizer as lm_optimizer  # noqa: E402
 from repro_torch.training import train_loop as lm_train_loop  # noqa: E402
 from repro_torch.training import tree as lm_tree  # noqa: E402
 from repro_torch.training.tree import Stacked, named_leaves  # noqa: E402
+from repro_torch.configs import autoint as autoint_configs  # noqa: E402
+from repro_torch.configs import bst as bst_configs  # noqa: E402
+from repro_torch.configs import gin_tu  # noqa: E402
+from repro_torch.configs import recsys_common as recsys_configs  # noqa: E402
+from repro_torch.configs import two_tower_retrieval as two_tower_configs  # noqa: E402
+from repro_torch.configs import xdeepfm as xdeepfm_configs  # noqa: E402
+from repro_torch.data import graph  # noqa: E402
+from repro_torch.data import recsys as recsys_data  # noqa: E402
+from repro_torch.models import gnn, recsys  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bandwidth, and
 # the 32-bit non-tensor rate, the table's figure for the scalar integer work
@@ -371,6 +413,24 @@ TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 6, 8
 TRAIN_OPT = dict(peak_lr=1e-3, warmup_steps=2, decay_steps=50)
 TRAIN_F32_TOL = 1e-4
 PHASE12_DIR = Path(__file__).resolve().parent / "build" / "phase12"
+#: phase 13: the recsys and GNN archs, float32 as repro's configs
+RG_ARCHS = ("bst", "autoint", "two-tower-retrieval", "xdeepfm", "gin-tu")
+#: (c) the largest model first: each is freed after its runs, so BST's
+#: retrieval_cand (1M rows of attention) has the card to itself
+RG_TIMED_ORDER = ("two-tower-retrieval", "xdeepfm", "autoint", "bst")
+#: (b) full width: loss and gradient on the card against the host CPU
+RG_CHECK_BATCH = 512
+RG_F32_TOL = 1e-4
+#: (c) warm runs after the cold one; their median is reported
+RG_WARM = 3
+#: H100 SXM dense float32 peak without tensor cores (NVIDIA data sheet, at
+#: 700 W); TF32 stays off
+F32_FLOPS_PER_S = 67e12
+#: (d) GIN's dst-partitioned loss: gloo ranks sharing the card at
+#: full_graph_sm; its loss against the one-device loss_fn's
+RG_GLOO_RANKS = 4
+RG_DIST_LOSS_TOL = 1e-5
+PHASE13_DIR = Path(__file__).resolve().parent / "build" / "phase13"
 
 
 def check(cond: bool, what: str) -> None:
@@ -3868,6 +3928,506 @@ def phase_train(dev, card: str) -> dict:
     return {"warm_s": warm, "rec": rec}
 
 
+# ------------------------------------------------------------------ phase 13
+def recsys_batch(arch: str, cfg, step: int, batch: int) -> dict:
+    """The seeded numpy batch of a recsys arch's training loss."""
+    if arch == "bst":
+        return recsys_data.BehaviorSeqGen(cfg.item_vocab, cfg.seq_len).batch_at(step, batch)
+    if arch == "two-tower-retrieval":
+        return recsys_data.RetrievalGen(cfg.item_vocab, cfg.user_feat).batch_at(step, batch)
+    return recsys_data.CTRBatchGen((cfg.field_vocab,) * cfg.n_sparse).batch_at(step, batch)
+
+
+def graph_batch(g, mask_every: int = 0) -> dict:
+    """A full-batch GIN batch of graph ``g``: every edge, every label (or,
+    with ``mask_every``, every ``mask_every``-th edge and node masked out)."""
+    b = {"features": g.features, "edge_src": g.edge_index[0],
+         "edge_dst": g.edge_index[1], "labels": g.labels}
+    if mask_every:
+        b["edge_mask"] = np.arange(g.n_edges) % mask_every != 0
+        b["label_mask"] = np.arange(g.n_nodes) % mask_every != 0
+    return b
+
+
+def on(batch: dict, dev) -> dict:
+    return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+
+def to_host(model):
+    """A CPU copy of a recsys or GIN model (its tree copied leaf by leaf)."""
+    return type(model)(model.cfg, lm_tree.map_leaves(lambda t: t.detach().cpu(),
+                                                     model.tree()))
+
+
+def model_module(cfg):
+    return gnn if isinstance(cfg, gnn.GINConfig) else recsys
+
+
+def loss_and_grads(model, batch: dict):
+    """(loss, grads tree) of ``model``'s training loss on ``batch``."""
+    mod, cfg = model_module(model.cfg), model.cfg
+    loss, _, grads = lm_train_loop.value_and_grad(
+        lambda p, b: mod.loss_fn(p, b, cfg), mod.param_tree(model), on(batch, model.device))
+    return float(loss), grads
+
+
+def tree_err(got, want) -> float:
+    """Largest over leaves of the max abs error over the leaf's max abs, for
+    trees on any two devices: taken on ``got``'s device, a slice at a time
+    (a leaf may be a 10 GB table)."""
+    worst = 0.0
+    want = dict(named_leaves(want))
+    for name, g in named_leaves(got):
+        w = want[name]
+        g, w = g.detach().reshape(-1), w.detach().reshape(-1)
+        err, scale = 0.0, 0.0
+        for lo in range(0, g.numel(), 1 << 26):
+            ws = w[lo:lo + (1 << 26)].to(g.device, torch.float32)
+            err = max(err, float((g[lo:lo + (1 << 26)].float() - ws).abs().max()))
+            scale = max(scale, float(ws.abs().max()))
+        worst = max(worst, err / max(scale, 1e-30))
+    return worst
+
+
+def reduced_recsys_gnn_on_card(dev) -> None:
+    """(a) Each recsys arch's and gin-tu's REDUCED config in float32, the
+    same seeded weights on the card and on the CPU: one ``make_train_step``;
+    loss, every gradient leaf and every first-moment leaf within
+    RG_F32_TOL of the CPU's (of the leaf's max abs)."""
+    for arch in RG_ARCHS:
+        cfg = lm_configs.get(arch).make_reduced()
+        mod = model_module(cfg)
+        cpu = mod.init_params(cfg, "cpu", torch.Generator().manual_seed(0))
+        card = copy.deepcopy(cpu).to(dev)
+        if arch == "gin-tu":
+            batch = graph_batch(graph.random_graph(300, 2000, cfg.d_feat, cfg.n_classes,
+                                                   seed=1), mask_every=5)
+        else:
+            batch = recsys_batch(arch, cfg, 0, 64)
+        out = []
+        for model in (cpu.requires_grad_(True), card.requires_grad_(True)):
+            params = mod.param_tree(model)
+            b = on(batch, model.device)
+            loss, _, grads = lm_train_loop.value_and_grad(
+                lambda p, x: mod.loss_fn(p, x, cfg), params, b)
+            step = lm_train_loop.make_train_step(lambda p, x: mod.loss_fn(p, x, cfg),
+                                                 lm_optimizer.OptimizerConfig(**TRAIN_OPT))
+            _, state, _ = step(params, lm_optimizer.init_state(params), b)
+            out.append((float(loss), grads, state["m"]))
+        (lw, gw, mw), (lg, gg, mg) = out
+        loss_err = abs(lg - lw) / abs(lw)
+        g_err, m_err = tree_err(gg, gw), tree_err(mg, mw)
+        print(f"recsys: {arch} reduced f32, card vs cpu, one make_train_step: loss err "
+              f"{loss_err:.2e}, gradient {g_err:.2e} and first moment {m_err:.2e} of the "
+              f"leaf's max abs (tol {RG_F32_TOL}, TF32 off)")
+        check(max(loss_err, g_err, m_err) <= RG_F32_TOL,
+              f"{arch} reduced: the card's train step equals the CPU's")
+
+
+def full_width_on_card(dev) -> dict:
+    """(b) Each arch at full width in float32 (gin-tu as ``repro``'s
+    build_cell builds it, at full_graph_sm): one loss and gradient at batch
+    RG_CHECK_BATCH on the card against the same weights on the host CPU.
+    Returns each recsys arch's card model, for (c)."""
+    models = {}
+    for arch in RG_ARCHS:
+        t0 = time.perf_counter()
+        if arch == "gin-tu":
+            shape = gin_tu.SHAPES["full_graph_sm"]
+            cfg = gin_tu.cell_config(shape)
+            d = shape.dims
+            batch = graph_batch(graph.random_graph(d["n_nodes"], d["n_edges"], d["d_feat"],
+                                                   d["n_classes"], seed=0))
+            what = f"full_graph_sm ({d['n_nodes']} nodes, {d['n_edges']} edges)"
+        else:
+            cfg = lm_configs.get(arch).make()
+            batch = recsys_batch(arch, cfg, 0, RG_CHECK_BATCH)
+            what = f"batch {RG_CHECK_BATCH}"
+        mod = model_module(cfg)
+        card = mod.init_params(cfg, dev, torch.Generator(dev).manual_seed(0))
+        cpu = to_host(card).requires_grad_(True)
+        card.requires_grad_(True)
+        lg, gg = loss_and_grads(card, batch)
+        lw, gw = loss_and_grads(cpu, batch)
+        del cpu
+        loss_err, g_err = abs(lg - lw) / abs(lw), tree_err(gg, gw)
+        n = sum(p.numel() for p in card.parameters())
+        print(f"recsys: {arch} full width ({n / 1e6:.1f} M params, f32"
+              f"{', node features bf16 on the wire' if arch == 'gin-tu' else ''}), card "
+              f"vs host cpu, loss and gradient at {what}: loss {lg:.6f}, loss err "
+              f"{loss_err:.2e}, gradient {g_err:.2e} of the leaf's max abs (tol "
+              f"{RG_F32_TOL}); {time.perf_counter() - t0:.1f} s")
+        check(np.isfinite(lg) and max(loss_err, g_err) <= RG_F32_TOL,
+              f"{arch} full width: the card's loss and gradient equal the CPU's")
+        del gg, gw
+        if arch != "gin-tu":
+            models[arch] = card
+    gc.collect()
+    return models
+
+
+def timed(fn, reps: int) -> tuple[float, float]:
+    """(first, median of ``reps`` warm) seconds of ``fn()``, each synchronized."""
+    out = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out[0], statistics.median(out[1:])
+
+
+def train_step_fn(model, batch_on_card: dict):
+    """One AdamW train step of ``model`` on the batch, state kept across calls."""
+    mod, cfg = model_module(model.cfg), model.cfg
+    params = mod.param_tree(model)
+    state = lm_optimizer.init_state(params)
+    step = lm_train_loop.make_train_step(lambda p, b: mod.loss_fn(p, b, cfg),
+                                         lm_optimizer.OptimizerConfig())
+
+    def run():
+        nonlocal state
+        _, state, m = step(params, state, batch_on_card)
+        return m
+    return run, state
+
+
+def recsys_train_timed(dev, arch: str, model) -> dict:
+    """A warm train step at the largest power of two up to train_batch that
+    fits the card."""
+    cfg = model.cfg
+    b = recsys_configs.SHAPES["train_batch"].dims["batch"]
+    batch = run = state = None
+    while True:
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_peak()
+        try:
+            batch = on(recsys_batch(arch, cfg, 1, b), dev)
+            run, state = train_step_fn(model, batch)
+            cold, warm = timed(run, RG_WARM)
+            break
+        except torch.cuda.OutOfMemoryError:
+            batch = run = state = None
+            b //= 2
+            check(b >= 512, f"{arch}: a train step fits the card at batch 512")
+    loss = float(run()["loss"])
+    peak = device_peak()
+    del run, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"batch": b, "cold": cold, "warm": warm, "loss": loss, "peak": peak}
+
+
+def recsys_flops(arch: str, cfg, batch: int) -> float:
+    if arch == "bst":
+        return bst_configs._flops(cfg, batch)
+    if arch == "autoint":
+        return autoint_configs._flops(cfg, batch)
+    if arch == "xdeepfm":
+        return xdeepfm_configs._flops(cfg, batch)
+    return two_tower_configs._flops(cfg, batch)
+
+
+def recsys_timed(dev, models: dict, card: str) -> None:
+    """(c) The recsys archs on the card: a train step at train_batch (or the
+    largest power of two below it that fits), serve_p99 and, for two-tower
+    and BST, retrieval_cand."""
+    for arch in RG_TIMED_ORDER:
+        model = models.pop(arch).requires_grad_(False)
+        cfg = model.cfg
+        full = recsys_configs.SHAPES["train_batch"].dims["batch"]
+        with torch.no_grad():
+            p99 = on(recsys_batch(arch, cfg, 2, recsys_configs.SHAPES["serve_p99"]
+                                  .dims["batch"]), dev)
+            params = recsys.param_tree(model)
+            fwd = (lambda: recsys.twotower_embed(params, p99, cfg)) \
+                if arch == "two-tower-retrieval" else (lambda: model(p99))
+            _, p99_s = timed(fwd, RG_WARM)
+            n_p99 = recsys_configs.SHAPES["serve_p99"].dims["batch"]
+            fl = recsys_flops(arch, cfg, n_p99)
+            line = (f"serve_p99 (batch {n_p99}) {p99_s * 1e3:.3f} ms, "
+                    f"{n_p99 / p99_s:.0f} samples/s, {fl / p99_s / F32_FLOPS_PER_S:.4f} of "
+                    f"the f32 peak")
+            if arch in ("two-tower-retrieval", "bst"):
+                n = recsys_configs.SHAPES["retrieval_cand"].dims["n_candidates"]
+                rng = np.random.default_rng(3)
+                if arch == "two-tower-retrieval":
+                    cand = {"user": torch.as_tensor(rng.standard_normal(
+                                (1, cfg.user_feat)).astype(np.float32), device=dev),
+                            "candidates": torch.as_tensor(rng.integers(
+                                0, cfg.item_vocab, n).astype(np.int32), device=dev)}
+                    score = lambda: recsys.twotower_score_candidates(params, cand, cfg)
+                    fl = two_tower_configs._retrieval_flops(cfg, n)
+                else:    # one user's history against 1M candidate targets
+                    hist = rng.integers(0, cfg.item_vocab, (1, cfg.seq_len))
+                    cand = {"history": torch.as_tensor(np.repeat(hist, n, 0).astype(np.int32),
+                                                       device=dev),
+                            "target": torch.as_tensor(rng.integers(
+                                0, cfg.item_vocab, n).astype(np.int32), device=dev),
+                            "labels": None}
+                    score = lambda: recsys.bst_forward(params, cand, cfg)
+                    fl = bst_configs._flops(cfg, n)
+                reset_peak()
+                scores = score()
+                check(bool(torch.isfinite(scores).all()) and scores.numel() == n,
+                      f"{arch}: retrieval_cand scores are finite, one a candidate")
+                del scores
+                _, cand_s = timed(score, RG_WARM)
+                line += (f"; retrieval_cand (1 x {n:,}) {cand_s * 1e3:.3f} ms, "
+                         f"{n / cand_s:.0f} candidates/s, {fl / cand_s / F32_FLOPS_PER_S:.4f} "
+                         f"of the f32 peak, peak {device_peak() / 2**30:.2f} GiB")
+                del cand, score
+        model.requires_grad_(True)
+        r = recsys_train_timed(dev, arch, model)
+        fl = 3 * recsys_flops(arch, cfg, r["batch"])
+        cut = "" if r["batch"] == full else f" (cut from {full:,}: the card holds no more)"
+        print(f"recsys: {arch} full width on {card}: train step at batch {r['batch']:,}"
+              f"{cut} {r['warm'] * 1e3:.2f} ms warm (median of {RG_WARM}; first "
+              f"{r['cold'] * 1e3:.1f} ms), {r['batch'] / r['warm']:.0f} samples/s, "
+              f"{fl / r['warm'] / F32_FLOPS_PER_S:.4f} of the f32 peak ({fl / 1e9:.2f} "
+              f"GFLOP a step, 3x the config's _flops), peak {r['peak'] / 2**30:.2f} GiB, "
+              f"loss {r['loss']:.4f}; {line}")
+        check(np.isfinite(r["loss"]), f"{arch}: the train step's loss is finite")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def gin_timed(dev, name: str, batch: dict, n_edges: int, card: str,
+              note: str = "") -> None:
+    """(c) A warm GIN train step of ``repro``'s build_cell model at ``name``."""
+    shape = gin_tu.SHAPES[name]
+    cfg = gin_tu.cell_config(shape)
+    model = gnn.init_params(cfg, dev, torch.Generator(dev).manual_seed(0)).requires_grad_(True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_peak()
+    b = on(batch, dev)
+    run, state = train_step_fn(model, b)
+    cold, warm = timed(run, RG_WARM)
+    loss = float(run()["loss"])
+    fl = gin_tu.model_flops(shape)
+    n_nodes = batch["features"].shape[0]
+    print(f"gnn: gin-tu {name} on {card} ({n_nodes:,} nodes, {n_edges:,} edges, d_feat "
+          f"{cfg.d_feat}, bf16 on the wire{note}): train step {warm * 1e3:.2f} ms warm "
+          f"(median of {RG_WARM}; first {cold * 1e3:.1f} ms), {n_edges / warm:.3e} edges/s, "
+          f"{fl / warm / F32_FLOPS_PER_S:.4f} of the f32 peak ({fl / 1e9:.2f} GFLOP a step, "
+          f"model_flops), peak {device_peak() / 2**30:.2f} GiB, loss {loss:.4f}")
+    check(np.isfinite(loss), f"gin-tu {name}: the train step's loss is finite")
+    del model, run, state, b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def save_npz(path: Path, **arrays) -> None:
+    """``np.savez`` to ``path``, renamed into place once whole."""
+    tmp = path.with_name(path.stem + ".part.npz")
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
+
+
+def graph_child(out_dir: str, name: str) -> None:
+    """One of phase 13's large host graphs, made in a process of its own (no
+    CUDA) while the card runs the rest of the phase: ogb_products' random
+    graph, or minibatch_lg's Reddit-sized one, its CSR table and a fanout
+    15-10 sample of 1,024 seeds.  It lands in ``out_dir`` as
+    ``<name>.npz`` with the seconds its parts took."""
+    out = Path(out_dir)
+    d = gin_tu.SHAPES[name].dims
+    t0 = time.perf_counter()
+    if name == "ogb_products":
+        g = graph.random_graph(d["n_nodes"], d["n_edges"], d["d_feat"], d["n_classes"],
+                               seed=0)
+        save_npz(out / "ogb_products.npz", edge_index=g.edge_index, features=g.features,
+                 labels=g.labels, n_nodes=g.n_nodes, gen_s=time.perf_counter() - t0)
+        return
+    t0 = time.perf_counter()
+    g = graph.random_graph(d["n_nodes"], d["n_edges"], d["d_feat"], d["n_classes"], seed=0)
+    t1 = time.perf_counter()
+    table = graph.CSRNeighborTable(g)
+    t2 = time.perf_counter()
+    seeds = np.random.default_rng(1).choice(g.n_nodes, d["batch_nodes"], replace=False)
+    sub = graph.sample_subgraph(g, table, seeds, d["fanout"], seed=2)
+    t3 = time.perf_counter()
+    n_sub = sub.features.shape[0]
+    save_npz(out / "minibatch_lg.npz", features=sub.features, edge_src=sub.edge_src,
+             edge_dst=sub.edge_dst, edge_mask=sub.edge_mask,
+             labels=np.pad(sub.labels, (0, n_sub - sub.n_seeds)),
+             label_mask=np.arange(n_sub) < sub.n_seeds, n_edges=g.n_edges,
+             gen_s=t1 - t0, csr_s=t2 - t1, sample_s=t3 - t2)
+
+
+def wait_for(path: Path, proc: subprocess.Popen, log: Path) -> dict:
+    """The arrays of ``path`` once its graph process has written it."""
+    t0 = time.perf_counter()
+    while not path.exists():
+        check(proc.poll() is None or path.exists(), f"the graph process wrote {path.name} "
+              f"(log {log}: {log.read_text()[-3000:]})")
+        time.sleep(0.1)
+    out = dict(np.load(path))
+    out["waited_s"] = time.perf_counter() - t0
+    return out
+
+
+def dst_partitioned_rank(mesh, graph_path: str, name: str, compare: bool) -> dict:
+    """GIN's dst-partitioned loss and gradient of ``repro``'s build_cell
+    model at shape ``name`` on this rank, for the graph saved at
+    ``graph_path``; with ``compare``, the one-device ``loss_fn``'s on the
+    same batch too."""
+    st = np.load(graph_path)
+    g = graph.Graph(st["edge_index"], st["features"], st["labels"], int(st["n_nodes"]))
+    cfg = gin_tu.cell_config(gin_tu.SHAPES[name])
+    src, dst, mask = graph.partition_edges_by_dst(g, mesh.size)
+    batch = {"features": g.features, "edge_src": src, "edge_dst": dst, "edge_mask": mask,
+             "labels": g.labels, "label_mask": np.ones(g.n_nodes, bool)}
+    dev = mesh.device
+    model = gnn.init_params(cfg, dev, torch.Generator(dev).manual_seed(0)).requires_grad_(True)
+    b = on(batch, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _, grads = lm_train_loop.value_and_grad(
+        lambda p, x: gnn.loss_fn_dst_partitioned(p, x, cfg, mesh), gnn.param_tree(model), b)
+    torch.cuda.synchronize()
+    out = {"loss": float(loss), "seconds": time.perf_counter() - t0,
+           "grads": lm_tree.tree_to_numpy(grads), "backend": mesh.backend,
+           "comm_bytes": mesh.comm_bytes, "comm_s": mesh.comm_seconds,
+           "edges": int(src.shape[0])}
+    if compare:
+        del grads
+        one, ref = loss_and_grads(model, batch)
+        out["one_loss"] = one
+        out["one_err"] = tree_err(lm_tree.map_leaves(torch.from_numpy, out["grads"]), ref)
+    return out
+
+
+def dst_partitioned_on_card(dev, card: str, ogb_path: Path) -> None:
+    """(d) ``loss_fn_dst_partitioned`` at full_graph_sm on RG_GLOO_RANKS gloo
+    ranks sharing the card, and at ogb_products (the graph process's file)
+    on one NCCL rank, started beside them: each loss within
+    RG_DIST_LOSS_TOL, each all-reduced gradient within RG_F32_TOL, of the
+    one-device ``loss_fn``."""
+    d = gin_tu.SHAPES["full_graph_sm"].dims
+    g = graph.random_graph(d["n_nodes"], d["n_edges"], d["d_feat"], d["n_classes"], seed=0)
+    cora_path = PHASE13_DIR / "full_graph_sm.npz"
+    save_npz(cora_path, edge_index=g.edge_index, features=g.features, labels=g.labels,
+             n_nodes=g.n_nodes)
+    kbuild.build()           # once, before two threads spawn ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        nccl = pool.submit(spawn_ranks, 1, dst_partitioned_rank, str(ogb_path),
+                           "ogb_products", True, device=dev, backend="nccl")
+        gloo = spawn_ranks(RG_GLOO_RANKS, dst_partitioned_rank, str(cora_path),
+                           "full_graph_sm", False, device=dev, backend="gloo")
+        gloo_s = time.perf_counter() - t0
+        nccl = nccl.result()
+    both_s = time.perf_counter() - t0
+    # full_graph_sm's one-device reference, here
+    cfg = gin_tu.cell_config(gin_tu.SHAPES["full_graph_sm"])
+    model = gnn.init_params(cfg, dev, torch.Generator(dev).manual_seed(0)).requires_grad_(True)
+    src, dst, mask = graph.partition_edges_by_dst(g, RG_GLOO_RANKS)
+    one, ref = loss_and_grads(model, {"features": g.features, "edge_src": src,
+                                      "edge_dst": dst, "edge_mask": mask,
+                                      "labels": g.labels})
+    cora = (one, [tree_err(lm_tree.map_leaves(torch.from_numpy, r["grads"]), ref)
+                  for r in gloo])
+    del model, ref
+    for name, ranks, (one, errs), backend, n in (
+            ("full_graph_sm", gloo, cora, "gloo", d["n_nodes"]),
+            ("ogb_products", nccl, (nccl[0]["one_loss"], [nccl[0]["one_err"]]), "nccl",
+             gin_tu.SHAPES["ogb_products"].dims["n_nodes"])):
+        loss_errs = [abs(r["loss"] - one) / abs(one) for r in ranks]
+        print(f"gnn: loss_fn_dst_partitioned at {name} ({n:,} nodes, "
+              f"{ranks[0]['edges'] * len(ranks):,} padded edges) on {len(ranks)} {backend} "
+              f"rank{'s' if len(ranks) > 1 else ''} ({card}): loss {ranks[0]['loss']:.6f}, "
+              f"err {max(loss_errs):.2e} of the one-device loss_fn's (tol "
+              f"{RG_DIST_LOSS_TOL}), all-reduced gradient {max(errs):.2e} of the leaf's "
+              f"max abs (tol {RG_F32_TOL}); loss and gradient "
+              f"{max(r['seconds'] for r in ranks) * 1e3:.1f} ms a rank (cold), "
+              f"{ranks[0]['comm_bytes'] / 1e6:.2f} MB sent a rank in "
+              f"{ranks[0]['comm_s'] * 1e3:.1f} ms of collectives")
+        check(all(r["backend"] == backend for r in ranks), f"{name}: ranks on {backend}")
+        check(max(loss_errs) <= RG_DIST_LOSS_TOL and max(errs) <= RG_F32_TOL,
+              f"{name}: the dst-partitioned loss and gradient equal loss_fn's")
+    print(f"gnn: the ranks took {gloo_s:.1f} s (4 gloo) and {both_s:.1f} s (with the NCCL "
+          f"rank beside them)")
+    cora_path.unlink()
+
+
+def phase_recsys_gnn(dev, card: str) -> None:
+    """Phase 13: recsys and GNN (see the module docstring)."""
+    t0 = time.perf_counter()
+    PHASE13_DIR.mkdir(parents=True, exist_ok=True)
+    for f in PHASE13_DIR.glob("*.npz"):
+        f.unlink()
+    procs, logs = {}, {}
+    for name in ("minibatch_lg", "ogb_products"):      # two cores, side by side
+        logs[name] = PHASE13_DIR / f"{name}.log"
+        with open(logs[name], "w") as f:
+            procs[name] = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--graph-child",
+                 str(PHASE13_DIR), name], stdout=f, stderr=subprocess.STDOUT)
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        reduced_recsys_gnn_on_card(dev)
+        print(f"recsys: (a) took {time.perf_counter() - t0:.1f} s")
+        models = full_width_on_card(dev)
+        print(f"recsys: (b) done at {time.perf_counter() - t0:.1f} s")
+        recsys_timed(dev, models, card)
+        print(f"recsys: (c) done at {time.perf_counter() - t0:.1f} s")
+        for name in ("full_graph_sm", "molecule"):
+            d = gin_tu.SHAPES[name].dims
+            if name == "molecule":
+                g = graph.batched_molecules(d["batch"], d["n_nodes"], d["n_edges"],
+                                            d["d_feat"], seed=0)
+            else:
+                g = graph.random_graph(d["n_nodes"], d["n_edges"], d["d_feat"],
+                                       d["n_classes"], seed=0)
+            gin_timed(dev, name, graph_batch(g), g.n_edges, card)
+        ogb_path = PHASE13_DIR / "ogb_products.npz"
+        st = wait_for(ogb_path, procs["ogb_products"], logs["ogb_products"])
+        gin_timed(dev, "ogb_products", {"features": st["features"],
+                                        "edge_src": st["edge_index"][0],
+                                        "edge_dst": st["edge_index"][1],
+                                        "labels": st["labels"]},
+                  st["edge_index"].shape[1], card,
+                  f"; graph made in {float(st['gen_s']):.1f} s by the graph process, "
+                  f"waited for {st['waited_s']:.1f} s")
+        del st
+        dst_partitioned_on_card(dev, card, ogb_path)
+        print(f"gnn: (d) done at {time.perf_counter() - t0:.1f} s")
+        st = wait_for(PHASE13_DIR / "minibatch_lg.npz", procs["minibatch_lg"],
+                      logs["minibatch_lg"])
+        d = gin_tu.SHAPES["minibatch_lg"].dims
+        n_sub, n_edges = st["features"].shape[0], st["edge_src"].shape[0]
+        check((n_sub, n_edges) == gin_tu.sampled_sizes(d),
+              "minibatch_lg: the sample has sampled_sizes' nodes and edges")
+        print(f"gnn: minibatch_lg host graph ({d['n_nodes']:,} nodes, {int(st['n_edges']):,} "
+              f"edges, d_feat {d['d_feat']}) made in {float(st['gen_s']):.1f} s, its CSR "
+              f"table in {float(st['csr_s']):.1f} s, a fanout {d['fanout']} sample of "
+              f"{d['batch_nodes']} seeds in {float(st['sample_s']) * 1e3:.1f} ms, by a "
+              f"graph process beside the card's work (waited for {st['waited_s']:.1f} s)")
+        gin_timed(dev, "minibatch_lg", {k: st[k] for k in (
+            "features", "edge_src", "edge_dst", "edge_mask", "labels", "label_mask")},
+            n_edges, card, "; the sampled subgraph")
+        for name, proc in procs.items():
+            check(proc.wait(timeout=60) == 0,
+                  f"the {name} graph process exited 0 (log {logs[name]})")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in PHASE13_DIR.glob("*.npz"):
+            f.unlink()
+    print(f"recsys: phase 13 took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script checks the port on a GPU",
@@ -3954,6 +4514,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train(dev, card)                              # phase 12
     done("phase 12 (train)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_recsys_gnn(dev, card)                         # phase 13
+    done("phase 13 (recsys, gnn)")
 
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -3966,5 +4530,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--train-child"]:      # phase 12's recovery process
         train_child(sys.argv[2])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--graph-child"]:      # phase 13's host graphs
+        graph_child(sys.argv[2], sys.argv[3])
         sys.exit(0)
     sys.exit(main())

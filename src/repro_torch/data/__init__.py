@@ -1,1 +1,2 @@
-"""Corpora for the n-gram jobs."""
+"""Corpora for the n-gram jobs, the LM loader, and the recsys and graph
+generators (``recsys``, ``graph``)."""

@@ -1,6 +1,5 @@
-"""The LM model stack (port of ``repro.models``'s LM half): ``layers``,
-``moe`` and ``transformer``.  ``repro``'s ``gnn`` and ``recsys`` models
-are not ported yet."""
-from . import layers, moe, transformer
+"""The model stack (port of ``repro.models``): ``layers``, ``moe`` and
+``transformer`` for the LMs, ``recsys`` and ``gnn``."""
+from . import gnn, layers, moe, recsys, transformer
 
-__all__ = ["layers", "moe", "transformer"]
+__all__ = ["gnn", "layers", "moe", "recsys", "transformer"]

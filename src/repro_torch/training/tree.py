@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import Callable, Iterator
 
 import torch
+from torch import nn
 
 
 class Stacked(tuple):
@@ -76,3 +77,34 @@ def like(tree, flat: list):
     if next(it, None) is not None:
         raise ValueError("more tensors than the tree has leaves")
     return out
+
+
+class TreeModule(nn.Module):
+    """An ``nn.Module`` that holds a tree of tensors (dicts, lists and
+    tuples, as ``repro``'s pytree of a model's parameters) as its
+    parameters, each registered under its leaf name and sharing the
+    tensor's storage.  The parameters are frozen (a trainer calls
+    ``requires_grad_(True)``); :meth:`tree` gives them back in the tree's
+    shape, the tensors themselves, whatever ``.to()`` has made of them."""
+
+    def __init__(self, cfg, tree):
+        super().__init__()
+        self.cfg = cfg
+        names = []
+        for name, t in named_leaves(tree):
+            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+            names.append(name)
+        self._skeleton = like(tree, names)
+
+    def tree(self):
+        return map_leaves(lambda name: self._parameters[name], self._skeleton)
+
+    @property
+    def device(self) -> torch.device:
+        return next(iter(self._parameters.values())).device
+
+
+def tree_to_numpy(tree):
+    """A tree of tensors as float32 numpy arrays (a bf16 leaf widens
+    exactly), in the same shape."""
+    return map_leaves(lambda t: t.detach().float().cpu().numpy(), tree)

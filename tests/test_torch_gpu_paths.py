@@ -16,7 +16,8 @@ sharded index), and the streaming path across ranks (two gloo ranks sharing
 the card against two on the CPU: the mesh waves, ``run_streaming`` and
 ``shard_generational``), and LM serving and training (each reduced
 arch's prefill and decode steps, and one train step, card against CPU in
-float32).  ``merge_path`` is
+float32), and the recsys and GNN archs (one train step of each reduced
+config, card against CPU in float32).  ``merge_path`` is
 also held against its plain version at runs above 2**26 rows.  The file
 imports no JAX: it runs on a GPU host that has none, and every case skips
 without a card.
@@ -36,6 +37,11 @@ from repro_torch.pipeline import WaveExecutor
 
 SIGMA, TAU = 5, 2
 VOCAB = corpus.NYT.vocab_size
+
+
+# the LM archs of the registry (which also holds the GNN and recsys archs)
+LM_ARCHS = ["deepseek-moe-16b", "llama3.2-1b", "minicpm3-4b", "mixtral-8x7b",
+            "phi3-medium-14b"]
 
 
 @pytest.fixture
@@ -512,7 +518,7 @@ def test_cuda_reduced_lm_serving_matches_cpu(cuda_device):
     saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        for arch in configs.all_archs():
+        for arch in LM_ARCHS:
             cfg = configs.get(arch).make_reduced()
             cpu = tf.init_params(cfg, "cpu", torch.Generator().manual_seed(0))
             card = copy.deepcopy(cpu).to(cuda_device)
@@ -561,7 +567,7 @@ def test_cuda_reduced_lm_train_step_matches_cpu(cuda_device):
     saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        for arch in configs.all_archs():
+        for arch in LM_ARCHS:
             cfg = configs.get(arch).make_reduced()
             cpu = tf.init_params(cfg, "cpu", torch.Generator().manual_seed(0))
             card = copy.deepcopy(cpu).to(cuda_device)
@@ -580,5 +586,68 @@ def test_cuda_reduced_lm_train_step_matches_cpu(cuda_device):
                 tight = 1e-6 * float(w.abs().max())
                 assert float(d.max()) <= tight + 2 * lr, (arch, n)
                 assert int((d > tight + 1e-6 * lr).sum()) < 1e-3 * d.numel(), (arch, n)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+def test_cuda_reduced_recsys_and_gnn_train_step_matches_cpu(cuda_device):
+    """Each recsys arch's and gin-tu's REDUCED config (float32; GIN also
+    with bf16 node features on the wire) with the same seeded weights on the
+    card and on the CPU: one ``make_train_step`` on a seeded batch.  The
+    loss and every gradient and first-moment leaf within 1e-4 of the CPU's
+    (max abs error over the leaf's max abs: the sums run in another order,
+    an ``index_add_`` on the card in no fixed order).  TF32 is off."""
+    import copy
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data import graph, recsys as rdata
+    from repro_torch.models import gnn, recsys
+    from repro_torch.training import optimizer, train_loop
+    from repro_torch.training.tree import named_leaves
+
+    def batch_of(arch, cfg):
+        if arch == "gin-tu":
+            g = graph.random_graph(300, 2000, cfg.d_feat, cfg.n_classes, seed=1)
+            return {"features": g.features, "edge_src": g.edge_index[0],
+                    "edge_dst": g.edge_index[1], "labels": g.labels,
+                    "edge_mask": np.arange(2000) % 5 != 0,
+                    "label_mask": np.arange(300) % 2 == 0}
+        gen = {"bst": lambda: rdata.BehaviorSeqGen(cfg.item_vocab, cfg.seq_len),
+               "two-tower-retrieval": lambda: rdata.RetrievalGen(cfg.item_vocab,
+                                                                 cfg.user_feat)}.get(
+            arch, lambda: rdata.CTRBatchGen((cfg.field_vocab,) * cfg.n_sparse))()
+        return gen.batch_at(0, 64)
+
+    def one_step(model, mod, cfg, batch):
+        b = {k: torch.from_numpy(v).to(model.device) for k, v in batch.items()}
+        params = mod.param_tree(model)
+        step = train_loop.make_train_step(lambda p, x: mod.loss_fn(p, x, cfg),
+                                          optimizer.OptimizerConfig(
+                                              peak_lr=1e-3, warmup_steps=2, decay_steps=50))
+        _, state, m = step(params, optimizer.init_state(params), b)
+        return float(m["loss"]), {n: v.detach().double().cpu()
+                                  for n, v in named_leaves(state["m"])}
+
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cases = [(a, configs.get(a).make_reduced()) for a in configs.all_archs()
+                 if configs.get(a).family == "recsys"]
+        gin = configs.get("gin-tu").make_reduced()
+        cases += [("gin-tu", gin), ("gin-tu", dataclasses.replace(
+            gin, comm_dtype=torch.bfloat16))]
+        for arch, cfg in cases:
+            mod = gnn if arch == "gin-tu" else recsys
+            cpu = mod.init_params(cfg, "cpu", torch.Generator().manual_seed(0))
+            card = copy.deepcopy(cpu).to(cuda_device)
+            batch = batch_of(arch, cfg)
+            want = one_step(cpu.requires_grad_(True), mod, cfg, batch)
+            got = one_step(card.requires_grad_(True), mod, cfg, batch)
+            assert abs(got[0] - want[0]) <= 1e-4 * abs(want[0]), arch
+            for n, w in want[1].items():
+                err = (got[1][n] - w).abs().max() / max(float(w.abs().max()), 1e-30)
+                assert err <= 1e-4, (arch, n, float(err))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved

@@ -319,3 +319,79 @@ def test_training_entry_points_refuse_cpu_without_a_device(monkeypatch, tmp_path
     run = train.train(cfg, steps=1, batch=2, seq=8, ckpt_dir=str(tmp_path / "c"),
                       device="cpu")
     assert len(run.history) == 1
+
+
+def test_recsys_and_gnn_run_without_jax_or_repro(tmp_path):
+    """The recsys and GNN models, their generators and configs, a train step
+    of each reduced arch, and GIN's dst-partitioned loss on 2 gloo ranks:
+    every rank is a fresh process, so ``jax`` is blocked by a package on the
+    path that fails to import."""
+    (tmp_path / "jax").mkdir()
+    (tmp_path / "jax" / "__init__.py").write_text(
+        "raise ImportError('jax is blocked here')\n")
+    env = dict(os.environ, PYTHONPATH=f"{tmp_path}{os.pathsep}{ROOT / 'src'}")
+    code = textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {str(ROOT / 'tests')!r})
+        import torch
+        from repro_torch import configs
+        from repro_torch.data import graph, recsys as rdata
+        from repro_torch.launch.mesh import spawn_ranks
+        from repro_torch.models import gnn, recsys
+        from repro_torch.training import optimizer, train_loop
+        from repro_torch.training.tree import tree_to_numpy
+        from torch_gnn_ranks import dst_partitioned_rank
+        gens = {{'bst': lambda c: rdata.BehaviorSeqGen(c.item_vocab, c.seq_len),
+                'two-tower-retrieval': lambda c: rdata.RetrievalGen(c.item_vocab,
+                                                                    c.user_feat)}}
+        for arch in ('bst', 'autoint', 'two-tower-retrieval', 'xdeepfm'):
+            cfg = configs.get(arch).make_reduced()
+            gen = gens.get(arch, lambda c: rdata.CTRBatchGen((c.field_vocab,) * c.n_sparse))
+            b = {{k: torch.from_numpy(v) for k, v in gen(cfg).batch_at(0, 8).items()}}
+            model = recsys.init_params(cfg, 'cpu').requires_grad_(True)
+            p = recsys.param_tree(model)
+            step = train_loop.make_train_step(lambda p, x: recsys.loss_fn(p, x, cfg),
+                                              optimizer.OptimizerConfig())
+            assert torch.isfinite(step(p, optimizer.init_state(p), b)[2]['loss'])
+        cfg = configs.get('gin-tu').make_reduced()
+        g = graph.random_graph(40, 160, cfg.d_feat, cfg.n_classes, seed=0)
+        src, dst, mask = graph.partition_edges_by_dst(g, 2)
+        batch = dict(features=g.features, edge_src=src, edge_dst=dst, edge_mask=mask,
+                     labels=g.labels, label_mask=g.labels >= 0)
+        model = gnn.init_params(cfg, 'cpu')
+        out = spawn_ranks(2, dst_partitioned_rank, tree_to_numpy(gnn.param_tree(model)),
+                          batch, [cfg], device='cpu')
+        one = gnn.loss_fn(gnn.param_tree(model),
+                          {{k: torch.from_numpy(v) for k, v in batch.items()}}, cfg)[0]
+        assert abs(out[0][0][0] - float(one)) <= 1e-5 * float(one), (out[0][0][0], one)
+    """) + NO_REPRO
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+
+
+def test_recsys_and_gnn_entry_points_refuse_cpu_without_a_device(monkeypatch):
+    """Every ``*_init``, GIN's ``init_params`` and both ``params_from_numpy``
+    run on the card by default and raise without one; given ``device="cpu"``
+    they run."""
+    from repro_torch import configs
+    from repro_torch.models import gnn, recsys
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    gin = configs.get("gin-tu").make_reduced()
+    calls = [lambda: gnn.init_params(gin),
+             lambda: gnn.params_from_numpy(
+                 gnn.params_to_numpy(gnn.init_params(gin, "cpu")), gin)]
+    for arch in ("bst", "autoint", "two-tower-retrieval", "xdeepfm"):
+        cfg = configs.get(arch).make_reduced()
+        init = {"bst": recsys.bst_init, "autoint": recsys.autoint_init,
+                "two-tower-retrieval": recsys.twotower_init,
+                "xdeepfm": recsys.xdeepfm_init}[arch]
+        calls += [lambda init=init, cfg=cfg: init(cfg),
+                  lambda cfg=cfg: recsys.init_params(cfg),
+                  lambda cfg=cfg: recsys.params_from_numpy(
+                      recsys.params_to_numpy(recsys.init_params(cfg, "cpu")), cfg)]
+        assert recsys.init_params(cfg, "cpu").device.type == "cpu"
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert gnn.init_params(gin, "cpu").device.type == "cpu"

@@ -406,13 +406,21 @@ def test_registry_matches_repro_field_by_field(arch):
 
 
 def test_registry_holds_the_lm_archs_and_names_the_rest():
+    """The LM archs are ``repro``'s, with their cells; every other arch
+    ``repro`` registers is the port's too, of the same family, or named in
+    ``NOT_PORTED`` with its family."""
     lm = sorted(a for a in jconfigs.all_archs() if jconfigs.get(a).family == "lm")
-    assert configs.all_archs() == lm == sorted(LM_ARCHS)
-    assert configs.all_cells() == [c for c in jconfigs.all_cells() if c[0] in lm]
+    assert sorted(a for a in configs.all_archs()
+                  if configs.get(a).family == "lm") == lm == sorted(LM_ARCHS)
+    assert [c for c in configs.all_cells() if c[0] in lm] == \
+        [c for c in jconfigs.all_cells() if c[0] in lm]
     rest = {a: jconfigs.get(a).family for a in jconfigs.all_archs() if a not in lm}
-    assert configs.NOT_PORTED == rest
-    with pytest.raises(KeyError, match="unknown arch"):
-        configs.get("gin-tu")
+    ported = {a: configs.get(a).family for a in configs.all_archs() if a not in lm}
+    assert ported.keys().isdisjoint(configs.NOT_PORTED)
+    assert ported | configs.NOT_PORTED == rest
+    for arch in configs.NOT_PORTED:
+        with pytest.raises(KeyError, match="unknown arch"):
+            configs.get(arch)
     with pytest.raises(ValueError):
         base.lm_model_flops(configs.get("llama3.2-1b").make(), "serve", 1, 1)
 
@@ -448,9 +456,11 @@ def test_serve_cli_prints_repros_lines(capsys, monkeypatch):
 
 
 def test_serve_refuses_a_non_lm_arch_and_runs_on_the_card_by_default(monkeypatch):
-    """A non-LM arch exits with ``repro``'s message, whether ``repro``
-    registers it and the port does not yet (every one) or not."""
-    for arch in configs.NOT_PORTED:
+    """A non-LM arch exits with ``repro``'s message, whether the port
+    registers it (the GNN and the recsys archs) or not (the n-gram cell)."""
+    non_lm = [a for a in jconfigs.all_archs() if jconfigs.get(a).family != "lm"]
+    assert {jconfigs.get(a).family for a in non_lm} == {"gnn", "recsys", "ngram"}
+    for arch in non_lm:
         with pytest.raises(SystemExit, match="serve.py drives LM archs"):
             serve.main(["--arch", arch, "--device", "cpu"])
         monkeypatch.setattr(sys, "argv", ["serve", "--arch", arch])
