@@ -260,6 +260,35 @@ line):
                  each loss within 1e-5, each all-reduced gradient within
                  1e-4, of the one-device ``loss_fn``.  ``recsys:`` and
                  ``gnn:`` lines.
+  14. moe     -- the sharded MoE and the examples, after phase 13, float32,
+                 TF32 off.  One spawn of 4 gloo ranks sharing the card:
+                 (a) mixtral-8x7b and deepseek-moe-16b at full width, depth
+                 cut to 1 layer (the one cut), on a 2 x 2 (data, model) grid
+                 (``launch.mesh.grid_mesh``; ``cfg.moe.mesh`` set, so every
+                 MoE layer runs ``moe_ffn_sharded``) at batch 8 x 128 and
+                 each arch's capacity factor 1.25: each rank draws the whole
+                 model leaf by leaf from seed 0 and keeps its part; its MoE
+                 layer's y on its data row (a seeded x) within 1e-4 of
+                 one-device ``moe_ffn(sort)`` on that row with the whole
+                 weights, aux of the rows' mean; one loss and gradient (cold,
+                 then warm) within 1e-4 of the one-device model run row by
+                 row (every leaf, the MoE leaves the rank's part; the
+                 references two ranks at a time).  (b) ffTP: 2 experts at
+                 the CPU test's width on a 1 x 4 grid, y, aux and gradient
+                 against the one-device sort path.  (c) The port's six
+                 examples in one process on the card (``--examples-child``;
+                 ``ngram_language_model`` at 40 steps, the one cut), their
+                 asserts kept, the five n-gram examples' lines equal to a CPU
+                 run's (started beside (a)) once times are masked; the
+                 kernels they launch count under the ``examples`` path.
+                 ``moe:`` and ``examples:`` lines (ms a step sharded and on
+                 one device, bytes a rank sent, collective seconds, peak a
+                 rank, dropped claims).
+
+Phase 3's corpus, phase 7's corpus with years and phase 8's 2**27-term
+corpus are made by a process of their own (``--corpus-child``, log in
+``build/corpora``) from the start of phase 1, beside the build and the
+card's work.
 
 The last lines are one JSON object describing each kernel, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.  The
@@ -302,7 +331,7 @@ from repro_torch.index import merge as index_merge  # noqa: E402
 from repro_torch.index import query as index_query  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.launch.mesh import spawn_ranks  # noqa: E402
+from repro_torch.launch.mesh import grid_mesh, spawn_ranks  # noqa: E402
 from repro_torch.mapreduce import pack  # noqa: E402
 from repro_torch.obs import trace  # noqa: E402
 from repro_torch.pipeline import WaveExecutor, plan_for, stages  # noqa: E402
@@ -798,14 +827,22 @@ def profile_job(tokens, cfg, dev, label: str = "profile") -> None:
         profile_call(lambda: run_job(tokens, cfg, device=dev), label)
 
 
-def phase_main_path(dev, n_terms: int = MAIN_TERMS) -> dict:
-    """The full-width slice through the entry points a user calls."""
+def phase_main_path(dev, n_terms: int = MAIN_TERMS, corpora=None) -> dict:
+    """The full-width slice through the entry points a user calls; the
+    corpus from ``corpora`` (:class:`CorpusProcess`) if given."""
     vocab = corpus.NYT.vocab_size
     t0 = time.perf_counter()
-    toks = corpus.zipf_corpus(n_terms, corpus.NYT, seed=0, duplicate_frac=0.02)
+    if corpora is not None and n_terms == MAIN_TERMS:
+        st = corpora.wait("main")
+        toks, made = st["toks"], (f"made in {float(st['gen_s']):.1f} s by the corpus "
+                                  f"process (waited for {st['waited_s']:.1f} s)")
+        del st
+    else:
+        toks = corpus.zipf_corpus(n_terms, corpus.NYT, seed=0, duplicate_frac=0.02)
+        made = f"made in {time.perf_counter() - t0:.1f} s"
     tokens = torch.as_tensor(toks, device=dev)
     print(f"main: corpus of {n_terms} NYT-profile terms, {toks.size} positions "
-          f"with PAD separators, made in {time.perf_counter() - t0:.1f} s")
+          f"with PAD separators, {made}")
     cfg = NGramConfig(sigma=SIGMA, tau=TAU, vocab_size=vocab)
     sync = torch.cuda.synchronize if tokens.is_cuda else (lambda: None)
     if tokens.is_cuda:
@@ -1672,22 +1709,24 @@ def same_rows(a, b) -> bool:
                for f in ("grams", "lengths", "counts"))
 
 
-def phase_extensions(dev, main: dict, split_terms: int | None = None) -> dict:
+def phase_extensions(dev, main: dict, corpora, split_terms: int | None = None) -> dict:
     """The paper's extensions at full width: the time-series job on both
     combine routes, maximal / closed filtering and document frequencies on
     phase 3's corpus and output; the two-phase sigma split against the
     whole sigma-40 job at ``split_terms`` (phase 3's corpus unless given);
-    postings at POSTINGS_TERMS."""
+    postings at POSTINGS_TERMS.  The corpus with years comes from
+    ``corpora`` (:class:`CorpusProcess`)."""
     vocab = corpus.NYT.vocab_size
     n_l = pack.n_lanes(SIGMA, vocab)
-    t0 = time.perf_counter()
-    toks, years = corpus.zipf_corpus(main["n_terms"], corpus.NYT, seed=0,
-                                     duplicate_frac=0.02, with_years=True)
+    st = corpora.wait("ext")
+    toks, years = st["toks"], st["years"]
     check(np.array_equal(toks, main["toks"]), "the corpus with years is phase 3's stream")
     tokens, want = main["tokens"], main["stats"]
     years_dev = torch.as_tensor(years, device=dev)
     print(f"ext: phase 3's corpus with a year bucket a document ({N_BUCKETS} buckets), "
-          f"made in {time.perf_counter() - t0:.1f} s")
+          f"made in {float(st['gen_s']):.1f} s by the corpus process (waited for "
+          f"{st['waited_s']:.1f} s)")
+    del st
     ops.launches.clear()
 
     # time series (SSVI-B): repro's ngram --series deployment
@@ -1846,15 +1885,15 @@ def captured_merges(min_rows: int):
         ops.merge_path = inner
 
 
-def phase_waves(dev, main: dict, stream: dict) -> dict:
+def phase_waves(dev, main: dict, stream: dict, corpora) -> dict:
     """The wave engine at full width.  On phase 3's corpus: SUFFIX-sigma at
     four wave sizes, the tiered and pairwise folds, the sort route, the hash
     combiner and the fold without its thread, and the three other methods,
     each equal to phase 3's output; ``run_streaming`` against a flat index of
     the monolithic tau = 1 job; the wave service against phase 5's.  Then
     BIG_TERMS: SUFFIX-sigma and NAIVE in waves against the monolithic
-    SUFFIX-sigma job there.  ``launches`` counts the wave entry points'
-    launches only: the references (the monolithic jobs, the flat index,
+    SUFFIX-sigma job there (its corpus from ``corpora``).  ``launches``
+    counts the wave entry points' launches only: the references (the monolithic jobs, the flat index,
     ``compress_index``, phase 5's service) are left out."""
     vocab = corpus.NYT.vocab_size
     toks, tokens, want = main["toks"], main["tokens"], main["stats"]
@@ -1994,10 +2033,12 @@ def phase_waves(dev, main: dict, stream: dict) -> dict:
     # the reference; SUFFIX-sigma and NAIVE run in waves.  The SUFFIX-sigma
     # run's fold hands its largest and widest merges of BIG_TERMS rows or
     # more to phase 4.
-    t0 = time.perf_counter()
-    big = corpus.zipf_corpus(BIG_TERMS, corpus.NYT, seed=0, duplicate_frac=0.02)
+    st = corpora.wait("big")
+    big = st["toks"]
     print(f"waves: corpus of {BIG_TERMS} NYT-profile terms, {big.size:,} positions, "
-          f"made in {time.perf_counter() - t0:.1f} s")
+          f"made in {float(st['gen_s']):.1f} s by the corpus process (waited for "
+          f"{st['waited_s']:.1f} s)")
+    del st
     big_dev = torch.as_tensor(big, device=dev)
     reset_peak()
     t0 = time.perf_counter()
@@ -4228,6 +4269,62 @@ def save_npz(path: Path, **arrays) -> None:
     os.replace(tmp, path)
 
 
+#: where the corpus process writes phase 7's and phase 8's corpora
+CORPUS_DIR = Path(__file__).resolve().parent / "build" / "corpora"
+
+
+def corpus_child(out_dir: str) -> None:
+    """Phase 3's, phase 7's and phase 8's corpora, made in a process of its
+    own (no CUDA) from the script's start, beside the kernels' build and the
+    card's work: phase 3's corpus (``main.npz``), the same with a year
+    bucket a document (``ext.npz``; phase 7 checks its stream is phase
+    3's), then BIG_TERMS (``big.npz``), each with the seconds its making
+    took."""
+    out = Path(out_dir)
+    t0 = time.perf_counter()
+    toks = corpus.zipf_corpus(MAIN_TERMS, corpus.NYT, seed=0, duplicate_frac=0.02)
+    save_npz(out / "main.npz", toks=toks, gen_s=time.perf_counter() - t0)
+    del toks
+    t0 = time.perf_counter()
+    toks, years = corpus.zipf_corpus(MAIN_TERMS, corpus.NYT, seed=0, duplicate_frac=0.02,
+                                     with_years=True)
+    save_npz(out / "ext.npz", toks=toks, years=years, gen_s=time.perf_counter() - t0)
+    del toks, years
+    t0 = time.perf_counter()
+    big = corpus.zipf_corpus(BIG_TERMS, corpus.NYT, seed=0, duplicate_frac=0.02)
+    save_npz(out / "big.npz", toks=big, gen_s=time.perf_counter() - t0)
+
+
+class CorpusProcess:
+    """The running ``--corpus-child`` process (the numpy generator takes
+    about 17 s for each 2**25-term corpus and 67 s for BIG_TERMS on the
+    card's host, time the card would otherwise wait through)."""
+
+    def __init__(self):
+        CORPUS_DIR.mkdir(parents=True, exist_ok=True)
+        for f in CORPUS_DIR.glob("*.npz"):
+            f.unlink()
+        self.log = CORPUS_DIR / "corpus.log"
+        with open(self.log, "w") as f:
+            self.proc = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--corpus-child",
+                 str(CORPUS_DIR)], stdout=f, stderr=subprocess.STDOUT)
+
+    def wait(self, name: str) -> dict:
+        """The arrays of ``<name>.npz`` once written, its file removed."""
+        path = CORPUS_DIR / f"{name}.npz"
+        out = wait_for(path, self.proc, self.log)
+        path.unlink()
+        return out
+
+    def close(self) -> None:
+        """Check the process exited 0 (it has written both corpora), or stop
+        it if it still runs."""
+        if self.proc.poll() is None:
+            self.proc.kill()
+        check(self.proc.wait() == 0, f"the corpus process exited 0 (log {self.log})")
+
+
 def graph_child(out_dir: str, name: str) -> None:
     """One of phase 13's large host graphs, made in a process of its own (no
     CUDA) while the card runs the rest of the phase: ogb_products' random
@@ -4428,6 +4525,336 @@ def phase_recsys_gnn(dev, card: str) -> None:
     print(f"recsys: phase 13 took {time.perf_counter() - t0:.1f} s")
 
 
+# ------------------------------------------------------------------ phase 14
+#: phase 14: the sharded MoE on (data, model) grids of gloo ranks sharing
+#: the card, at full width with depth cut to MOE_LAYERS, and the examples
+MOE_ARCHS = ("mixtral-8x7b", "deepseek-moe-16b")
+MOE_RANKS = 4
+MOE_MODEL = 2                   # a 2 x 2 grid for the archs
+MOE_FFTP_MODEL = 4              # a 1 x 4 grid for ffTP
+MOE_LAYERS = 1
+MOE_BATCH, MOE_SEQ = 8, 128     # repro's launch/train.py defaults
+MOE_TOL = 1e-4
+#: ffTP at the CPU test's width (tests/test_torch_moe_sharded.py): 2 experts
+#: on 4 model ranks, d 16, d_ff 32, top-2, at capacity factor E and 1.25
+FFTP_CASES = ((2, 2.0), (2, 1.25))
+FFTP_D = 16
+#: the kernels every example's path launches (the ISSUE's table of phase 14)
+EXAMPLE_KERNELS = ("suffix_pack", "hash_partition", "lcp_boundary", "bsearch",
+                   "merge_path")
+#: ngram_language_model's one cut: 40 steps of its default 300
+EXAMPLES_LM_STEPS = 40
+PHASE14_DIR = Path(__file__).resolve().parent / "build" / "phase14"
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want|, on ``got``'s device."""
+    want = want.to(got.device, torch.float32)
+    return float((got.float() - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def sliced_leaves(tree, moe, tp: int, m: int) -> dict:
+    """name -> tensor of a transformer's parameter or gradient tree, each
+    ``Stacked`` leaf stacked, the MoE leaves cut to model rank ``m``'s part."""
+    out = {}
+    for name, leaf in named_leaves(tree):
+        if isinstance(leaf, Stacked):
+            key = name.rsplit("/", 1)[-1]
+            parts = [lm_moe.shard_leaf(key, t, moe, tp, m) if "/ffn/" in name else t
+                     for t in leaf]
+            leaf = torch.stack([t.detach() for t in parts])
+        out[name] = leaf.detach()
+    return out
+
+
+def barrier(mesh) -> None:
+    mesh.all_reduce(torch.zeros(1, device=mesh.device))
+
+
+def moe_arch_rank(world, grid, arch: str) -> dict:
+    """Phase 14 (a) for ``arch`` on this rank of ``grid``: the arch at full
+    width, MOE_LAYERS deep, float32, its MoE on the grid.  The MoE layer on
+    a seeded x of the batch's shape against one-device ``moe_ffn(sort)`` on
+    this rank's row with the whole weights; one loss and gradient (cold,
+    then warm) against the one-device model run row by row.  Each rank
+    draws the whole model leaf by leaf from the seed and keeps its part;
+    the one-device references run two ranks at a time, one model column
+    after the other, so at most two whole models are on the card."""
+    dev = grid.device
+    full = lm_configs.get(arch).make()
+    one = dataclasses.replace(full, n_layers=MOE_LAYERS, dtype=torch.float32,
+                              moe=dataclasses.replace(full.moe, dispatch="sort"))
+    cfg = dataclasses.replace(one, moe=dataclasses.replace(one.moe, mesh=grid,
+                                                           dp_axes="data"))
+    tp, m, rows, i = grid.model.size, grid.model.rank, grid.data.size, grid.data.rank
+    gen = torch.Generator(dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (MOE_BATCH, MOE_SEQ), generator=gen,
+                           device=dev)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    x = torch.randn((MOE_BATCH, MOE_SEQ, cfg.d_model), generator=gen, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_start = time.perf_counter()
+    model = lm.init_params(cfg, dev, torch.Generator(dev).manual_seed(0)).requires_grad_(True)
+    n_part = sum(p.numel() for p in model.parameters())
+    ffn = dict(model.layers[0].ffn.named_parameters())
+    x_row = lm.row_block(cfg, x)
+    with torch.no_grad():
+        y, y_aux = lm_moe.moe_ffn_sharded(x_row, ffn, cfg.moe)
+        ids, _, _ = lm_moe.router_topk(x_row.reshape(-1, cfg.d_model), ffn["router"], cfg.moe)
+        capacity = cfg.moe.capacity(ids.shape[0])
+        dropped = int((lm_moe.claim_positions(ids, cfg.moe.n_experts) >= capacity).sum())
+
+    def step():
+        return lm_train_loop.value_and_grad(lambda p, b: lm.loss_fn(model, b),
+                                            lm.param_tree(model), batch)
+    seconds, sent, comm_s = [], [], []
+    for _ in range(2):                          # cold, then warm
+        b0, s0 = grid.comm_bytes, grid.comm_seconds
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        loss, metrics, grads = step()
+        torch.cuda.synchronize(dev)
+        seconds.append(time.perf_counter() - t0)
+        sent.append(grid.comm_bytes - b0)
+        comm_s.append(grid.comm_seconds - s0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    got = sliced_leaves(grads, cfg.moe, 1, 0)
+    del model, ffn, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"arch": arch, "loss": float(loss), "aux": float(metrics["aux"]),
+           "n_part": n_part, "dropped": dropped, "capacity": capacity,
+           "tokens_row": int(ids.shape[0]), "ms": [s * 1e3 for s in seconds],
+           "sent": sent, "comm_s": comm_s, "peak": peak, "rank": grid.rank, "row": i,
+           "col": m, "before_ref_s": time.perf_counter() - t_start}
+    for turn in range(tp):                      # the references, a column at a time
+        if turn == m:
+            ref = lm.init_params(one, dev, torch.Generator(dev).manual_seed(0))
+            ref.requires_grad_(True)
+            whole = dict(ref.layers[0].ffn.named_parameters())
+            with torch.no_grad():
+                outs = [lm_moe.moe_ffn(xr, whole, one.moe) for xr in x.chunk(rows)]
+            out["y_err"] = rel_err(y, outs[i][0])
+            out["aux_ref"] = float(torch.stack([a for _, a in outs]).mean())
+            out["y_aux"] = float(y_aux)
+            out["y_aux_err"] = abs(out["y_aux"] - out["aux_ref"]) / abs(out["aux_ref"])
+            del whole, outs
+            ms_one = []
+            for _ in range(2):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                acc, losses = None, []
+                for r in range(rows):
+                    part = {k: v.chunk(rows)[r] for k, v in batch.items()}
+                    rl, _, rg = lm_train_loop.value_and_grad(
+                        lambda p, b: lm.loss_fn(ref, b), lm.param_tree(ref), part)
+                    losses.append(float(rl))
+                    rg = sliced_leaves(rg, cfg.moe, tp, m)
+                    acc = rg if acc is None else {k: acc[k] + rg[k] for k in acc}
+                    del rg
+                torch.cuda.synchronize(dev)
+                ms_one.append((time.perf_counter() - t0) * 1e3)
+            want = {k: v / rows for k, v in acc.items()}
+            out["ms_one"] = ms_one
+            out["loss_ref"] = float(np.mean(losses))
+            out["loss_err"] = abs(out["loss"] - out["loss_ref"]) / abs(out["loss_ref"])
+            errs = {k: rel_err(got[k], want[k]) for k in want}
+            out["grad_err"] = max(errs.values())
+            out["worst_leaf"] = max(errs, key=errs.get)
+            out["n_leaves"] = len(errs)
+            out["shapes_equal"] = all(got[k].shape == want[k].shape for k in want)
+            out["peak_ref"] = torch.cuda.max_memory_allocated(dev)
+            del ref, acc, want
+            gc.collect()
+            torch.cuda.empty_cache()
+        barrier(world)
+    out["total_s"] = time.perf_counter() - t_start
+    return out
+
+
+def fftp_rank(grid) -> list:
+    """Phase 14 (b) on this rank of a 1 x MOE_FFTP_MODEL grid: 2 experts at
+    the CPU test's width (every rank holds both at d_ff / 4): y, aux and the
+    gradient of sum(y * y) + aux against the one-device sort path."""
+    dev = grid.device
+    out = []
+    for n_exp, cf in FFTP_CASES:
+        one = lm_moe.MoEConfig(n_exp, 2, 32, capacity_factor=cf, dispatch="sort")
+        cfg = dataclasses.replace(one, mesh=grid, dp_axes="data")
+        gen = torch.Generator(dev).manual_seed(2)
+        whole = lm_moe.init_moe_params(FFTP_D, one, torch.float32, lambda shape, dtype:
+                                       torch.randn(shape, generator=gen, dtype=dtype,
+                                                   device=dev))
+        x = torch.randn((4, 8, FFTP_D), generator=gen, device=dev)
+        res = []
+        for params, c in ((lm_moe.shard_moe_params(whole, cfg), cfg), (whole, one)):
+            p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+            xx = x.clone().requires_grad_(True)
+            fn = lm_moe.moe_ffn_sharded if c.mesh is not None else lm_moe.moe_ffn
+            y, aux = fn(xx, p, c)
+            g = torch.autograd.grad((y * y).sum() + aux, [*p.values(), xx])
+            res.append((y.detach(), float(aux.detach()), dict(zip([*p, "x"], g))))
+        (y, aux, g), (y1, aux1, g1) = res
+        errs = [rel_err(g[k], lm_moe.shard_leaf(k, g1[k], cfg, grid.model.size,
+                                                grid.model.rank) if k != "x" else g1[k])
+                for k in g]
+        out.append({"layout": "ep" if lm_moe.expert_parallel(cfg, grid.model.size)
+                    else "fftp", "y_err": rel_err(y, y1),
+                    "aux_err": abs(aux - aux1) / abs(aux1), "grad_err": max(errs),
+                    "wg_shape": tuple(g["wg"].shape)})
+    return out
+
+
+def moe_rank(world) -> dict:
+    """Phase 14 (a) and (b) on one of MOE_RANKS gloo ranks sharing the card."""
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    grid = grid_mesh(world, MOE_MODEL)
+    fftp = grid_mesh(world, MOE_FFTP_MODEL)
+    return {"archs": [moe_arch_rank(world, grid, arch) for arch in MOE_ARCHS],
+            "fftp": fftp_rank(fftp), "shape": grid.shape, "fftp_shape": fftp.shape}
+
+
+def examples_child(out_path: str, device: str) -> None:
+    """The port's six examples in this process, on the card (``device``
+    "cuda") or the CPU ("cpu", the five n-gram examples): each one's
+    printed lines and seconds and the kernels' launches, to ``out_path`` as
+    JSON.  An example's own assert fails the process."""
+    import importlib
+    import io
+
+    from repro_torch import examples
+    out = {}
+    ops.launches.clear()
+    for name in examples.NAMES:
+        argv = [] if device == "cuda" else ["--device", "cpu"]
+        if name == "ngram_language_model":
+            if device == "cpu":
+                continue
+            ckpt = PHASE14_DIR / "lm_ckpt"
+            shutil.rmtree(ckpt, ignore_errors=True)
+            argv += ["--steps", str(EXAMPLES_LM_STEPS), "--ckpt-dir", str(ckpt)]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            importlib.import_module(f"repro_torch.examples.{name}").main(argv)
+        out[name] = {"lines": buf.getvalue().splitlines(),
+                     "seconds": time.perf_counter() - t0}
+    Path(out_path).write_text(json.dumps({"examples": out, "launches": dict(ops.launches)}))
+
+
+def start_examples(device: str) -> tuple[subprocess.Popen, Path, Path]:
+    out, log = PHASE14_DIR / f"examples_{device}.json", PHASE14_DIR / f"examples_{device}.log"
+    out.unlink(missing_ok=True)
+    with open(log, "w") as f:
+        proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                 "--examples-child", str(out), device],
+                                stdout=f, stderr=subprocess.STDOUT)
+    return proc, out, log
+
+
+def finish_examples(proc, out: Path, log: Path) -> dict:
+    check(proc.wait() == 0, f"the examples process exited 0 (log {log}: "
+          f"{log.read_text()[-3000:]})")
+    return json.loads(out.read_text())
+
+
+#: what varies between runs of an example: seconds, rates and (the LM's) losses
+EXAMPLE_TIMES = re.compile(r"\d[\d,]*(\.\d+)?(?=s\b)|\d[\d,]* tok/s")
+
+
+def phase_moe_examples(dev, card: str) -> dict:
+    """Phase 14: the sharded MoE and the examples (see the module docstring)."""
+    t0 = time.perf_counter()
+    PHASE14_DIR.mkdir(parents=True, exist_ok=True)
+    # (c) both runs of the examples beside (a) and (b), which wait on gloo
+    cpu, cuda = start_examples("cpu"), start_examples("cuda")
+    try:
+        ranks = spawn_ranks(MOE_RANKS, moe_rank, device=dev, backend="gloo")
+        t_ranks = time.perf_counter() - t0
+        for a, arch in enumerate(MOE_ARCHS):
+            rs = [r["archs"][a] for r in ranks]
+            r0 = rs[0]
+            full = lm_configs.get(arch).make()
+            print(f"moe: {arch} at full width (d {full.d_model}, {full.moe.n_experts} "
+                  f"experts, top-{full.moe.top_k}, d_ff_expert {full.moe.d_ff_expert}"
+                  f"{f', {full.moe.n_shared} shared of {full.moe.d_ff_shared_total}' if full.moe.n_shared else ''}, "
+                  f"capacity_factor {full.moe.capacity_factor}), depth cut to {MOE_LAYERS} of "
+                  f"{full.n_layers} layers (the one cut), float32, TF32 off, on a "
+                  f"{ranks[0]['shape']['data']} x {ranks[0]['shape']['model']} (data, model) "
+                  f"grid of {MOE_RANKS} gloo ranks sharing {card}; batch {MOE_BATCH}x{MOE_SEQ}, "
+                  f"{r0['tokens_row']} tokens a data row, capacity {r0['capacity']} a rank's "
+                  f"expert; {r0['n_part'] / 1e9:.3f} G parameters a rank")
+            print(f"moe: {arch} MoE layer ({card}): y of each rank within "
+                  f"{max(r['y_err'] for r in rs):.2e} of one-device moe_ffn(sort) on its row "
+                  f"with the whole weights (tol {MOE_TOL}), aux {r0['y_aux']:.6f} within "
+                  f"{max(r['y_aux_err'] for r in rs):.2e} of the rows' mean; dropped claims "
+                  f"by row {[r['dropped'] for r in rs if r['col'] == 0]}")
+            print(f"moe: {arch} loss and gradient ({card}): loss {r0['loss']:.6f}, within "
+                  f"{max(r['loss_err'] for r in rs):.2e} of the one-device model's run row by "
+                  f"row ({r0['loss_ref']:.6f}); every gradient leaf ({r0['n_leaves']} a rank, "
+                  f"MoE leaves the rank's part) within {max(r['grad_err'] for r in rs):.2e} of "
+                  f"the leaf's max abs (tol {MOE_TOL}; worst {r0['worst_leaf']})")
+            print(f"moe: {arch} a step ({card}): sharded "
+                  f"{max(r['ms'][1] for r in rs):.1f} ms warm (cold "
+                  f"{max(r['ms'][0] for r in rs):.1f} ms), one device row by row "
+                  f"{min(r['ms_one'][1] for r in rs):.1f} ms warm; a rank sent "
+                  f"{max(r['sent'][1] for r in rs) / 1e9:.3f} GB in "
+                  f"{max(r['comm_s'][1] for r in rs):.2f} s of collectives (warm step); peak "
+                  f"{max(r['peak'] for r in rs) / 2**30:.2f} GiB a rank sharded, "
+                  f"{max(r['peak_ref'] for r in rs) / 2**30:.2f} GiB with the one-device "
+                  f"reference (gloo ranks sharing one card: correctness and staging, not "
+                  f"NVLink); the arch took {max(r['total_s'] for r in rs):.1f} s a rank, "
+                  f"{max(r['before_ref_s'] for r in rs):.1f} s of it before the references")
+            check(all(r["shapes_equal"] for r in rs), f"{arch}: gradient leaves' shapes")
+            check(max(r["y_err"] for r in rs) <= MOE_TOL
+                  and max(r["y_aux_err"] for r in rs) <= MOE_TOL,
+                  f"{arch}: the sharded MoE layer equals one-device moe_ffn on each row")
+            check(max(r["loss_err"] for r in rs) <= MOE_TOL
+                  and max(r["grad_err"] for r in rs) <= MOE_TOL,
+                  f"{arch}: the sharded loss and gradient equal the one-device model's")
+            check(len({r["loss"] for r in rs}) == 1, f"{arch}: every rank holds one loss")
+        for c, (n_exp, cf) in enumerate(FFTP_CASES):
+            fs = [r["fftp"][c] for r in ranks]
+            print(f"moe: ffTP, {n_exp} experts on a {ranks[0]['fftp_shape']['data']} x "
+                  f"{ranks[0]['fftp_shape']['model']} grid ({card}): d {FFTP_D}, d_ff 32 "
+                  f"(wg {fs[0]['wg_shape']} a rank), top-2, capacity_factor {cf}: y within "
+                  f"{max(f['y_err'] for f in fs):.2e}, aux {max(f['aux_err'] for f in fs):.2e}, "
+                  f"the gradient of sum(y*y) + aux {max(f['grad_err'] for f in fs):.2e} of "
+                  f"one-device moe_ffn(sort)'s (tol {MOE_TOL})")
+            check(all(f["layout"] == "fftp" for f in fs)
+                  and max(max(f["y_err"], f["aux_err"], f["grad_err"]) for f in fs) <= MOE_TOL,
+                  f"ffTP at capacity factor {cf} equals the one-device sort path")
+        print(f"moe: the {MOE_RANKS} ranks took {t_ranks:.1f} s ({card})")
+        card_run, cpu_run = finish_examples(*cuda), finish_examples(*cpu)
+    finally:
+        for proc, _, _ in (cpu, cuda):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name, got in card_run["examples"].items():
+        lines = [EXAMPLE_TIMES.sub("<t>", ln) for ln in got["lines"]]
+        if name == "ngram_language_model":
+            first, last = map(float, re.search(r"done: loss (\S+) -> (\S+),",
+                                               got["lines"][-1]).groups())
+            print(f"examples: {name} on {card}: {len(lines)} lines in "
+                  f"{got['seconds']:.1f} s, {EXAMPLES_LM_STEPS} steps (cut from 300, the "
+                  f"one cut), loss {first:.3f} -> {last:.3f}; {got['lines'][2]}")
+            check(last < first, f"{name}: the loss falls")
+            continue
+        want = [EXAMPLE_TIMES.sub("<t>", ln) for ln in cpu_run["examples"][name]["lines"]]
+        print(f"examples: {name} on {card}: {len(lines)} lines in {got['seconds']:.1f} s, "
+              f"equal to the CPU run's once times are masked; {got['lines'][0][:100]}")
+        check(lines == want, f"{name}: the card's lines equal the CPU's")
+    launches = card_run["launches"]
+    missing = [k for k in EXAMPLE_KERNELS if launches.get(k, 0) == 0]
+    check(not missing, f"the examples launched every kernel of their path (missing {missing})")
+    print(f"examples: one process on {card}, beside the ranks: "
+          f"{sum(e['seconds'] for e in card_run['examples'].values()):.1f} s in the "
+          f"examples, launches {launches}")
+    print(f"moe: phase 14 took {time.perf_counter() - t0:.1f} s ({card})")
+    return {"launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script checks the port on a GPU",
@@ -4437,6 +4864,17 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    corpora = CorpusProcess()                           # beside the build
+    try:
+        return build_and_run(dev, card, corpora)
+    finally:
+        if corpora.proc.poll() is None:
+            corpora.proc.kill()
+            corpora.proc.wait()
+
+
+def build_and_run(dev, card: str, corpora: CorpusProcess) -> int:
+    """Phase 1, then the rest."""
     probe_lib = kbuild.BUILD_ROOT.parent / "probe" / "liblatency_probe.so"
     probe_nvcc = start_nvcc(PROBE_SRC, probe_lib)      # beside the kernels' builds
     kbuild.entries()                                    # phase 1
@@ -4455,13 +4893,18 @@ def main() -> int:
           f"at [{1 << 20}, {SIGMA}] (its module loaded by build.entries())")
     del x
 
+    return run_phases(dev, card, probe_nvcc, probe_lib, corpora)
+
+
+def run_phases(dev, card: str, probe_nvcc, probe_lib: Path, corpora: CorpusProcess) -> int:
+    """Phases 2-14, in their order, then the last lines."""
     t_start = time.perf_counter()
 
     def done(phase: str) -> None:
         print(f"time: {phase} done at {time.perf_counter() - t_start:.1f} s")
     phase_oracle(dev)                                   # phase 2
     done("phase 2 (oracle)")
-    main_run = phase_main_path(dev)                     # phase 3
+    main_run = phase_main_path(dev, corpora=corpora)    # phase 3
     missing = [k for k in MAIN_KERNELS if main_run["launches"].get(k, 0) == 0]
     check(not missing, f"main path launched every kernel (missing {missing})")
     done("phase 3 (main path)")
@@ -4475,7 +4918,7 @@ def main() -> int:
     check(not missing, f"streaming path launched every kernel (missing {missing})")
     done("phase 5 (streaming)")
     torch.cuda.empty_cache()
-    ext = phase_extensions(dev, main_run)               # phase 7
+    ext = phase_extensions(dev, main_run, corpora)      # phase 7
     missing = [k for k in EXT_KERNELS if ext["launches"].get(k, 0) == 0]
     check(not missing, f"the extensions launched every kernel of their path (missing {missing})")
     done("phase 7 (extensions)")
@@ -4484,7 +4927,8 @@ def main() -> int:
                                       finish_nvcc(probe_nvcc, probe_lib))
     done("phase 4 (kernels)")
     torch.cuda.empty_cache()
-    wave = phase_waves(dev, main_run, stream)           # phase 8
+    wave = phase_waves(dev, main_run, stream, corpora)  # phase 8
+    corpora.close()
     missing = [k for k in KERNELS if wave["launches"].get(k, 0) == 0]
     check(not missing, f"the wave path launched every kernel (missing {missing})")
     done("phase 8 (waves)")
@@ -4518,6 +4962,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_recsys_gnn(dev, card)                         # phase 13
     done("phase 13 (recsys, gnn)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ex = phase_moe_examples(dev, card)                  # phase 14
+    done("phase 14 (moe, examples)")
+    for row in rows:
+        row["launches_by_path"]["examples"] = ex["launches"].get(row["name"], 0)
 
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -4530,6 +4980,12 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--train-child"]:      # phase 12's recovery process
         train_child(sys.argv[2])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--examples-child"]:   # phase 14's examples
+        examples_child(sys.argv[2], sys.argv[3])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--corpus-child"]:     # phase 7's and 8's corpora
+        corpus_child(sys.argv[2])
         sys.exit(0)
     if sys.argv[1:2] == ["--graph-child"]:      # phase 13's host graphs
         graph_child(sys.argv[2], sys.argv[3])

@@ -125,6 +125,15 @@ class NGramIndex:
             self.section_start, self.fanout, self.cont_prefix, self.cont_last,
             self.cont_counts, self.cont_fanout, self.cont_cumsum))
 
+    @property
+    def nbytes_uint32(self) -> int:
+        """Bytes of ``repro``'s layout of the same arrays (``repro``'s
+        ``nbytes``): every element 4 bytes, lanes and counts uint32."""
+        return 4 * sum(t.numel() for t in (
+            self.segment.keys, self.segment.counts, self.section_start, self.fanout,
+            self.cont_prefix, self.cont_last, self.cont_counts, self.cont_fanout,
+            self.cont_cumsum))
+
     def to_segment(self) -> IndexSegment:
         """The point-view segment (shared tensors, no copy)."""
         return self.segment

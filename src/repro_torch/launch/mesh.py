@@ -1,5 +1,5 @@
 """The rank model of the port's multi-device paths (port of the data-mesh
-parts of ``repro.launch.mesh``).
+and host-grid parts of ``repro.launch.mesh``).
 
 ``repro`` runs one controller over a ``jax.sharding.Mesh`` and lets
 ``shard_map`` place one program on each device.  The port runs one process a
@@ -8,6 +8,15 @@ with the same global inputs and a :class:`DataMesh`, takes its own row of
 the padded ``[P, n_local]`` split, and meets the other ranks only in the
 collectives below.  ``mesh is None or mesh.size == 1`` takes the
 single-device path, as in ``repro``.
+
+:func:`grid_mesh` lays the ranks of a world mesh out as a (data, model)
+grid, ``repro``'s ``make_host_mesh(model)``: a :class:`GridMesh` whose
+``data`` and ``model`` views are :class:`DataMesh` es over the rank's column
+and row.  :class:`SumOverRanks` and :class:`Replicated` are the autograd
+functions that give every rank the gradient of the global value, as
+``jax.grad`` takes it through ``shard_map``: a ``psum`` (backward: each
+part takes the whole gradient) and an input replicated over a group
+(backward: the gradient summed over it).
 
 The backend is chosen once, by a stated rule (:func:`pick_backend`), and
 never by trying one and dropping to another:
@@ -44,7 +53,8 @@ import torch.distributed as dist
 
 from repro_torch import resolve_device
 
-__all__ = ["DataMesh", "pick_backend", "rank_device", "spawn_ranks", "mesh_size"]
+__all__ = ["DataMesh", "GridMesh", "Replicated", "SumOverRanks", "axis_view",
+           "grid_mesh", "mesh_size", "pick_backend", "rank_device", "spawn_ranks"]
 
 #: how long a rank waits in a collective for the others before it fails
 COLLECTIVE_TIMEOUT = datetime.timedelta(minutes=10)
@@ -241,6 +251,110 @@ class DataMesh:
 def mesh_size(mesh) -> int:
     """Devices in ``mesh`` (1 for None)."""
     return 1 if mesh is None else int(mesh.size)
+
+
+# ------------------------------------------------------------------- grid
+@dataclasses.dataclass(eq=False)
+class GridMesh:
+    """One rank's view of a (data, model) grid of ranks.
+
+    World rank r sits at (r // model, r % model).  ``model`` is a
+    :class:`DataMesh` over the rank's row (the ranks of its data index),
+    ``data`` one over its column (the ranks of its model index); ``world``
+    is the whole grid.  ``shape`` and ``size`` read as a two-axis
+    ``jax.sharding.Mesh``'s do.
+    """
+
+    world: DataMesh
+    data: DataMesh
+    model: DataMesh
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return {"data": self.data.size, "model": self.model.size}
+
+    @property
+    def size(self) -> int:
+        return self.world.size
+
+    @property
+    def rank(self) -> int:
+        return self.world.rank
+
+    @property
+    def device(self) -> torch.device:
+        return self.world.device
+
+    @property
+    def comm_bytes(self) -> int:
+        """Bytes this rank sent, over the three groups."""
+        return self.world.comm_bytes + self.data.comm_bytes + self.model.comm_bytes
+
+    @property
+    def comm_seconds(self) -> float:
+        return self.world.comm_seconds + self.data.comm_seconds + self.model.comm_seconds
+
+
+def grid_mesh(world: DataMesh, model: int = 1):
+    """``world`` (a mesh over the default group) as a (data, model) grid of
+    ``world.size // model`` rows of ``model`` ranks: one ``dist.new_group``
+    a row, then one a column, made in that order on every rank, as
+    ``new_group`` requires.  With ``model == 1`` or a ``model`` that does not
+    divide the ranks it is ``world`` itself, the 1-D data mesh, as
+    ``repro``'s ``make_host_mesh`` falls back."""
+    n = world.size
+    if model <= 1 or n % model:
+        return world
+    if world.group is not None:
+        raise ValueError("grid_mesh lays out the default group's ranks")
+    rows = n // model
+    i, m = divmod(world.rank, model)
+    groups = [dist.new_group(list(range(r * model, (r + 1) * model))) for r in range(rows)]
+    groups += [dist.new_group(list(range(c, n, model))) for c in range(model)]
+
+    def view(size: int, rank: int, group, axis: str) -> DataMesh:
+        return DataMesh(rank=rank, size=size, device=world.device, backend=world.backend,
+                        group=group, axis_name=axis)
+    return GridMesh(world, data=view(rows, i, groups[rows + m], "data"),
+                    model=view(model, m, groups[i], "model"))
+
+
+def axis_view(mesh, name: str):
+    """The :class:`DataMesh` of ``mesh``'s axis ``name``: a grid's ``data``
+    or ``model`` view, a 1-D mesh of that axis itself, or None where
+    ``mesh`` has no such axis (one rank along it)."""
+    if isinstance(mesh, GridMesh):
+        return getattr(mesh, name)
+    return mesh if mesh is not None and mesh.axis_name == name else None
+
+
+class SumOverRanks(torch.autograd.Function):
+    """The all-reduced sum over ``mesh``'s group of a value each rank holds a
+    part of (``psum``).  Backward: each rank's part takes the whole
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        return mesh.all_reduce(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class Replicated(torch.autograd.Function):
+    """A value every rank of ``mesh``'s group holds whole, each using it on
+    its own part of the work.  Backward: the gradient summed over the group
+    (``shard_map``'s transpose of an input replicated over those axes)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g), None
 
 
 # --------------------------------------------------------------- launcher

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch.launch.mesh import Replicated, SumOverRanks
 from repro_torch.training.tree import TreeModule, map_leaves, tree_to_numpy
 
 # edges a chunk of message passing gathers at once: its [chunk, F] float32
@@ -256,33 +257,6 @@ class _GatherPropagate(torch.autograd.Function):
         return g_h.to(comm_dtype).to(h_dtype), None, None, None, None, None, None
 
 
-class _SumOverRanks(torch.autograd.Function):
-    """The all-reduced sum of a value each rank holds a part of.  Backward:
-    each rank's part takes the whole gradient."""
-
-    @staticmethod
-    def forward(ctx, t, mesh):
-        return mesh.all_reduce(t)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-class _Replicated(torch.autograd.Function):
-    """A parameter every rank holds whole.  Backward: the gradient summed
-    over the ranks (``shard_map``'s transpose of a replicated input)."""
-
-    @staticmethod
-    def forward(ctx, t, mesh):
-        ctx.mesh = mesh
-        return t.view_as(t)
-
-    @staticmethod
-    def backward(ctx, g):
-        return ctx.mesh.all_reduce(g), None
-
-
 def loss_fn_dst_partitioned(params, batch, cfg: GINConfig, mesh):
     """Distributed message passing with dst-partitioned edges.
 
@@ -301,7 +275,7 @@ def loss_fn_dst_partitioned(params, batch, cfg: GINConfig, mesh):
     def local(key, rows):
         return torch.as_tensor(batch[key], device=dev)[r * rows:(r + 1) * rows]
 
-    params = map_leaves(lambda t: _Replicated.apply(t, mesh), params)
+    params = map_leaves(lambda t: Replicated.apply(t, mesh), params)
     h = local("features", n).to(cfg.dtype)
     src = local("edge_src", e).long()
     dst = local("edge_dst", e).long() - r * n
@@ -313,5 +287,5 @@ def loss_fn_dst_partitioned(params, batch, cfg: GINConfig, mesh):
     lmask = local("label_mask", n)
     count = mesh.all_reduce(lmask.sum().reshape(1))[0]
     part = torch.where(lmask, nll, 0.0).sum() / torch.clamp(count, min=1)
-    loss = _SumOverRanks.apply(part.reshape(1), mesh)[0]
+    loss = SumOverRanks.apply(part.reshape(1), mesh)[0]
     return loss, {"ce": loss}

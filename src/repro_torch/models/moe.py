@@ -1,5 +1,4 @@
-"""Mixture-of-Experts FFN, token-choice top-k (port of ``repro.models.moe``,
-the single-device path).
+"""Mixture-of-Experts FFN, token-choice top-k (port of ``repro.models.moe``).
 
 Two dispatches, which drop the same claims and compute the same function:
 
@@ -14,15 +13,24 @@ Two dispatches, which drop the same claims and compute the same function:
 
 Covers both MoE archs: mixtral-8x7b (8 experts, top-2) and deepseek-moe-16b
 (64 fine-grained routed experts, top-6, plus 2 shared experts).
-``repro``'s ``moe_ffn_sharded`` (expert parallelism over a mesh) is not
-ported yet: it comes with the multi-rank model path.
+
+:func:`moe_ffn_sharded` is ``repro``'s ``shard_map`` MoE on a (data, model)
+grid of ranks (``launch.mesh.grid_mesh``): each rank routes its data row's
+tokens, dispatches them by sort, runs its part of the experts (expert
+parallel, or every expert at ``d_ff / tp`` when the experts are fewer than
+the model ranks), and the partial outputs are summed over the model group.
+:func:`shard_moe_params` cuts a whole parameter tree to one rank's part.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.launch.mesh import Replicated, SumOverRanks, axis_view
 
 from .layers import swiglu
 
@@ -36,6 +44,11 @@ class MoEConfig:
     d_ff_shared: int = 0
     capacity_factor: float = 1.25
     dispatch: str = "einsum"      # einsum (GShard) | sort (bucketized)
+    # distributed execution (None = the single-device path): a GridMesh, or
+    # the 1-D data mesh grid_mesh falls back to
+    mesh: Any = None
+    dp_axes: Any = None           # the batch axis: "data", or None
+    tp_axis: str = "model"
 
     def capacity(self, tokens_per_group: int) -> int:
         """Slots an expert has: the fair share times the capacity factor,
@@ -119,6 +132,20 @@ def _dispatch_indices(t: int, ids, gates, cfg: MoEConfig, capacity: int):
     return slot_token[:-1], slot_gate[:-1]
 
 
+def _sorted_experts(xt, slot_token, slot_gate, params: dict, capacity: int):
+    """The experts of ``params`` (``wg``/``wu`` [E, d, f], ``wo`` [E, f, d])
+    on their ``[E * C]`` slots of the tokens ``xt`` [T, d]: gather, SwiGLU,
+    gate, and ``index_add_`` back to the tokens -> [T, d]."""
+    t, d = xt.shape
+    x_pad = torch.cat([xt, xt.new_zeros(1, d)])
+    expert_in = x_pad[slot_token].reshape(params["wg"].shape[0], capacity, d)
+    h = F.silu(torch.einsum("ecd,edf->ecf", expert_in, params["wg"]))
+    h = h * torch.einsum("ecd,edf->ecf", expert_in, params["wu"])
+    eo = torch.einsum("ecf,efd->ecd", h, params["wo"]).reshape(-1, d)
+    eo = eo * slot_gate[:, None]
+    return xt.new_zeros(t + 1, d).index_add_(0, slot_token, eo)[:t]
+
+
 def moe_ffn(x: torch.Tensor, params: dict, cfg: MoEConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, d] -> (y [B, S, d], aux_loss scalar).
 
@@ -140,13 +167,7 @@ def moe_ffn(x: torch.Tensor, params: dict, cfg: MoEConfig) -> tuple[torch.Tensor
         y = torch.einsum("tec,ecd->td", combine, eo)
     elif cfg.dispatch == "sort":
         slot_token, slot_gate = _dispatch_indices(t, ids, gates, cfg, capacity)
-        x_pad = torch.cat([xt, xt.new_zeros(1, d)])
-        expert_in = x_pad[slot_token].reshape(cfg.n_experts, capacity, d)
-        h = F.silu(torch.einsum("ecd,edf->ecf", expert_in, params["wg"]))
-        h = h * torch.einsum("ecd,edf->ecf", expert_in, params["wu"])
-        eo = torch.einsum("ecf,efd->ecd", h, params["wo"]).reshape(-1, d)
-        eo = eo * slot_gate[:, None]
-        y = xt.new_zeros(t + 1, d).index_add_(0, slot_token, eo)[:t]
+        y = _sorted_experts(xt, slot_token, slot_gate, params, capacity)
     else:
         raise ValueError(f"unknown MoE dispatch {cfg.dispatch!r}")
 
@@ -155,20 +176,125 @@ def moe_ffn(x: torch.Tensor, params: dict, cfg: MoEConfig) -> tuple[torch.Tensor
     return y.reshape(b, s, d), aux
 
 
+# ---------------------------------------------------------------- sharded
+def _tp(cfg: MoEConfig):
+    """(the model axis's mesh or None, its size, this rank's index on it)."""
+    tp = axis_view(cfg.mesh, cfg.tp_axis)
+    return (tp, tp.size, tp.rank) if tp is not None else (None, 1, 0)
+
+
+def expert_parallel(cfg: MoEConfig, tp_size: int) -> bool:
+    """``repro``'s layout rule: each model rank owns ``E / tp`` whole
+    experts when ``tp`` divides ``E`` (EP), else every rank holds every
+    expert at ``d_ff / tp`` (ffTP)."""
+    return cfg.n_experts % tp_size == 0
+
+
+def shard_leaf(name: str, leaf, cfg: MoEConfig, tp_size: int, tp_rank: int):
+    """Rank ``tp_rank``'s part of the MoE leaf ``name`` (a numpy array or a
+    tensor), by ``repro``'s ``w_specs`` and ``s_specs``: the router whole;
+    EP splits the experts' axis 0, ffTP ``wg``/``wu``'s axis 2 and ``wo``'s
+    axis 1; the shared ``sg``/``su`` axis 1 and ``so`` axis 0.  A copy, so a
+    whole leaf drawn only to be cut is freed."""
+    if name == "router" or tp_size == 1:
+        return leaf
+    if name in ("wg", "wu", "wo"):
+        axis = 0 if expert_parallel(cfg, tp_size) else (1 if name == "wo" else 2)
+    else:
+        axis = {"sg": 1, "su": 1, "so": 0}[name]
+    n, rem = divmod(leaf.shape[axis], tp_size)
+    if rem:
+        raise ValueError(f"{name} axis {axis} of {leaf.shape[axis]} does not split "
+                         f"over {tp_size} model ranks")
+    idx = [slice(None)] * leaf.ndim
+    idx[axis] = slice(tp_rank * n, (tp_rank + 1) * n)
+    part = leaf[tuple(idx)]
+    return part.copy() if isinstance(part, np.ndarray) else part.clone()
+
+
+def shard_moe_params(tree: dict, cfg: MoEConfig) -> dict:
+    """This rank's part of a whole MoE parameter tree (``repro``'s layout,
+    numpy arrays or tensors) on ``cfg.mesh``'s model axis."""
+    _, tp_size, tp_rank = _tp(cfg)
+    return {k: shard_leaf(k, v, cfg, tp_size, tp_rank) for k, v in tree.items()}
+
+
+def _data_axis(cfg: MoEConfig):
+    """The batch axis's mesh, or None; ``repro``'s ``dp_axes`` "data" or
+    None (then the grid must have one row: the port splits no other way)."""
+    dp = axis_view(cfg.mesh, "data")
+    if cfg.dp_axes in ("data", ("data",)):
+        return dp
+    if cfg.dp_axes is None and (dp is None or dp.size == 1):
+        return None
+    raise ValueError(f"dp_axes {cfg.dp_axes!r}: the port's grids split the batch "
+                     "over 'data'")
+
+
+def moe_ffn_sharded(x: torch.Tensor, params: dict, cfg: MoEConfig
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``repro``'s ``moe_ffn_sharded`` on this rank of ``cfg.mesh``.
+
+    ``x`` [B_local, S, d] is this rank's data row's block of the batch (the
+    block ``shard_map`` hands it); ``params`` is this rank's part
+    (:func:`shard_moe_params`).  The rank routes its row's T tokens, sizes
+    the capacity on T, dispatches by sort, keeps the slots of its own
+    ``E / tp`` experts (EP) or all of them (ffTP), runs its experts and its
+    slice of the shared experts, and the partial outputs are all-reduced
+    over the model group (``psum``).  The aux loss is averaged over every
+    rank of the grid (``pmean``).  Returns (y [B_local, S, d], aux).
+
+    Gradients: ``x`` is replicated over the model group and the router over
+    the grid, the expert and shared slices over the data group, so each
+    rank's ``torch.autograd.grad`` gives the gradient of the global
+    function in its own part, as ``jax.grad`` through ``shard_map`` does.
+    """
+    mesh = cfg.mesh
+    world = getattr(mesh, "world", mesh)
+    tp, tp_size, m = _tp(cfg)
+    dp = _data_axis(cfg)
+    ep = expert_parallel(cfg, tp_size)
+    e_local = cfg.n_experts // tp_size if ep else cfg.n_experts
+    b, s, d = x.shape
+    if tp is not None:
+        x = Replicated.apply(x, tp)
+    router = Replicated.apply(params["router"], world)
+    w = {k: Replicated.apply(v, dp) if dp is not None else v
+         for k, v in params.items() if k != "router"}
+    xt = x.reshape(b * s, d)
+    t = xt.shape[0]
+    capacity = cfg.capacity(t)
+    ids, gates, logits = router_topk(xt, router, cfg)
+    aux = load_balance_loss(logits, ids, cfg.n_experts)
+    slot_token, slot_gate = _dispatch_indices(t, ids, gates, cfg, capacity)
+    if ep:                      # this rank gathers only its own experts' tokens
+        lo = m * e_local * capacity
+        slot_token = slot_token[lo:lo + e_local * capacity]
+        slot_gate = slot_gate[lo:lo + e_local * capacity]
+    y = _sorted_experts(xt, slot_token, slot_gate, w, capacity)
+    if cfg.n_shared:
+        y = y + swiglu(xt, w["sg"], w["su"], w["so"])      # d_ff_shared split over tp
+    if tp is not None:
+        y = SumOverRanks.apply(y, tp)
+    aux = SumOverRanks.apply(aux.reshape(1), world)[0] / world.size
+    return y.reshape(b, s, d), aux
+
+
 def init_moe_params(d_model: int, cfg: MoEConfig, dtype, normal) -> dict:
     """``repro``'s parameter layout and scales; ``normal(shape, dtype)`` draws
-    standard normal values."""
+    standard normal values.  With ``cfg.mesh`` set, each leaf is drawn whole
+    (the draws stay the single-device model's) and cut to this rank's part
+    at once, so one whole leaf at most is held at a time."""
+    _, tp_size, tp_rank = _tp(cfg)
     scale = d_model ** -0.5
     e, ff = cfg.n_experts, cfg.d_ff_expert
-    p = {
-        "router": normal((d_model, e), torch.float32).mul_(scale),
-        "wg": normal((e, d_model, ff), dtype).mul_(scale),
-        "wu": normal((e, d_model, ff), dtype).mul_(scale),
-        "wo": normal((e, ff, d_model), dtype).mul_(ff ** -0.5),
-    }
+    shapes = {"router": ((d_model, e), torch.float32, scale),
+              "wg": ((e, d_model, ff), dtype, scale),
+              "wu": ((e, d_model, ff), dtype, scale),
+              "wo": ((e, ff, d_model), dtype, ff ** -0.5)}
     if cfg.n_shared:
         ffs = cfg.d_ff_shared_total
-        p["sg"] = normal((d_model, ffs), dtype).mul_(scale)
-        p["su"] = normal((d_model, ffs), dtype).mul_(scale)
-        p["so"] = normal((ffs, d_model), dtype).mul_(ffs ** -0.5)
-    return p
+        shapes.update(sg=((d_model, ffs), dtype, scale), su=((d_model, ffs), dtype, scale),
+                      so=((ffs, d_model), dtype, ffs ** -0.5))
+    return {k: shard_leaf(k, normal(shape, dt).mul_(sc), cfg, tp_size, tp_rank)
+            for k, (shape, dt, sc) in shapes.items()}

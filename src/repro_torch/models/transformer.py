@@ -30,6 +30,19 @@ backward, as ``jax.checkpoint(body)`` does in ``repro``.
 layer leaf a :class:`~repro_torch.training.tree.Stacked` of the layers'
 tensors, and :func:`params_to_numpy` that tree stacked ``[L, ...]``.
 
+On a grid of ranks.  With ``cfg.moe.mesh`` set (a
+``launch.mesh.GridMesh``, as ``repro``'s cell builder sets it), each MoE
+layer runs ``moe.moe_ffn_sharded``, and :func:`init_params` and
+:func:`params_from_numpy` keep only this rank's part of each expert leaf.
+Every rank calls :func:`forward` and :func:`loss_fn` with the same global
+batch and takes its data row's block of it; everything but the MoE FFN is
+held whole on every rank, and the ranks of a row compute it alike.  The
+loss is the mean of the rows' losses (equal token counts), and a hook on
+each of those replicated parameters sums its gradient over the data group,
+so every rank's gradient is the global loss's.  (``repro``'s cell builder
+also splits attention over the model axis: a layout of one compiled
+program, not another result.)
+
 Not ported: ``repro``'s ``shard_activations`` / ``_constrain`` (sharding
 annotations for a TPU mesh, which compute nothing) and its
 ``sub_quadratic`` property, which sits after a ``return`` in ``_constrain``
@@ -47,11 +60,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.launch.mesh import SumOverRanks, axis_view
 from repro_torch.training.tree import Stacked
 
 from .layers import (NEG_INF, apply_rope, cross_entropy_loss, decode_attention,
                      gqa_attention, rms_norm, swiglu)
-from .moe import MoEConfig, init_moe_params, moe_ffn
+from .moe import MoEConfig, init_moe_params, moe_ffn, moe_ffn_sharded, shard_moe_params
 
 
 @dataclass(frozen=True)
@@ -227,7 +241,9 @@ class FeedForward(nn.Module):
 
 
 class MoE(nn.Module):
-    """Token-choice top-k experts (``moe.moe_ffn``) and their parameters."""
+    """Token-choice top-k experts (``moe.moe_ffn``, or ``moe_ffn_sharded``
+    when ``cfg.mesh`` is set) and their parameters (this rank's part, on a
+    mesh)."""
 
     def __init__(self, cfg: MoEConfig, p: dict):
         super().__init__()
@@ -235,7 +251,8 @@ class MoE(nn.Module):
         _adopt(self, p)
 
     def forward(self, x):
-        return moe_ffn(x, dict(self.named_parameters()), self.cfg)
+        ffn = moe_ffn if self.cfg.mesh is None else moe_ffn_sharded
+        return ffn(x, dict(self.named_parameters()), self.cfg)
 
 
 class Block(nn.Module):
@@ -310,7 +327,9 @@ def init_params(cfg: LMConfig, device=None,
                 generator: torch.Generator | None = None) -> Transformer:
     """A model with ``repro``'s parameter shapes and scales, drawn from
     ``generator`` (seed 0 on the device if none is given) straight on the
-    device: the card unless ``device`` says otherwise."""
+    device: the card unless ``device`` says otherwise.  With
+    ``cfg.moe.mesh`` set, the draws are the single-device model's and each
+    MoE leaf keeps this rank's part (``moe.init_moe_params``)."""
     dev = resolve_device(device)
     g = generator
     if g is None and dev.type != "meta":      # meta tensors draw nothing
@@ -332,7 +351,8 @@ def params_from_numpy(tree: dict, cfg: LMConfig, device=None) -> Transformer:
     """``repro``'s parameter pytree as numpy arrays (layers stacked
     ``[L, ...]``, MoE experts ``[E, ...]``) -> the port's model on
     ``device`` (the card unless told otherwise), computing the same function.
-    The router stays float32; every other weight takes ``cfg.dtype``."""
+    The router stays float32; every other weight takes ``cfg.dtype``.  With
+    ``cfg.moe.mesh`` set, each MoE leaf is cut to this rank's part."""
     dev = resolve_device(device)
 
     def tensor(a, dtype=cfg.dtype):
@@ -342,8 +362,11 @@ def params_from_numpy(tree: dict, cfg: LMConfig, device=None) -> Transformer:
     layers = []
     for i in range(cfg.n_layers):
         p = {k: tensor(v[i]) for k, v in stacked.items() if k != "ffn"}
-        p["ffn"] = {k: tensor(v[i], torch.float32 if k == "router" else cfg.dtype)
-                    for k, v in stacked["ffn"].items()}
+        ffn = {k: v[i] for k, v in stacked["ffn"].items()}
+        if cfg.moe is not None and cfg.moe.mesh is not None:
+            ffn = shard_moe_params(ffn, cfg.moe)
+        p["ffn"] = {k: tensor(v, torch.float32 if k == "router" else cfg.dtype)
+                    for k, v in ffn.items()}
         layers.append(p)
     return Transformer(cfg, embed=tensor(tree["embed"]), layers=layers,
                        final_norm=tensor(tree["final_norm"]),
@@ -387,10 +410,47 @@ def params_to_numpy(model: Transformer) -> dict:
 
 
 # ---------------------------------------------------------------------- forward
+def _rows(cfg: LMConfig):
+    """The data axis's mesh of the MoE grid, or None off a grid."""
+    if cfg.moe is None or cfg.moe.mesh is None:
+        return None
+    return axis_view(cfg.moe.mesh, "data")
+
+
+def row_block(cfg: LMConfig, t: torch.Tensor) -> torch.Tensor:
+    """This rank's data row's block of a global batch ``t`` [B, ...] (all of
+    it off a grid); B must divide over the rows."""
+    dp = _rows(cfg)
+    if dp is None:
+        return t
+    b, rem = divmod(t.shape[0], dp.size)
+    if rem:
+        raise ValueError(f"a batch of {t.shape[0]} does not split over {dp.size} data rows")
+    return t[dp.rank * b:(dp.rank + 1) * b]
+
+
+def _sum_grads_over_rows(model: Transformer, dp) -> None:
+    """Hooks that sum the gradient of each parameter outside the MoE FFN over
+    the data group, once a parameter requires grad: the ranks of a row
+    compute those alike, each on its row's tokens."""
+    hooked = model.__dict__.setdefault("_row_hooked", set())
+    for name, p in model.named_parameters():
+        if p.requires_grad and ".ffn." not in name and name not in hooked:
+            p.register_hook(dp.all_reduce)
+            hooked.add(name)
+
+
 def forward(model: Transformer, tokens: torch.Tensor, collect_cache: bool = False):
     """tokens [B, S] -> (x_final [B, S, d], aux_loss, cache or None); the
-    cache stacks each layer's ``[B, S, ...]`` entries to ``[L, B, S, ...]``."""
+    cache stacks each layer's ``[B, S, ...]`` entries to ``[L, B, S, ...]``.
+    On a grid (``cfg.moe.mesh``) ``tokens`` is the global batch and the
+    outputs are this rank's data row's block of it."""
     cfg = model.cfg
+    dp = _rows(cfg)
+    if dp is not None:
+        tokens = row_block(cfg, tokens)
+        if torch.is_grad_enabled() and dp.size > 1:
+            _sum_grads_over_rows(model, dp)
     s = tokens.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=model.device)
     x = model.embed[tokens.to(model.device)].to(cfg.dtype)
@@ -413,11 +473,16 @@ def forward(model: Transformer, tokens: torch.Tensor, collect_cache: bool = Fals
 def loss_fn(model: Transformer, batch: dict):
     """``repro``'s training loss: chunked cross entropy plus the weighted MoE
     auxiliary loss -> (loss, {"ce", "aux"}).  Differentiable in the model's
-    parameters once they require grad."""
+    parameters once they require grad.  On a grid, the cross entropy is the
+    mean of the data rows' (each computed on its row), the aux the grid's
+    ``pmean``: the global batch's loss on every rank."""
     cfg = model.cfg
     x, aux, _ = forward(model, batch["tokens"])
-    ce = cross_entropy_loss(x, model.lm_head, batch["labels"].to(model.device),
-                            cfg.loss_chunks)
+    labels = row_block(cfg, batch["labels"]).to(model.device)
+    ce = cross_entropy_loss(x, model.lm_head, labels, cfg.loss_chunks)
+    dp = _rows(cfg)
+    if dp is not None and dp.size > 1:
+        ce = SumOverRanks.apply(ce.reshape(1), dp)[0] / dp.size
     return ce + cfg.aux_loss_weight * aux, {"ce": ce, "aux": aux}
 
 

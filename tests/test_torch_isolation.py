@@ -395,3 +395,50 @@ def test_recsys_and_gnn_entry_points_refuse_cpu_without_a_device(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert gnn.init_params(gin, "cpu").device.type == "cpu"
+
+
+def test_examples_and_the_grid_run_without_jax_or_repro(tmp_path):
+    """Every example imports, and three of them run, with ``jax`` blocked by a
+    package on the path that fails to import; so does the sharded MoE on a
+    2 x 2 grid of 4 gloo ranks, each a fresh process."""
+    (tmp_path / "jax").mkdir()
+    (tmp_path / "jax" / "__init__.py").write_text(
+        "raise ImportError('jax is blocked here')\n")
+    env = dict(os.environ, PYTHONPATH=f"{tmp_path}{os.pathsep}{ROOT / 'src'}")
+    code = textwrap.dedent(f"""
+        import contextlib, importlib, io, sys
+        sys.path.insert(0, {str(ROOT / 'tests')!r})
+        import numpy as np, torch
+        from repro_torch.examples import NAMES
+        from repro_torch.launch.mesh import spawn_ranks
+        from repro_torch.models import moe
+        from torch_moe_ranks import grid_moe_rank, moe_cfg
+        mods = {{n: importlib.import_module('repro_torch.examples.' + n) for n in NAMES}}
+        for name in ('quickstart', 'query_serving', 'streaming_ingest'):
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                mods[name].main(['--device', 'cpu'])
+            assert len(out.getvalue().splitlines()) > 3, name
+        rng = np.random.default_rng(0)
+        params = {{k: v.numpy() for k, v in moe.init_moe_params(
+            8, moe_cfg(4, 2, 4.0), torch.float32,
+            lambda s, d: torch.from_numpy(rng.standard_normal(s).astype(np.float32))).items()}}
+        x = rng.standard_normal((2, 4, 8)).astype(np.float32)
+        out = spawn_ranks(4, grid_moe_rank, 2, (4, 2, 4.0), params, x, device='cpu')
+        assert [o['y'].shape for o in out] == [(1, 4, 8)] * 4
+        assert len({{o['aux'] for o in out}}) == 1
+    """) + NO_REPRO
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+
+
+@pytest.mark.parametrize("name", ["quickstart", "query_serving", "streaming_ingest",
+                                  "out_of_core", "text_analytics", "ngram_language_model"])
+def test_examples_refuse_cpu_without_a_device(monkeypatch, name):
+    """Without a card and without ``--device cpu`` each example raises
+    before it does any work."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main([])
