@@ -284,6 +284,27 @@ line):
                  ``moe:`` and ``examples:`` lines (ms a step sharded and on
                  one device, bytes a rank sent, collective seconds, peak a
                  rank, dropped claims).
+  15. dryrun  -- the dry run, last.  (a) ``python -m
+                 repro_torch.launch.dryrun --all --include-ngram``, one
+                 process a layout (16x16, 2x16x16), started with the script
+                 beside everything else (records and logs in
+                 ``build/phase15``): one line a cell (bottleneck, step ms,
+                 roofline fraction, argument + temp GiB a device against
+                 80 GiB); 86 records, 0 failed, the 8 documented skips.
+                 (b) Phase 12's llama3.2-1b step (batch 8 x 128), phase
+                 13's BST train_batch and GIN at Cora, each a cell on a
+                 (1, 1) layout, traced and then run for real on the card:
+                 the traced argument bytes equal the real tensors' and the
+                 traced FLOPs equal ``FlopCounterMode`` on the real step,
+                 exactly; the traced peak within 0.5-2x of that run's
+                 ``max_memory_allocated`` and of the peak phase 12 or 13
+                 read of the port's own step (BST's where phase 13 ran it
+                 at train_batch).  (c) nyt_lm's job as rank 0 of 256 on the
+                 fake group for real on the card (4,099,384 tokens, vocab
+                 345,827, sigma 5): the main path's three kernels launch
+                 (the ``dryrun`` path of the kernels line), its peak beside
+                 the dry run's; the fake exchange returns shapes, not
+                 answers, so no answer is checked.  ``dryrun:`` lines.
 
 Phase 3's corpus, phase 7's corpus with years and phase 8's 2**27-term
 corpus are made by a process of their own (``--corpus-child``, log in
@@ -332,6 +353,11 @@ from repro_torch.index import query as index_query  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.launch.mesh import grid_mesh, spawn_ranks  # noqa: E402
+from repro_torch.launch.mesh import (HBM_BW, HBM_PER_CHIP, PEAK_FLOPS_BF16,  # noqa: E402
+                                     PEAK_FLOPS_F32, fake_mesh, mesh_axes)
+from repro_torch.launch import dryrun, regions  # noqa: E402
+from repro_torch.configs import base as cell_base  # noqa: E402
+from repro_torch.configs import paper as paper_configs  # noqa: E402
 from repro_torch.mapreduce import pack  # noqa: E402
 from repro_torch.obs import trace  # noqa: E402
 from repro_torch.pipeline import WaveExecutor, plan_for, stages  # noqa: E402
@@ -358,11 +384,11 @@ from repro_torch.data import graph  # noqa: E402
 from repro_torch.data import recsys as recsys_data  # noqa: E402
 from repro_torch.models import gnn, recsys  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bandwidth, and
-# the 32-bit non-tensor rate, the table's figure for the scalar integer work
-# these kernels do
-HBM_BYTES_PER_S = 3.35e12
-SCALAR_OPS_PER_S = 67e12
+# H100 SXM peaks, from the one hardware model (launch/mesh.py: NVIDIA data
+# sheet, at the 700 W limit): HBM bandwidth, and the 32-bit non-tensor rate,
+# the table's figure for the scalar integer work these kernels do
+HBM_BYTES_PER_S = HBM_BW
+SCALAR_OPS_PER_S = PEAK_FLOPS_F32
 
 MAIN_TERMS = 1 << 25
 SIGMA, TAU = 5, 10
@@ -421,8 +447,8 @@ LM_WARM = 3
 #: (a) reduced configs in float32, card against the CPU: prefill 2x12, 6 steps
 LM_SMALL_PROMPT, LM_SMALL_STEPS = 12, 6
 LM_F32_TOL = 1e-4
-#: H100 SXM dense bf16 peak (NVIDIA data sheet, at 700 W)
-BF16_FLOPS_PER_S = 989e12
+#: H100 SXM dense bf16 peak (launch/mesh.py's hardware model)
+BF16_FLOPS_PER_S = PEAK_FLOPS_BF16
 #: (b, c) a decode step's logits against a prefill of the same tokens, in
 #: bf16: max abs error and rms error over the prefill's rms (PERF.md section
 #: 6 gives the sound readings and the planted fault's that each sits between)
@@ -452,14 +478,24 @@ RG_CHECK_BATCH = 512
 RG_F32_TOL = 1e-4
 #: (c) warm runs after the cold one; their median is reported
 RG_WARM = 3
-#: H100 SXM dense float32 peak without tensor cores (NVIDIA data sheet, at
-#: 700 W); TF32 stays off
-F32_FLOPS_PER_S = 67e12
+#: H100 SXM dense float32 peak without tensor cores (launch/mesh.py's
+#: hardware model); TF32 stays off
+F32_FLOPS_PER_S = PEAK_FLOPS_F32
 #: (d) GIN's dst-partitioned loss: gloo ranks sharing the card at
 #: full_graph_sm; its loss against the one-device loss_fn's
 RG_GLOO_RANKS = 4
 RG_DIST_LOSS_TOL = 1e-5
 PHASE13_DIR = Path(__file__).resolve().parent / "build" / "phase13"
+#: phase 15: the dry run's records and logs, the two processes (one a
+#: layout) that write them, and the cells they must give
+PHASE15_DIR = Path(__file__).resolve().parent / "build" / "phase15"
+DRYRUN_MESHES = ("single", "multi")
+DRYRUN_CELLS, DRYRUN_SKIPS = 86, 8
+#: (b) a dry run's peak over the card's for the same step, within this band
+DRYRUN_PEAK_BAND = (0.5, 2.0)
+#: (c) the paper's NYT cell, rank 0 of 256: its row of tokens and its job
+NYT = paper_configs.SHAPES["nyt_lm"].dims
+NYT_RANKS = 256
 
 
 def check(cond: bool, what: str) -> None:
@@ -3966,7 +4002,7 @@ def phase_train(dev, card: str) -> dict:
           f"ms ({det / warm:.3f}x); first step's gradients bit-equal with and without "
           f"remat")
     print(f"train: phase 12 took {time.perf_counter() - t0:.1f} s")
-    return {"warm_s": warm, "rec": rec}
+    return {"warm_s": warm, "rec": rec, "peak": on["peak"]}
 
 
 # ------------------------------------------------------------------ phase 13
@@ -4171,10 +4207,11 @@ def recsys_flops(arch: str, cfg, batch: int) -> float:
     return two_tower_configs._flops(cfg, batch)
 
 
-def recsys_timed(dev, models: dict, card: str) -> None:
+def recsys_timed(dev, models: dict, card: str) -> dict:
     """(c) The recsys archs on the card: a train step at train_batch (or the
     largest power of two below it that fits), serve_p99 and, for two-tower
-    and BST, retrieval_cand."""
+    and BST, retrieval_cand.  Each arch's train step: its batch and peak."""
+    steps = {}
     for arch in RG_TIMED_ORDER:
         model = models.pop(arch).requires_grad_(False)
         cfg = model.cfg
@@ -4231,14 +4268,17 @@ def recsys_timed(dev, models: dict, card: str) -> None:
               f"GFLOP a step, 3x the config's _flops), peak {r['peak'] / 2**30:.2f} GiB, "
               f"loss {r['loss']:.4f}; {line}")
         check(np.isfinite(r["loss"]), f"{arch}: the train step's loss is finite")
+        steps[arch] = r
         del model
         gc.collect()
         torch.cuda.empty_cache()
+    return steps
 
 
 def gin_timed(dev, name: str, batch: dict, n_edges: int, card: str,
-              note: str = "") -> None:
-    """(c) A warm GIN train step of ``repro``'s build_cell model at ``name``."""
+              note: str = "") -> int:
+    """(c) A warm GIN train step of ``repro``'s build_cell model at ``name``;
+    its peak bytes."""
     shape = gin_tu.SHAPES[name]
     cfg = gin_tu.cell_config(shape)
     model = gnn.init_params(cfg, dev, torch.Generator(dev).manual_seed(0)).requires_grad_(True)
@@ -4251,15 +4291,17 @@ def gin_timed(dev, name: str, batch: dict, n_edges: int, card: str,
     loss = float(run()["loss"])
     fl = gin_tu.model_flops(shape)
     n_nodes = batch["features"].shape[0]
+    peak = device_peak()
     print(f"gnn: gin-tu {name} on {card} ({n_nodes:,} nodes, {n_edges:,} edges, d_feat "
           f"{cfg.d_feat}, bf16 on the wire{note}): train step {warm * 1e3:.2f} ms warm "
           f"(median of {RG_WARM}; first {cold * 1e3:.1f} ms), {n_edges / warm:.3e} edges/s, "
           f"{fl / warm / F32_FLOPS_PER_S:.4f} of the f32 peak ({fl / 1e9:.2f} GFLOP a step, "
-          f"model_flops), peak {device_peak() / 2**30:.2f} GiB, loss {loss:.4f}")
+          f"model_flops), peak {peak / 2**30:.2f} GiB, loss {loss:.4f}")
     check(np.isfinite(loss), f"gin-tu {name}: the train step's loss is finite")
     del model, run, state, b
     gc.collect()
     torch.cuda.empty_cache()
+    return peak
 
 
 def save_npz(path: Path, **arrays) -> None:
@@ -4454,8 +4496,9 @@ def dst_partitioned_on_card(dev, card: str, ogb_path: Path) -> None:
     cora_path.unlink()
 
 
-def phase_recsys_gnn(dev, card: str) -> None:
-    """Phase 13: recsys and GNN (see the module docstring)."""
+def phase_recsys_gnn(dev, card: str) -> dict:
+    """Phase 13: recsys and GNN (see the module docstring).  The peaks of
+    BST's train step and GIN's on Cora, for phase 15 (b)."""
     t0 = time.perf_counter()
     PHASE13_DIR.mkdir(parents=True, exist_ok=True)
     for f in PHASE13_DIR.glob("*.npz"):
@@ -4469,12 +4512,13 @@ def phase_recsys_gnn(dev, card: str) -> None:
                  str(PHASE13_DIR), name], stdout=f, stderr=subprocess.STDOUT)
     saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    peaks = {}
     try:
         reduced_recsys_gnn_on_card(dev)
         print(f"recsys: (a) took {time.perf_counter() - t0:.1f} s")
         models = full_width_on_card(dev)
         print(f"recsys: (b) done at {time.perf_counter() - t0:.1f} s")
-        recsys_timed(dev, models, card)
+        steps = recsys_timed(dev, models, card)
         print(f"recsys: (c) done at {time.perf_counter() - t0:.1f} s")
         for name in ("full_graph_sm", "molecule"):
             d = gin_tu.SHAPES[name].dims
@@ -4484,7 +4528,7 @@ def phase_recsys_gnn(dev, card: str) -> None:
             else:
                 g = graph.random_graph(d["n_nodes"], d["n_edges"], d["d_feat"],
                                        d["n_classes"], seed=0)
-            gin_timed(dev, name, graph_batch(g), g.n_edges, card)
+            peaks[name] = gin_timed(dev, name, graph_batch(g), g.n_edges, card)
         ogb_path = PHASE13_DIR / "ogb_products.npz"
         st = wait_for(ogb_path, procs["ogb_products"], logs["ogb_products"])
         gin_timed(dev, "ogb_products", {"features": st["features"],
@@ -4523,6 +4567,10 @@ def phase_recsys_gnn(dev, card: str) -> None:
         for f in PHASE13_DIR.glob("*.npz"):
             f.unlink()
     print(f"recsys: phase 13 took {time.perf_counter() - t0:.1f} s")
+    bst = steps["bst"]
+    full = recsys_configs.SHAPES["train_batch"].dims["batch"]
+    return {"bst": bst["peak"] if bst["batch"] == full else None,
+            "gin": peaks["full_graph_sm"]}
 
 
 # ------------------------------------------------------------------ phase 14
@@ -4855,6 +4903,199 @@ def phase_moe_examples(dev, card: str) -> dict:
     return {"launches": launches}
 
 
+class DryRunProcesses:
+    """Phase 15 (a)'s ``python -m repro_torch.launch.dryrun --all
+    --include-ngram`` processes, one a layout (16x16, 2x16x16), started
+    at the top of the script: they trace on the card's fake tensors,
+    beside everything else, one CPU thread each."""
+
+    def __init__(self):
+        self.out = PHASE15_DIR / "records"
+        shutil.rmtree(self.out, ignore_errors=True)
+        self.out.mkdir(parents=True)
+        root = Path(__file__).resolve().parent
+        env = dict(os.environ, OMP_NUM_THREADS="1",
+                   PYTHONPATH=os.pathsep.join(
+                       [str(root / "src")] + os.environ.get("PYTHONPATH", "").split(
+                           os.pathsep)).rstrip(os.pathsep))
+        self.logs = {m: PHASE15_DIR / f"dryrun_{m}.log" for m in DRYRUN_MESHES}
+        self.procs = {}
+        for m in DRYRUN_MESHES:
+            with open(self.logs[m], "w") as f:
+                self.procs[m] = subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+                     "--include-ngram", "--mesh", m, "--out", str(self.out)],
+                    stdout=f, stderr=subprocess.STDOUT, env=env, cwd=root)
+        self.t0 = time.time()
+
+    def wait(self) -> list[dict]:
+        """Every record, once both processes have exited 0."""
+        t0 = time.perf_counter()
+        for m, proc in self.procs.items():
+            rc = proc.wait()
+            check(rc == 0, f"the {m} dry run exited 0 (it exited {rc}; log {self.logs[m]})")
+        # a process's log is last written as it ends
+        ends = ", ".join(f"{m} {self.logs[m].stat().st_mtime - self.t0:.1f} s"
+                         for m in DRYRUN_MESHES)
+        print(f"dryrun: the layouts' processes ended after {ends}; phase 15 waited "
+              f"{time.perf_counter() - t0:.1f} s for them")
+        return [json.loads(f.read_text()) for f in sorted(self.out.glob("*.json"))]
+
+    def kill(self) -> None:
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def dryrun_cell_lines(recs: list[dict]) -> dict:
+    """(a): one line a cell; the records by (mesh, arch, shape)."""
+    by = {}
+    for r in recs:
+        by[r["mesh"], r["arch"], r["shape"]] = r
+        head = f"dryrun: [{r['mesh']}] {r['arch']}/{r['shape']}:"
+        if r["status"] != "ok":
+            print(f"{head} {r['status']} ({r.get('reason') or r.get('error')})")
+            continue
+        rl, mem = r["roofline"], r["memory"]
+        held = mem["argument_bytes"] + mem["temp_bytes"]
+        print(f"{head} {rl['bottleneck']}-bound, step {rl['step_time_s'] * 1e3:.3f} ms, "
+              f"roofline fraction {rl['roofline_fraction']:.4f}, "
+              f"{mem['argument_bytes'] / 2**30:.2f} + {mem['temp_bytes'] / 2**30:.2f} GiB "
+              f"a device (argument + temp) = {held / HBM_PER_CHIP:.3f} of 80 GiB, "
+              f"traced in {r['trace_s']} s")
+    return by
+
+
+def _real_shard(shape, dtype, device):
+    """A real local shard for (b): indices 0 (every id valid), masks
+    true, floats small normal draws."""
+    if dtype == torch.bool:
+        return torch.ones(shape, dtype=dtype, device=device)
+    if not dtype.is_floating_point:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    return torch.randn(shape, dtype=torch.float32, device=device).mul_(0.02).to(dtype)
+
+
+def dryrun_one_device(dev, card: str, plain_peaks: dict) -> None:
+    """(b): three steps of phases 12 and 13 on a (1, 1) layout, the dry
+    run's trace against the same step run for real on the card, as
+    DTensors, and its peak against the peak phase 12 or 13 read of the
+    port's own step (``plain_peaks``, by arch; None: not comparable)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from torch.utils.flop_counter import FlopCounterMode
+
+    train = cell_base.ShapeDef("train_8x128", "train",
+                               {"seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH})
+    cases = [("llama3.2-1b train 8x128", "llama3.2-1b",
+              lambda m: cell_base.build_lm_cell(lm_configs.get(TRAIN_ARCH).make(), train, m)),
+             ("bst train_batch", "bst", lambda m: bst_configs.build_cell(
+                 None, recsys_configs.SHAPES["train_batch"], m)),
+             ("gin-tu full_graph_sm (Cora)", "gin", lambda m: gin_tu.build_cell(
+                 None, gin_tu.SHAPES["full_graph_sm"], m))]
+    for label, arch, build in cases:
+        with fake_mesh((1, 1), ("data", "model"), "cuda") as mesh:
+            cell = build(mesh)
+            t0 = time.perf_counter()
+            counts = dryrun.measure(cell, mesh, "cuda")
+            trace_s = time.perf_counter() - t0
+            arg_bytes = dryrun.argument_bytes(cell, mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            with implicit_replication(), regions.installed():
+                args = dryrun.arguments(cell, mesh, dev, _real_shard)
+                real_bytes = sum(t.to_local().numel() * t.element_size()
+                                 for t in dryrun._tensors(args))
+                with FlopCounterMode(display=False) as fc:
+                    out = cell.step_fn(*args)
+                torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            del args, out
+        flops = fc.get_total_flops()
+        ratio = counts["peak_bytes"] / peak
+        plain = plain_peaks.get(arch)
+        vs_plain = (f"; over phase 12-13's peak of the port's own step "
+                    f"{plain / 2**30:.2f} GiB = {counts['peak_bytes'] / plain:.3f}"
+                    if plain else "")
+        print(f"dryrun: (1,1) {label}: argument bytes {arg_bytes:,} traced, "
+              f"{real_bytes:,} real; FLOPs {counts['flops']:,} traced, {flops:,} by "
+              f"FlopCounterMode on the real step; peak {counts['peak_bytes'] / 2**30:.2f} "
+              f"GiB traced over the DTensor step's {peak / 2**30:.2f} GiB "
+              f"max_memory_allocated = {ratio:.3f}{vs_plain} (traced in {trace_s:.1f} s; "
+              f"{card})")
+        check(arg_bytes == real_bytes, f"{label}: the dry run's argument bytes are the real ones")
+        check(counts["flops"] == flops, f"{label}: the dry run's FLOPs are FlopCounterMode's")
+        check(DRYRUN_PEAK_BAND[0] <= ratio <= DRYRUN_PEAK_BAND[1],
+              f"{label}: the dry run's peak within {DRYRUN_PEAK_BAND} of the card's")
+        if plain:
+            check(DRYRUN_PEAK_BAND[0] <= counts["peak_bytes"] / plain <= DRYRUN_PEAK_BAND[1],
+                  f"{label}: the dry run's peak within {DRYRUN_PEAK_BAND} of the port's "
+                  f"own step's")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def dryrun_nyt_rank0(dev, by: dict, card: str) -> dict:
+    """(c): nyt_lm's job as rank 0 of 256 for real on the card, its
+    exchanges on the fake group (shapes, not answers: no answer is
+    checked), the main path's kernels launched."""
+    cfg = NGramConfig(sigma=NYT["sigma"], tau=100, vocab_size=NYT["vocab"])
+    n_local = -(-NYT["n_tokens"] // NYT_RANKS)
+    n_local = -(-n_local // 8) * 8
+    capacity = max(8, int(cfg.capacity_factor * n_local / NYT_RANKS) + 1)
+    g = torch.Generator(dev).manual_seed(15)
+    tok = torch.randint(1, NYT["vocab"], (n_local,), generator=g, device=dev,
+                        dtype=torch.int32)
+    tok[torch.rand(n_local, generator=g, device=dev) < 1 / 20] = 0   # documents
+    with fake_mesh((16, 16), ("data", "model"), "cuda") as mesh:
+        axes = mesh_axes(paper_configs.flat_mesh(mesh), ("shards",))
+        suffix_sigma.distributed_block(tok[:1 << 16], cfg, axes, capacity)   # warm
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ops.launches.clear()
+        t0 = time.perf_counter()
+        out = suffix_sigma.distributed_block(tok, cfg, axes, capacity)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(ops.launches)
+        peak = torch.cuda.max_memory_allocated() - base
+    rec = by["16x16", "ngram-suffix-sigma", "nyt_lm"]
+    traced = rec["memory"]["argument_bytes"] + rec["memory"]["temp_bytes"]
+    print(f"dryrun: nyt_lm rank 0 of {NYT_RANKS} on the card: {n_local:,} tokens, vocab "
+          f"{NYT['vocab']:,}, sigma {NYT['sigma']}, capacity {capacity:,}: {ms:.1f} ms, "
+          f"terms {tuple(out[0].shape)}, launches {launches}; peak "
+          f"{peak / 2**30:.3f} GiB on the card (above the tokens), the dry run's "
+          f"argument + temp {traced / 2**30:.3f} GiB; the fake exchange returns "
+          f"shapes, not answers: no answer checked ({card})")
+    missing = [k for k in ("suffix_pack", "hash_partition", "lcp_boundary")
+               if launches.get(k, 0) == 0]
+    check(not missing, f"nyt_lm's rank launched the main path's kernels (missing {missing})")
+    check(f"cap={capacity}" in rec["notes"], "the real job's capacity is the cell's")
+    del out
+    return {"launches": launches}
+
+
+def phase_dryrun(dev, card: str, procs: DryRunProcesses, plain_peaks: dict) -> dict:
+    """Phase 15: the dry run (a) whole, from its two processes, (b) on a
+    (1, 1) layout against the card, (c) nyt_lm's rank 0 for real.
+    ``plain_peaks``: phases 12-13's peaks of (b)'s steps, by arch."""
+    dryrun_one_device(dev, card, plain_peaks)                       # (b)
+    recs = procs.wait()                                             # (a)
+    by = dryrun_cell_lines(recs)
+    status = collections.Counter(r["status"] for r in recs)
+    print(f"dryrun: {status['ok']} ok, {status['skipped']} skipped (documented), "
+          f"{status['failed']} failed of {len(recs)} cells")
+    check(len(recs) == DRYRUN_CELLS and status["failed"] == 0
+          and status["skipped"] == DRYRUN_SKIPS,
+          f"the dry run: {DRYRUN_CELLS} cells, 0 failed, {DRYRUN_SKIPS} documented skips")
+    return dryrun_nyt_rank0(dev, by, card)                          # (c)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script checks the port on a GPU",
@@ -4865,15 +5106,17 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     corpora = CorpusProcess()                           # beside the build
+    dry = DryRunProcesses()                             # phase 15 (a), beside it all
     try:
-        return build_and_run(dev, card, corpora)
+        return build_and_run(dev, card, corpora, dry)
     finally:
         if corpora.proc.poll() is None:
             corpora.proc.kill()
             corpora.proc.wait()
+        dry.kill()
 
 
-def build_and_run(dev, card: str, corpora: CorpusProcess) -> int:
+def build_and_run(dev, card: str, corpora: CorpusProcess, dry: DryRunProcesses) -> int:
     """Phase 1, then the rest."""
     probe_lib = kbuild.BUILD_ROOT.parent / "probe" / "liblatency_probe.so"
     probe_nvcc = start_nvcc(PROBE_SRC, probe_lib)      # beside the kernels' builds
@@ -4893,11 +5136,12 @@ def build_and_run(dev, card: str, corpora: CorpusProcess) -> int:
           f"at [{1 << 20}, {SIGMA}] (its module loaded by build.entries())")
     del x
 
-    return run_phases(dev, card, probe_nvcc, probe_lib, corpora)
+    return run_phases(dev, card, probe_nvcc, probe_lib, corpora, dry)
 
 
-def run_phases(dev, card: str, probe_nvcc, probe_lib: Path, corpora: CorpusProcess) -> int:
-    """Phases 2-14, in their order, then the last lines."""
+def run_phases(dev, card: str, probe_nvcc, probe_lib: Path, corpora: CorpusProcess,
+               dry: DryRunProcesses) -> int:
+    """Phases 2-15, in their order, then the last lines."""
     t_start = time.perf_counter()
 
     def done(phase: str) -> None:
@@ -4956,11 +5200,11 @@ def run_phases(dev, card: str, probe_nvcc, probe_lib: Path, corpora: CorpusProce
     done("phase 11 (lm)")
     gc.collect()
     torch.cuda.empty_cache()
-    phase_train(dev, card)                              # phase 12
+    train = phase_train(dev, card)                      # phase 12
     done("phase 12 (train)")
     gc.collect()
     torch.cuda.empty_cache()
-    phase_recsys_gnn(dev, card)                         # phase 13
+    rg = phase_recsys_gnn(dev, card)                    # phase 13
     done("phase 13 (recsys, gnn)")
     gc.collect()
     torch.cuda.empty_cache()
@@ -4968,6 +5212,13 @@ def run_phases(dev, card: str, probe_nvcc, probe_lib: Path, corpora: CorpusProce
     done("phase 14 (moe, examples)")
     for row in rows:
         row["launches_by_path"]["examples"] = ex["launches"].get(row["name"], 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dr = phase_dryrun(dev, card, dry, {                 # phase 15
+        "llama3.2-1b": train["peak"], "bst": rg["bst"], "gin": rg["gin"]})
+    done("phase 15 (dryrun)")
+    for row in rows:
+        row["launches_by_path"]["dryrun"] = dr["launches"].get(row["name"], 0)
 
     print(json.dumps({"kernels": rows}))
     print(card)

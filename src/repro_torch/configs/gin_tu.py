@@ -2,15 +2,18 @@
 learnable eps.  Four graph regimes; message passing = a gather and an
 ``index_add_`` over the edge index (``models.gnn``).
 
-``repro``'s ``build_cell`` (the dry-run cell on a TPU mesh, nodes and edges
-padded to the mesh) is not ported; its graph sizes and model FLOPs are
-:func:`cell_sizes` and :func:`model_flops`."""
+Sharding (the dry-run cell): nodes and edges over the batch axes, padded to
+``max(dp, 16) * 16`` so the counts divide on both meshes; the model
+replicated (it is tiny); message passing dst-partitioned
+(``gnn.loss_fn_dst_partitioned``: one all-gather of the node features a
+layer)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models.gnn import GINConfig
-from .base import ArchDef, ShapeDef, register
+from .base import (P, ArchDef, Cell, ShapeDef, TensorSpec, axis_sizes, dp_axes, dp_spec,
+                   opt_pspecs, register, replicated, specs_of)
 
 SHAPES = {
     # Cora: full-batch node classification
@@ -77,11 +80,58 @@ def model_flops(shape: ShapeDef) -> float:
     return float(3 * (fl + 2 * n_nodes * h * shape.dims["n_classes"]))
 
 
+def _pad_to(x: int, mult: int) -> int:
+    return -(-x // mult) * mult
+
+
+def build_cell(cfg_factory, shape: ShapeDef, mesh) -> Cell:
+    from repro_torch.launch.mesh import mesh_axes
+    from repro_torch.models import gnn
+    from repro_torch.training.optimizer import OptimizerConfig, init_state
+    from repro_torch.training.train_loop import make_train_step
+    from repro_torch.training.tree import tensors
+
+    sizes = axis_sizes(mesh)
+    mult = 1
+    for a in dp_axes(mesh):
+        mult *= sizes[a]
+    mult = max(mult, 16) * 16  # divisible on both meshes
+    n_nodes, n_edges = cell_sizes(shape)
+    n_nodes_p, n_edges_p = _pad_to(n_nodes, mult), _pad_to(n_edges, mult)
+    d = shape.dims
+    cfg = cell_config(shape)
+    meta = gnn.init_params(cfg, "meta").tree()
+    params_sh, opt_sh = specs_of(meta), specs_of(init_state(meta))
+    batch_sds = {
+        "features": TensorSpec((n_nodes_p, d["d_feat"]), torch.float32),
+        "edge_src": TensorSpec((n_edges_p,), torch.int32),
+        "edge_dst": TensorSpec((n_edges_p,), torch.int32),
+        "edge_mask": TensorSpec((n_edges_p,), torch.bool),
+        "labels": TensorSpec((n_nodes_p,), torch.int32),
+        "label_mask": TensorSpec((n_nodes_p,), torch.bool),
+    }
+    dp = dp_spec(mesh)
+    bspec = {"features": P(dp, None), "edge_src": P(dp), "edge_dst": P(dp),
+             "edge_mask": P(dp), "labels": P(dp), "label_mask": P(dp)}
+    pspec = replicated(params_sh)  # tiny model: replicated
+    rows = mesh_axes(mesh, dp_axes(mesh))
+
+    def step(params, opt_state, batch):
+        for t in tensors(params):
+            t.requires_grad_(True)
+        return make_train_step(lambda p, b: gnn.loss_fn_dst_partitioned(p, b, cfg, rows),
+                               OptimizerConfig())(params, opt_state, batch)
+    return Cell("gin-tu", shape.name, "train", step, (params_sh, opt_sh, batch_sds),
+                (pspec, opt_pspecs(pspec), bspec), donate_argnums=(0, 1),
+                model_flops=model_flops(shape),
+                notes=f"padded nodes {n_nodes}->{n_nodes_p} edges {n_edges}->{n_edges_p}")
+
+
 register(ArchDef(
     name="gin-tu", family="gnn",
     make=lambda: GINConfig("gin-tu", 5, 64, 1433, 7),
     make_reduced=lambda: GINConfig("gin-tu-smoke", 2, 8, 8, 3),
-    shapes=SHAPES,
+    shapes=SHAPES, build_cell=build_cell,
     notes="paper technique inapplicable to the model itself; shares the "
           "segment-reduce substrate (DESIGN.md SSArch-applicability)",
 ))

@@ -1,7 +1,7 @@
 """Shared shape set and registration helper for the five LM architectures."""
 from __future__ import annotations
 
-from .base import ArchDef, ShapeDef, register
+from .base import ArchDef, ShapeDef, build_lm_cell, register
 
 FULL_ATTN_SKIP = ("long_500k needs sub-quadratic attention; this arch is pure "
                   "full-attention (see DESIGN.md SSArch-applicability)")
@@ -22,10 +22,14 @@ def lm_shapes(long_ok: bool) -> dict[str, ShapeDef]:
 
 
 def register_lm(name: str, full_cfg, reduced_cfg, long_ok: bool, notes: str = ""):
+    def build(arch_cfg, shape, mesh):
+        return build_lm_cell(arch_cfg, shape, mesh)
+
     return register(ArchDef(
         name=name, family="lm",
         make=lambda: full_cfg,
         make_reduced=lambda: reduced_cfg,
         shapes=lm_shapes(long_ok),
+        build_cell=build,
         notes=notes,
     ))

@@ -48,7 +48,7 @@ from .common import (as_tokens, gather_stats, gram_hash, member,
 from .stats import NGramConfig, NGramStats, add_counters
 
 __all__ = ["suffix_windows", "make_records", "reduce_block", "plan", "run",
-           "sigma_split"]
+           "sigma_split", "distributed_block"]
 
 
 def make_records(tokens: torch.Tensor, *, sigma: int, vocab_size: int,
@@ -144,6 +144,42 @@ def _distributed(tokens, cfg: NGramConfig, mesh, device, bucket_ids=None
         "map_records": map_rec, "shuffle_records": shuf_rec,
         "shuffle_bytes": shuf_rec * rec_bytes, "jobs": 1, "overflow": 0,
         "capacity": capacity, "retries": retries})
+
+
+def distributed_block(tok: torch.Tensor, cfg: NGramConfig, mesh, capacity: int):
+    """One rank's part of the job at a fixed ``capacity``: the body of
+    ``repro``'s ``build_distributed_job``, every shape fixed by its
+    arguments.  ``tok`` is this rank's row [n_local]; ``mesh`` a
+    ``launch.mesh.MeshAxes`` (the dry run's flat mesh of reducers).
+
+    The halo comes from the next rank by a permute; the records are
+    emitted, combined and bucketed at ``capacity`` (the part past it
+    counted as overflow, not fitted as :func:`run` does), exchanged, sorted
+    and reduced.  Returns (terms [P * capacity, sigma], flags, counts,
+    stats [3]: the map records, the shuffled records and the records past
+    the capacity, each summed over the ranks), as ``repro``'s job does a
+    row."""
+    n_l = packing.n_lanes(cfg.sigma, cfg.lane_vocab)
+    n_local, p = tok.shape[0], mesh.size
+    if cfg.sigma > 1:
+        halo = mesh.permute(tok[: cfg.sigma - 1], [(i - 1) % p for i in range(p)])
+        if mesh.rank == p - 1:
+            halo = torch.zeros_like(halo)
+        tok = torch.cat([tok, halo])
+    records, valid, _ = _plan_emit(tok, None, n_local, cfg, None, 1)
+    map_rec = valid.sum()
+    if cfg.combine:
+        records = stages.combine(records, n_l, False, route=cfg.combine_route)
+    lead = packing.lead_term(records[:, 0], vocab_size=cfg.lane_vocab)
+    part, hist = kops.hash_partition(lead, records[:, n_l] > 0, n_parts=p)
+    buf, overflow = shuffle.bucketize(records, part, p, capacity, counts=hist)
+    del records, valid, lead, part
+    local = shuffle.exchange(buf, mesh)
+    del buf
+    stats = mesh.all_reduce(torch.stack([map_rec, (local[:, n_l] > 0).sum(), overflow]))
+    terms, flags, counts = reduce_block(local, sigma=cfg.sigma, vocab_size=cfg.lane_vocab,
+                                        n_buckets=cfg.n_buckets)
+    return terms, flags, counts, stats
 
 
 def run(tokens, cfg: NGramConfig, mesh=None, *, bucket_ids=None,

@@ -216,7 +216,24 @@ int by_lanes(const Args& a, cudaStream_t stream) {
   }
 }
 
+template <typename Idx>
+int load_all() {
+  cudaFuncAttributes attr;
+  int err = (int)cudaFuncGetAttributes(&attr, bsearch_kernel<0, Idx>);
+  if (!err) err = (int)cudaFuncGetAttributes(&attr, bsearch_kernel<1, Idx>);
+  if (!err) err = (int)cudaFuncGetAttributes(&attr, bsearch_kernel<2, Idx>);
+  if (!err) err = (int)cudaFuncGetAttributes(&attr, bsearch_kernel<3, Idx>);
+  if (!err) err = (int)cudaFuncGetAttributes(&attr, bsearch_kernel<4, Idx>);
+  return err;
+}
+
 }  // namespace
+
+// Load every instance now, so that no first launch waits for one.
+extern "C" int bsearch_load() {
+  const int err = load_all<int32_t>();
+  return err ? err : load_all<long long>();
+}
 
 // index_bytes: 4 (int32 lo/hi) or 8 (int64)
 extern "C" int bsearch_launch(const void* lanes, long long row_stride,

@@ -189,6 +189,22 @@ int launch(const Args& a, cudaStream_t stream) {
 
 }  // namespace
 
+// Load every instance now, and grant the tiled ones their widest tile's
+// shared memory, so that no first launch waits for either.
+extern "C" int suffix_pack_load() {
+  cudaFuncAttributes attr;
+  int err = (int)cudaFuncGetAttributes(&attr, suffix_pack_kernel<0>);
+  if (!err) err = (int)cudaFuncSetAttribute(suffix_pack_kernel<1>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tile_bytes<1>(3));
+  if (!err) err = (int)cudaFuncSetAttribute(suffix_pack_kernel<2>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tile_bytes<2>(4));
+  if (!err) err = (int)cudaFuncSetAttribute(suffix_pack_kernel<3>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tile_bytes<3>(5));
+  if (!err) err = (int)cudaFuncSetAttribute(suffix_pack_kernel<4>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tile_bytes<4>(6));
+  return err;
+}
+
 // out: [n, n_lanes + (weight != 0) + (meta != null)] int64, dense; meta
 // (null, or [n] uint32 words) needs the weight column
 extern "C" int suffix_pack_launch(const void* tokens, long long n, int sigma,

@@ -5,6 +5,12 @@ the kernel (or raises), a CPU tensor runs the plain PyTorch version in
 ``kernels.ref``.  There is no flag and no fallback from one to the other.
 ``launches[name]`` counts the kernel launches of each wrapper, so a run can
 show that its main path went through the kernels.
+
+The main path's three kernels (``suffix_pack``, ``hash_partition``,
+``lcp_boundary``) launch through ``torch.library`` custom ops whose fake
+implementation writes nothing: on the fake tensors of the dry run
+(``launch.dryrun``) each is one op of its inputs and outputs, and nothing
+launches.
 """
 from __future__ import annotations
 
@@ -36,6 +42,46 @@ def _launch(name: str, device: torch.device, *args) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
     launches[name] += 1
+
+
+@torch.library.custom_op("repro_torch::suffix_pack", mutates_args=("out",))
+def _suffix_pack_op(tokens: torch.Tensor, out: torch.Tensor, meta: torch.Tensor | None,
+                    sigma: int, vocab_size: int, n_l: int, weight: bool) -> None:
+    _launch("suffix_pack", tokens.device, tokens.data_ptr(), tokens.shape[0], sigma,
+            packing.bits_for_vocab(vocab_size), packing.terms_per_lane(vocab_size),
+            n_l, out.data_ptr(), int(weight), None if meta is None else meta.data_ptr())
+
+
+@_suffix_pack_op.register_fake
+def _(tokens, out, meta, sigma, vocab_size, n_l, weight) -> None:
+    return None
+
+
+@torch.library.custom_op("repro_torch::hash_partition", mutates_args=("part", "hist"))
+def _hash_partition_op(keys: torch.Tensor, valid: torch.Tensor, part: torch.Tensor,
+                       hist: torch.Tensor) -> None:
+    # a grid-stride pass: 8 blocks per SM keep every SM busy, and each block
+    # adds its shared-memory histogram to the global one once
+    sms = torch.cuda.get_device_properties(keys.device).multi_processor_count
+    _launch("hash_partition", keys.device, keys.data_ptr(), valid.data_ptr(),
+            keys.shape[0], hist.shape[0], part.data_ptr(), hist.data_ptr(), 8 * sms)
+
+
+@_hash_partition_op.register_fake
+def _(keys, valid, part, hist) -> None:
+    return None
+
+
+@torch.library.custom_op("repro_torch::lcp_boundary", mutates_args=("lcp", "flags"))
+def _lcp_boundary_op(terms: torch.Tensor, lcp: torch.Tensor, flags: torch.Tensor) -> None:
+    n, length = terms.shape
+    _launch("lcp_boundary", terms.device, terms.data_ptr(), n, length,
+            _lcp_tile_rows(length), lcp.data_ptr(), flags.data_ptr())
+
+
+@_lcp_boundary_op.register_fake
+def _(terms, lcp, flags) -> None:
+    return None
 
 
 def suffix_pack(tokens: torch.Tensor, *, sigma: int, vocab_size: int,
@@ -77,10 +123,7 @@ def suffix_pack(tokens: torch.Tensor, *, sigma: int, vocab_size: int,
     if meta is not None:
         meta = meta.contiguous()
     if n:
-        _launch("suffix_pack", tokens.device, tokens.data_ptr(), n, sigma,
-                packing.bits_for_vocab(vocab_size),
-                packing.terms_per_lane(vocab_size), n_l, out.data_ptr(),
-                int(weight), None if meta is None else meta.data_ptr())
+        _suffix_pack_op(tokens, out, meta, sigma, vocab_size, n_l, weight)
     return out
 
 
@@ -100,11 +143,7 @@ def hash_partition(keys: torch.Tensor, valid: torch.Tensor, *,
     part = torch.empty((n,), dtype=torch.int32, device=keys.device)
     hist = torch.zeros((n_parts,), dtype=torch.int32, device=keys.device)
     if n:
-        # a grid-stride pass: 8 blocks per SM keep every SM busy, and each
-        # block adds its shared-memory histogram to the global one once
-        sms = torch.cuda.get_device_properties(keys.device).multi_processor_count
-        _launch("hash_partition", keys.device, keys.data_ptr(), valid.data_ptr(),
-                n, n_parts, part.data_ptr(), hist.data_ptr(), 8 * sms)
+        _hash_partition_op(keys, valid, part, hist)
     return part, hist
 
 
@@ -138,8 +177,7 @@ def lcp_boundary(sorted_terms: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor
     lcp = torch.empty((n,), dtype=torch.int32, device=sorted_terms.device)
     flags = torch.empty((n, length), dtype=torch.bool, device=sorted_terms.device)
     if n:
-        _launch("lcp_boundary", sorted_terms.device, sorted_terms.data_ptr(), n,
-                length, _lcp_tile_rows(length), lcp.data_ptr(), flags.data_ptr())
+        _lcp_boundary_op(sorted_terms, lcp, flags)
     return lcp, flags
 
 

@@ -65,8 +65,9 @@ def hash_partition_ref(keys: torch.Tensor, valid: torch.Tensor, n_parts: int
     """(partition ids [N] int32 with n_parts for invalid, histogram [n_parts] int32)."""
     p = (hash_u32(keys) % n_parts).to(torch.int32)
     p = torch.where(valid, p, n_parts)
-    hist = torch.bincount(p, minlength=n_parts + 1)[:n_parts]
-    return p, hist.to(torch.int32)
+    hist = torch.zeros(n_parts + 1, dtype=torch.int32, device=p.device).index_add_(
+        0, p.long(), torch.ones_like(p))[:n_parts]
+    return p, hist
 
 
 def lcp_boundary_ref(sorted_terms: torch.Tensor

@@ -37,11 +37,26 @@ break), a ``file://`` rendezvous in a temporary directory of their own, one
 intra-op thread a rank, the CUDA kernels built once in the parent, and every
 rank's return value back to the caller.  A rank that raises or exits non-zero
 fails the call with its traceback, after the other ranks are stopped.
+
+The dry run's meshes (``launch.dryrun``).  :func:`make_production_mesh`
+gives ``repro``'s 16x16 ``(data, model)`` or 2x16x16 ``(pod, data, model)``
+layout as a ``torch.distributed`` ``DeviceMesh`` over a ``fake`` process
+group of 256 or 512 ranks, this process rank 0, for as long as its context
+lasts: collectives on it return at once and move nothing, so DTensors placed
+on it trace a step's ops, shapes and collectives with nothing allocated.
+:class:`MeshAxes` and :class:`DeviceGrid` are rank 0's views of such a
+mesh's axes, with :class:`DataMesh`'s collectives as functional
+collectives, and :func:`shard_map` runs a region of local code (``repro``'s
+``shard_map``) on rank 0's shards of DTensors.  The hardware model below
+is the H100's.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
+import functools
+import itertools
 import math
 import os
 import pickle
@@ -53,8 +68,23 @@ import torch.distributed as dist
 
 from repro_torch import resolve_device
 
-__all__ = ["DataMesh", "GridMesh", "Replicated", "SumOverRanks", "axis_view",
-           "grid_mesh", "mesh_size", "pick_backend", "rank_device", "spawn_ranks"]
+__all__ = ["DataMesh", "DeviceGrid", "GridMesh", "MeshAxes", "P", "Replicated",
+           "SumOverRanks", "axes_rank", "axis_view", "contiguous_stride", "fake_mesh", "flatten_mesh",
+           "grid_mesh", "has_region", "is_dtensor", "make_production_mesh", "mesh_axes", "mesh_size",
+           "pick_backend", "placements", "rank_device", "shard_map", "spawn_ranks",
+           "spec_entry", "split_axes"]
+
+# ------------------------------------------------------------ hardware model
+# H100 SXM5 80GB, 700 W, datasheet (NVIDIA), each rate a GPU
+PEAK_FLOPS_BF16 = 989e12        # dense bf16 tensor-core FLOP/s
+PEAK_FLOPS_F32 = 67e12          # float32 FLOP/s without tensor cores
+HBM_BW = 3.35e12                # HBM3 B/s
+HBM_PER_CHIP = 80 * 2 ** 30     # HBM bytes
+# one 400 Gb/s NDR port a GPU: a 16-wide axis spans more than one 8-GPU
+# NVLink node, so the slowest link a collective on either axis crosses is
+# the one between nodes
+LINK_BW = 50e9                  # B/s
+CHIPS_PER_POD = 256
 
 #: how long a rank waits in a collective for the others before it fails
 COLLECTIVE_TIMEOUT = datetime.timedelta(minutes=10)
@@ -323,7 +353,7 @@ def axis_view(mesh, name: str):
     """The :class:`DataMesh` of ``mesh``'s axis ``name``: a grid's ``data``
     or ``model`` view, a 1-D mesh of that axis itself, or None where
     ``mesh`` has no such axis (one rank along it)."""
-    if isinstance(mesh, GridMesh):
+    if isinstance(mesh, (GridMesh, DeviceGrid)):
         return getattr(mesh, name)
     return mesh if mesh is not None and mesh.axis_name == name else None
 
@@ -406,3 +436,250 @@ def spawn_ranks(n: int, fn, *args, device=None, backend: str | None = None,
             with open(os.path.join(tmp, f"rank{rank}.pkl"), "rb") as f:
                 out.append(pickle.load(f))
     return out
+
+
+# ------------------------------------------------------------ fake meshes
+class P(tuple):
+    """A partition spec: one entry a dimension, each an axis name, a tuple
+    of axis names (the dimension split over them, major first) or None
+    (whole); ``repro``'s ``jax.sharding.PartitionSpec`` as a tuple."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"P{tuple(self)!r}"
+
+
+def placements(mesh, spec: P) -> list:
+    """The DTensor placements of ``spec`` on the ``DeviceMesh`` ``mesh``:
+    each mesh axis a ``Shard(dim)`` of the dimension that names it, else
+    ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = [Replicate()] * mesh.ndim
+    for dim, entry in enumerate(spec):
+        for name in (entry if isinstance(entry, tuple) else (entry,)):
+            if name is not None:
+                out[mesh.mesh_dim_names.index(name)] = Shard(dim)
+    return out
+
+
+def split_axes(t, dim: int) -> tuple:
+    """The mesh axes a DTensor's dimension ``dim`` is split over."""
+    return tuple(n for n, p in zip(t.device_mesh.mesh_dim_names, t.placements)
+                 if p.is_shard() and p.dim == dim)
+
+
+def axes_rank(mesh, axes: tuple) -> int:
+    """This rank's index along the mesh axes ``axes`` read as one (major
+    first), and its part of a dimension split over them."""
+    names = mesh.mesh_dim_names
+    index = 0
+    for a in axes:
+        index = index * mesh.shape[names.index(a)] + mesh.get_local_rank(a)
+    return index
+
+
+def spec_entry(axes: tuple):
+    """A spec entry of ``axes``: None, a name, or a tuple of names."""
+    return None if not axes else axes[0] if len(axes) == 1 else tuple(axes)
+
+
+#: the regions installed now, by the marked function they stand in for
+#: (``launch.regions.installed`` fills it; empty, every call runs as it is)
+_REGIONS: dict = {}
+
+
+def has_region(fn):
+    """Marks ``fn`` as a function that a dry run replaces by a region
+    (``launch.regions``): while one is installed for it, a call goes to the
+    region, which is handed ``fn``; else ``fn`` runs as it is."""
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        region = _REGIONS.get(call)
+        return fn(*args, **kwargs) if region is None else region(fn, *args, **kwargs)
+    return call
+
+
+def is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+@contextlib.contextmanager
+def fake_mesh(shape: tuple, names: tuple, device_type: str = "cuda"):
+    """A ``DeviceMesh`` of ``shape`` (axes ``names``) over a ``fake``
+    process group of ``prod(shape)`` ranks, this process rank 0.  The group
+    is this context's: it is destroyed on the way out, so it never stays
+    behind as the process's default group."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_mesh: this process already has a default process group")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(shape))
+    try:
+        mesh = init_device_mesh(device_type, tuple(shape), mesh_dim_names=tuple(names))
+        # every view of its axes, made now: a DeviceMesh builds real index
+        # tensors, which a fake-tensor trace would refuse
+        for r in range(1, len(names) + 1):
+            for axes in itertools.combinations(names, r):
+                mesh_axes(mesh, axes)
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+    """``repro``'s production layout over H100s, as a context:
+    ``(data, model)`` 16x16, or ``(pod, data, model)`` 2x16x16 with
+    ``multi_pod`` (:func:`fake_mesh`)."""
+    if multi_pod:
+        return fake_mesh((2, 16, 16), ("pod", "data", "model"), device_type)
+    return fake_mesh((16, 16), ("data", "model"), device_type)
+
+
+def _funcol(name: str, older: str):
+    """A functional collective by its name in torch 2.13 (``*_single``), or
+    the older name a release before it has."""
+    import torch.distributed._functional_collectives as funcol
+    return getattr(funcol, name, None) or getattr(funcol, older)
+
+
+def _wait(t: torch.Tensor) -> torch.Tensor:
+    from torch.distributed._functional_collectives import wait_tensor
+    return wait_tensor(t)
+
+
+def flatten_mesh(mesh, name: str):
+    """``mesh``'s devices as one axis ``name``, over the same group."""
+    return mesh._flatten(name)
+
+
+class MeshAxes:
+    """Rank 0's view of the axes ``names`` of a ``DeviceMesh`` (several
+    axes read as one, major first): :class:`DataMesh`'s collectives, as
+    functional collectives on the axes' group.  On a ``fake`` group they
+    trace and move nothing."""
+
+    def __init__(self, mesh, names: tuple):
+        self.mesh = mesh
+        self.names = tuple(names)
+        self.group = mesh[names[0]] if len(names) == 1 else flatten_mesh(
+            mesh[self.names], "_".join(names))
+        self.size = self.group.size()
+        self.rank = self.group.get_local_rank()
+
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        from torch.distributed._functional_collectives import all_to_all_single
+        return _wait(all_to_all_single(t.contiguous(), None, None, self.group))
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        out = _wait(_funcol("all_gather_single", "all_gather_tensor")(
+            t.contiguous(), 0, self.group))
+        return out.view(self.size, *t.shape)
+
+    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        from torch.distributed._functional_collectives import all_reduce
+        return _wait(all_reduce(t.contiguous(), op, self.group))
+
+    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        return _wait(_funcol("reduce_scatter_single", "reduce_scatter_tensor")(
+            t.contiguous(), "sum", 0, self.group))
+
+    def permute(self, t: torch.Tensor, src_dst: list[int]) -> torch.Tensor:
+        """``t`` from rank ``i`` goes to rank ``src_dst[i]`` (``ppermute``)."""
+        from torch.distributed._functional_collectives import permute_tensor
+        return _wait(permute_tensor(t.contiguous(), src_dst, self.group))
+
+
+def mesh_axes(mesh, names: tuple) -> MeshAxes:
+    """The :class:`MeshAxes` of ``mesh``'s axes ``names``, made once a mesh."""
+    cache = mesh.__dict__.setdefault("_repro_axes", {})
+    if tuple(names) not in cache:
+        cache[tuple(names)] = MeshAxes(mesh, tuple(names))
+    return cache[tuple(names)]
+
+
+@dataclasses.dataclass(eq=False)
+class DeviceGrid:
+    """Rank 0's (data, model) grid on a ``DeviceMesh``, :class:`GridMesh`'s
+    interface for the regions ``models.moe`` runs: ``data`` spans the batch
+    axes (``pod`` and ``data``, as one), or is None where the batch is not
+    split; ``model`` the tensor axis; ``world`` every axis."""
+
+    mesh: object
+    data: MeshAxes | None
+    model: MeshAxes
+    world: MeshAxes
+
+    @classmethod
+    def of(cls, mesh, dp_axes) -> "DeviceGrid":
+        names = (dp_axes,) if isinstance(dp_axes, str) else tuple(dp_axes or ())
+        return cls(mesh, mesh_axes(mesh, names) if names else None,
+                   mesh_axes(mesh, ("model",)), mesh_axes(mesh, mesh.mesh_dim_names))
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return {"data": self.data.size if self.data else 1, "model": self.model.size}
+
+    @property
+    def size(self) -> int:
+        return self.world.size
+
+    @property
+    def rank(self) -> int:
+        return self.world.rank
+
+
+def shard_map(fn, mesh, in_specs: tuple, out_specs, partial_axes: tuple = ()):
+    """``repro``'s ``shard_map`` on DTensors: ``fn`` runs on rank 0's local
+    shards of its arguments, each redistributed to its spec in ``in_specs``
+    (None: passed as it is), and its outputs (a tensor or a tuple) become
+    DTensors of ``out_specs``.
+
+    Gradients flow through.  An input's gradient is taken as placed like
+    the input, except over the axes ``partial_axes[i]`` names for argument
+    ``i``: there the devices used different parts of a replicated input,
+    and its gradient is their sum (``Partial``).  (The MoE and GIN regions
+    sum over such axes themselves, with :class:`Replicated`.)"""
+    from torch.distributed.tensor import DTensor, Partial
+
+    def local(a, spec, partial):
+        if spec is None or not is_dtensor(a):
+            return a
+        pl = placements(mesh, spec)
+        grad = [Partial() if name in partial else p
+                for name, p in zip(mesh.mesh_dim_names, pl)]
+        return a.redistribute(mesh, pl).to_local(grad_placements=grad)
+
+    def wrap(o, spec):
+        pl = placements(mesh, spec)
+        shape = list(o.shape)
+        for d, entry in enumerate(spec):
+            for name in (entry if isinstance(entry, tuple) else (entry,)):
+                if name is not None:
+                    shape[d] *= mesh.shape[mesh.mesh_dim_names.index(name)]
+        # a DTensor's local tensor is laid out as its stride says: contiguous
+        return DTensor.from_local(o.contiguous(), mesh, pl, run_check=False,
+                                  shape=torch.Size(shape),
+                                  stride=contiguous_stride(shape))
+
+    def run(*args):
+        partial = tuple(partial_axes) + ((),) * (len(args) - len(partial_axes))
+        out = fn(*[local(a, s, p) for a, s, p in zip(args, in_specs, partial)])
+        if isinstance(out, tuple):
+            return tuple(wrap(o, s) for o, s in zip(out, out_specs))
+        return wrap(out, out_specs)
+
+    return run
+
+
+def contiguous_stride(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape``."""
+    stride, acc = [], 1
+    for n in reversed(shape):
+        stride.append(acc)
+        acc *= max(n, 1)
+    return tuple(reversed(stride))

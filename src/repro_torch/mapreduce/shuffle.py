@@ -81,17 +81,20 @@ def bucketize(records: torch.Tensor, part: torch.Tensor, n_parts: int,
     dev = records.device
     part = part.to(torch.int64)
     if counts is None:
-        counts = torch.bincount(part, minlength=n_parts + 1)[:n_parts]
+        counts = torch.zeros(n_parts + 1, dtype=torch.int64, device=dev).index_add_(
+            0, part, torch.ones_like(part))[:n_parts]
     counts = counts.to(torch.int64)
     offsets = torch.zeros(n_parts + 1, dtype=torch.int64, device=dev)
     torch.cumsum(counts, 0, out=offsets[1:])
     p_s, order = torch.sort(part, stable=True)
     within = torch.arange(n, device=dev) - offsets[p_s]
     ok = (within < capacity) & (p_s < n_parts)
-    buf = torch.zeros((n_parts * capacity, w), dtype=records.dtype, device=dev)
-    buf[(p_s * capacity + within)[ok]] = records[order[ok]]
+    # every shape fixed by the arguments (no mask-indexed copy): records that
+    # do not fit, or go to no part, land in one spare row past the end
+    buf = torch.zeros((n_parts * capacity + 1, w), dtype=records.dtype, device=dev)
+    buf[torch.where(ok, p_s * capacity + within, n_parts * capacity)] = records[order]
     overflow = (counts - capacity).clamp_(min=0).sum()
-    return buf.view(n_parts, capacity, w), overflow
+    return buf[:-1].view(n_parts, capacity, w), overflow
 
 
 def exchange(buffer: torch.Tensor, mesh) -> torch.Tensor:

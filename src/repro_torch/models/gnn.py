@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
-from repro_torch.launch.mesh import Replicated, SumOverRanks
+from repro_torch.launch.mesh import Replicated, SumOverRanks, has_region
 from repro_torch.training.tree import TreeModule, map_leaves, tree_to_numpy
 
 # edges a chunk of message passing gathers at once: its [chunk, F] float32
@@ -257,6 +257,10 @@ class _GatherPropagate(torch.autograd.Function):
         return g_h.to(comm_dtype).to(h_dtype), None, None, None, None, None, None
 
 
+_BATCH_KEYS = ("features", "edge_src", "edge_dst", "edge_mask", "labels", "label_mask")
+
+
+@has_region
 def loss_fn_dst_partitioned(params, batch, cfg: GINConfig, mesh):
     """Distributed message passing with dst-partitioned edges.
 
@@ -266,26 +270,33 @@ def loss_fn_dst_partitioned(params, batch, cfg: GINConfig, mesh):
     divide by ``mesh.size``.  Every rank passes the same global batch and
     gets the global loss; the scatter is local and the only communication
     is one all-gather of the (``comm_dtype``) node features a layer.
+
+    A dry run (``launch.regions``) runs :func:`_dst_partitioned_local` on
+    DTensors' local shards, ``mesh`` a ``MeshAxes`` of the batch axes.
     """
     dev = params["head"].device
     p, r = mesh.size, mesh.rank
-    n = batch["features"].shape[0] // p
-    e = batch["edge_src"].shape[0] // p
+    rows = {k: batch[k].shape[0] // p for k in _BATCH_KEYS}
+    parts = [torch.as_tensor(batch[k], device=dev)[r * rows[k]:(r + 1) * rows[k]]
+             for k in _BATCH_KEYS]
+    loss = _dst_partitioned_local(params, *parts, cfg=cfg, mesh=mesh)
+    return loss, {"ce": loss}
 
-    def local(key, rows):
-        return torch.as_tensor(batch[key], device=dev)[r * rows:(r + 1) * rows]
 
+def _dst_partitioned_local(params, feats, src, dst, emask, labels, lmask, *,
+                           cfg: GINConfig, mesh):
+    """One rank's part of :func:`loss_fn_dst_partitioned`: its rows of the
+    nodes and its edges -> the global loss."""
+    n = feats.shape[0]
     params = map_leaves(lambda t: Replicated.apply(t, mesh), params)
-    h = local("features", n).to(cfg.dtype)
-    src = local("edge_src", e).long()
-    dst = local("edge_dst", e).long() - r * n
-    w = local("edge_mask", e).to(cfg.dtype)
+    h = feats.to(cfg.dtype)
+    src = src.long()
+    dst = dst.long() - mesh.rank * n
+    w = emask.to(cfg.dtype)
     for pl in params["layers"]:
         agg = _GatherPropagate.apply(h, src, dst, w, cfg.comm_dtype, cfg.dtype, mesh)
         h = _layer(pl, h, agg, cfg.dtype)
-    nll = _nll(torch.matmul(h, params["head"]), local("labels", n).long())
-    lmask = local("label_mask", n)
+    nll = _nll(torch.matmul(h, params["head"]), labels.long())
     count = mesh.all_reduce(lmask.sum().reshape(1))[0]
     part = torch.where(lmask, nll, 0.0).sum() / torch.clamp(count, min=1)
-    loss = SumOverRanks.apply(part.reshape(1), mesh)[0]
-    return loss, {"ce": loss}
+    return SumOverRanks.apply(part.reshape(1), mesh)[0]

@@ -18,6 +18,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.mesh import has_region
+
 NEG_INF = -1e30
 
 
@@ -60,6 +62,7 @@ def _repeat_kv(k: torch.Tensor, g: int) -> torch.Tensor:
     return k.repeat_interleave(g, dim=2) if g > 1 else k
 
 
+@has_region
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   q_positions: torch.Tensor, k_positions: torch.Tensor,
                   window: int | None = None, q_chunk: int = 0) -> torch.Tensor:
@@ -88,6 +91,7 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return block(q, q_positions)
 
 
+@has_region
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, *,
                      valid: torch.Tensor) -> torch.Tensor:
     """One-token decode against a cache.  q: [B, H, d]; caches: [B, T, KV, d];
@@ -103,6 +107,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     return torch.einsum("bht,bthd->bhd", p, v_cache)
 
 
+@has_region
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     gate = F.silu(torch.matmul(x, w_gate))
@@ -122,8 +127,26 @@ def cross_entropy_loss(x_final: torch.Tensor, lm_head: torch.Tensor,
     for i in range(n_chunks):
         xc = x_final[:, i * cs:(i + 1) * cs]
         lc = labels[:, i * cs:(i + 1) * cs].long()
-        logits = torch.matmul(xc, lm_head).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lc[..., None])[..., 0]
-        total = total + torch.sum(logz - gold)
+        total = total + _chunk_nll(xc, lm_head, lc)
     return total / (b * s)
+
+
+@has_region
+def _chunk_nll(x: torch.Tensor, lm_head: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """One chunk's summed negative log-likelihood."""
+    logits = torch.matmul(x, lm_head).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.sum(logz - gold)
+
+
+@has_region
+def lookup_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``: rows of a [V, d] table."""
+    return table[ids]
+
+
+@has_region
+def head_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """``x @ head`` [B, d] x [d, V] -> float32 logits."""
+    return torch.matmul(x, head).float()

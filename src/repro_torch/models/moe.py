@@ -30,7 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.launch.mesh import Replicated, SumOverRanks, axis_view
+from repro_torch.launch.mesh import Replicated, SumOverRanks, axis_view, has_region
 
 from .layers import swiglu
 
@@ -121,7 +121,8 @@ def _dispatch_indices(t: int, ids, gates, cfg: MoEConfig, capacity: int):
     flat_ids = ids.reshape(-1)                                    # [T*k]
     order = torch.argsort(flat_ids, stable=True)
     sorted_ids = flat_ids[order]
-    counts = torch.bincount(sorted_ids, minlength=e)
+    counts = torch.zeros(e, dtype=torch.long, device=ids.device).index_add_(
+        0, sorted_ids, torch.ones_like(sorted_ids))
     offs = torch.cumsum(counts, 0) - counts
     within = torch.arange(t * k, device=ids.device) - offs[sorted_ids]
     slot = torch.where(within < capacity, sorted_ids * capacity + within, e * capacity)
@@ -231,6 +232,7 @@ def _data_axis(cfg: MoEConfig):
                      "over 'data'")
 
 
+@has_region
 def moe_ffn_sharded(x: torch.Tensor, params: dict, cfg: MoEConfig
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """``repro``'s ``moe_ffn_sharded`` on this rank of ``cfg.mesh``.

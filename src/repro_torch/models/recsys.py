@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch.launch.mesh import has_region
 from repro_torch.training.tree import TreeModule, map_leaves, tree_to_numpy
 
 from .layers import rms_norm
@@ -45,6 +46,7 @@ def _ids(ids: torch.Tensor, device) -> torch.Tensor:
     return torch.as_tensor(ids, device=device).long()
 
 
+@has_region
 def embedding_lookup(table: torch.Tensor, ids) -> torch.Tensor:
     """[V, D] table, integer ids [...]; out [..., D]."""
     ids = _ids(ids, table.device)
@@ -94,6 +96,7 @@ def bce_loss(logits, labels):
                       + torch.log1p(torch.exp(-torch.abs(logits))))
 
 
+@has_region
 def _per_field(tables: torch.Tensor, ids) -> torch.Tensor:
     """Field ``f`` of ids [B, F] looked up in ``tables[f]`` ([F, V, ...]):
     [B, F, ...]."""
@@ -289,11 +292,16 @@ def twotower_embed(params, batch, cfg: TwoTowerConfig):
 def twotower_loss(params, batch, cfg: TwoTowerConfig, temp: float = 0.05):
     """In-batch sampled softmax (each row's positive vs other rows' items)."""
     u, i = twotower_embed(params, batch, cfg)
+    loss = _in_batch_softmax(u, i, temp)
+    return loss, {"softmax": loss}
+
+
+@has_region
+def _in_batch_softmax(u: torch.Tensor, i: torch.Tensor, temp: float) -> torch.Tensor:
     logits = torch.matmul(u, i.T).float() / temp
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.diagonal(logits)
-    loss = torch.mean(logz - gold)
-    return loss, {"softmax": loss}
+    return torch.mean(logz - gold)
 
 
 def twotower_score_candidates(params, batch, cfg: TwoTowerConfig):

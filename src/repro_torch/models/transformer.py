@@ -43,11 +43,14 @@ so every rank's gradient is the global loss's.  (``repro``'s cell builder
 also splits attention over the model axis: a layout of one compiled
 program, not another result.)
 
-Not ported: ``repro``'s ``shard_activations`` / ``_constrain`` (sharding
-annotations for a TPU mesh, which compute nothing) and its
-``sub_quadratic`` property, which sits after a ``return`` in ``_constrain``
-and is unreachable.  Nor is ``scan_layers``, which chooses how ``repro``
-compiles its layers: the port loops over its layers.
+``shard_activations`` (``repro``'s): the batch axes a dry run
+(``launch.dryrun``) places the activations over.  :func:`constrain` marks
+the points ``repro``'s ``_constrain`` annotates, and :func:`split_heads`
+the head reshapes; both compute nothing, and only a dry run's regions
+(``launch.regions``) place a tensor there.  Not ported: ``repro``'s
+``sub_quadratic`` property, which sits after a ``return`` in
+``_constrain`` and is unreachable.  Nor is ``scan_layers``, which chooses
+how ``repro`` compiles its layers: the port loops over its layers.
 """
 from __future__ import annotations
 
@@ -60,11 +63,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
-from repro_torch.launch.mesh import SumOverRanks, axis_view
+from repro_torch.launch.mesh import DeviceGrid, SumOverRanks, axis_view, has_region
 from repro_torch.training.tree import Stacked
 
 from .layers import (NEG_INF, apply_rope, cross_entropy_loss, decode_attention,
-                     gqa_attention, rms_norm, swiglu)
+                     gqa_attention, head_logits, lookup_rows, rms_norm, swiglu)
 from .moe import MoEConfig, init_moe_params, moe_ffn, moe_ffn_sharded, shard_moe_params
 
 
@@ -115,6 +118,30 @@ class LMConfig:
     loss_chunks: int = 8
     remat: bool = True           # recompute each block in the backward
     aux_loss_weight: float = 0.01
+    # the batch axes activations are placed over in a dry run (None: as
+    # sharding propagation leaves them)
+    shard_activations: Any = None
+
+
+@has_region
+def constrain(x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    """``repro``'s sharding constraint ``P(shard_activations, None, None)``:
+    it places an activation and computes nothing (``launch.regions``)."""
+    return x
+
+
+@has_region
+def split_heads(x: torch.Tensor, cfg: LMConfig, n_heads: int) -> torch.Tensor:
+    """A projection ``[B, S, n_heads * d]`` before its head reshape, placed
+    with its heads over the model axis where they divide it (a layout
+    only: ``launch.regions``)."""
+    return x
+
+
+@has_region
+def write_slot(cache: torch.Tensor, slot: int, value: torch.Tensor) -> None:
+    """``cache[:, slot] = value`` in place (cache [B, T, ...])."""
+    cache[:, slot] = value
 
 
 GQA_KEYS = ("wq", "wk", "wv", "wo")
@@ -142,15 +169,16 @@ class GQAAttention(nn.Module):
 
     def __init__(self, cfg: LMConfig, p: dict):
         super().__init__()
-        self.a = cfg.attn
+        self.cfg, self.a = cfg, cfg.attn
         _adopt(self, {k: p[k] for k in GQA_KEYS})
 
     def forward(self, x, positions, q_chunk: int):
         a = self.a
         b, s, _ = x.shape
-        q = torch.matmul(x, self.wq).reshape(b, s, a.h_eff, a.d_head)
-        k = torch.matmul(x, self.wk).reshape(b, s, a.kv_eff, a.d_head)
-        v = torch.matmul(x, self.wv).reshape(b, s, a.kv_eff, a.d_head)
+        c = self.cfg
+        q = split_heads(torch.matmul(x, self.wq), c, a.h_eff).reshape(b, s, a.h_eff, a.d_head)
+        k = split_heads(torch.matmul(x, self.wk), c, a.kv_eff).reshape(b, s, a.kv_eff, a.d_head)
+        v = split_heads(torch.matmul(x, self.wv), c, a.kv_eff).reshape(b, s, a.kv_eff, a.d_head)
         q = apply_rope(q, positions, a.rope_theta)
         k = apply_rope(k, positions, a.rope_theta)
         out = gqa_attention(q, k, v, q_positions=positions, k_positions=positions,
@@ -162,12 +190,13 @@ class GQAAttention(nn.Module):
         """h: [B, 1, d] -> [B, d]; writes this token's K/V at ``slot``."""
         a = self.a
         b = h.shape[0]
-        q = torch.matmul(h, self.wq).reshape(b, a.h_eff, a.d_head)
-        k = torch.matmul(h, self.wk).reshape(b, a.kv_eff, a.d_head)
-        v = torch.matmul(h, self.wv).reshape(b, a.kv_eff, a.d_head)
+        c = self.cfg
+        q = split_heads(torch.matmul(h, self.wq), c, a.h_eff).reshape(b, a.h_eff, a.d_head)
+        k = split_heads(torch.matmul(h, self.wk), c, a.kv_eff).reshape(b, a.kv_eff, a.d_head)
+        v = split_heads(torch.matmul(h, self.wv), c, a.kv_eff).reshape(b, a.kv_eff, a.d_head)
         q = apply_rope(q[:, None], positions, a.rope_theta)[:, 0]
-        cache["k"][:, slot] = apply_rope(k[:, None], positions, a.rope_theta)[:, 0]
-        cache["v"][:, slot] = v
+        write_slot(cache["k"], slot, apply_rope(k[:, None], positions, a.rope_theta)[:, 0])
+        write_slot(cache["v"], slot, v)
         attn = decode_attention(q, cache["k"], cache["v"], valid=live)
         attn = _head_mask(a, attn)
         return torch.matmul(attn.reshape(b, -1), self.wo)
@@ -180,19 +209,22 @@ class MLAAttention(nn.Module):
 
     def __init__(self, cfg: LMConfig, p: dict):
         super().__init__()
-        self.a = cfg.attn
+        self.cfg, self.a = cfg, cfg.attn
         _adopt(self, {k: p[k] for k in MLA_KEYS})
 
     def forward(self, x, positions, q_chunk: int):
         """The non-absorbed form, for prefill and training."""
         a = self.a
         b, s, _ = x.shape
+        c = self.cfg
         cq = torch.matmul(x, self.wdq)
-        q = torch.matmul(cq, self.wuq).reshape(b, s, a.h_eff, a.d_nope + a.d_rope)
+        q = split_heads(torch.matmul(cq, self.wuq), c, a.h_eff).reshape(
+            b, s, a.h_eff, a.d_nope + a.d_rope)
         qn, qr = q[..., : a.d_nope], q[..., a.d_nope:]
         qr = apply_rope(qr, positions, a.rope_theta)
         ckv = torch.matmul(x, self.wdkv)                               # latent cache
-        kv = torch.matmul(ckv, self.wukv).reshape(b, s, a.h_eff, a.d_nope + a.d_v)
+        kv = split_heads(torch.matmul(ckv, self.wukv), c, a.h_eff).reshape(
+            b, s, a.h_eff, a.d_nope + a.d_v)
         kn, v = kv[..., : a.d_nope], kv[..., a.d_nope:]
         kr = apply_rope(torch.matmul(x, self.wkr)[:, :, None, :],
                         positions, a.rope_theta)                       # shared head
@@ -209,12 +241,13 @@ class MLAAttention(nn.Module):
         a = self.a
         b = h.shape[0]
         cq = torch.matmul(h, self.wdq)
-        q = torch.matmul(cq, self.wuq).reshape(b, 1, a.h_eff, a.d_nope + a.d_rope)
+        q = split_heads(torch.matmul(cq, self.wuq), self.cfg, a.h_eff).reshape(
+            b, 1, a.h_eff, a.d_nope + a.d_rope)
         qn = q[..., : a.d_nope]
         qr = apply_rope(q[..., a.d_nope:], positions, a.rope_theta)
-        cache["ckv"][:, slot] = torch.matmul(h, self.wdkv)[:, 0]
-        cache["kr"][:, slot] = apply_rope(torch.matmul(h, self.wkr), positions,
-                                          a.rope_theta)[:, 0]
+        write_slot(cache["ckv"], slot, torch.matmul(h, self.wdkv)[:, 0])
+        write_slot(cache["kr"], slot, apply_rope(torch.matmul(h, self.wkr), positions,
+                                                 a.rope_theta)[:, 0])
         ckv, kr = cache["ckv"], cache["kr"]
         wuk = self.wukv.reshape(a.kv_lora, a.h_eff, a.d_nope + a.d_v)
         q_lat = torch.einsum("bhn,rhn->bhr", qn[:, 0], wuk[..., : a.d_nope])
@@ -267,8 +300,9 @@ class Block(nn.Module):
 
     def forward(self, x, positions):
         eps = self.cfg.norm_eps
+        x = constrain(x, self.cfg)
         h, cache = self.attn(rms_norm(x, self.ln1, eps), positions, self.cfg.q_chunk)
-        x = x + h
+        x = constrain(x + h, self.cfg)
         h, aux = self.ffn(rms_norm(x, self.ln2, eps))
         return x + h, aux, cache
 
@@ -396,6 +430,18 @@ def param_tree(model: Transformer) -> dict:
             "final_norm": model.final_norm, "lm_head": model.lm_head}
 
 
+def from_param_tree(tree: dict, cfg: LMConfig) -> Transformer:
+    """The inverse of :func:`param_tree`: a model whose parameters are the
+    tensors of ``tree`` (shared, not copied; each layer leaf a
+    :class:`Stacked`)."""
+    stacked = tree["layers"]
+    n = len(stacked["ln1"])
+    layers = [{k: ({f: t[i] for f, t in v.items()} if isinstance(v, dict) else v[i])
+               for k, v in stacked.items()} for i in range(n)]
+    return Transformer(cfg, embed=tree["embed"], layers=layers,
+                       final_norm=tree["final_norm"], lm_head=tree["lm_head"])
+
+
 def params_to_numpy(model: Transformer) -> dict:
     """The inverse of :func:`params_from_numpy`: ``repro``'s parameter tree
     as float32 numpy arrays, layers stacked ``[L, ...]`` (a bf16 weight
@@ -411,8 +457,10 @@ def params_to_numpy(model: Transformer) -> dict:
 
 # ---------------------------------------------------------------------- forward
 def _rows(cfg: LMConfig):
-    """The data axis's mesh of the MoE grid, or None off a grid."""
-    if cfg.moe is None or cfg.moe.mesh is None:
+    """The data axis's mesh of the MoE grid of ranks, or None off one (and
+    on a dry run's ``DeviceGrid``, where the batch is a DTensor already
+    placed over the grid)."""
+    if cfg.moe is None or cfg.moe.mesh is None or isinstance(cfg.moe.mesh, DeviceGrid):
         return None
     return axis_view(cfg.moe.mesh, "data")
 
@@ -453,7 +501,7 @@ def forward(model: Transformer, tokens: torch.Tensor, collect_cache: bool = Fals
             _sum_grads_over_rows(model, dp)
     s = tokens.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=model.device)
-    x = model.embed[tokens.to(model.device)].to(cfg.dtype)
+    x = constrain(lookup_rows(model.embed, tokens.to(model.device)).to(cfg.dtype), cfg)
     remat = cfg.remat and torch.is_grad_enabled()
     aux, caches = [], []
     for layer in model.layers:
@@ -478,6 +526,7 @@ def loss_fn(model: Transformer, batch: dict):
     ``pmean``: the global batch's loss on every rank."""
     cfg = model.cfg
     x, aux, _ = forward(model, batch["tokens"])
+    x = constrain(x, cfg)
     labels = row_block(cfg, batch["labels"]).to(model.device)
     ce = cross_entropy_loss(x, model.lm_head, labels, cfg.loss_chunks)
     dp = _rows(cfg)
@@ -511,13 +560,14 @@ def prefill(model: Transformer, tokens: torch.Tensor, max_seq: int):
     slots: the last T positions rolled into place when S >= T, else the S
     positions padded with zeros to T."""
     x, _, cache = forward(model, tokens, collect_cache=True)
-    logits = torch.matmul(x[:, -1], model.lm_head).float()
+    logits = head_logits(x[:, -1], model.lm_head)
     t = cache_len(model.cfg, max_seq)
     s = tokens.shape[1]
 
     def place(c):  # [L, B, S, ...] -> [L, B, T, ...]
         if s >= t:
-            return torch.roll(c[:, :, s - t:], shifts=s % t, dims=2)
+            c = c[:, :, s - t:]
+            return (torch.roll(c, shifts=s % t, dims=2) if s % t else c).contiguous()
         out = c.new_zeros(c.shape[:2] + (t,) + c.shape[3:])
         out[:, :, :s] = c
         return out
@@ -546,9 +596,11 @@ def decode_step(model: Transformer, cache: dict, token: torch.Tensor, pos: int):
     idx = torch.arange(t, device=dev)
     valid = _ring_valid(t, slot, pos, dev) if a.window else idx < pos
     live = valid | (idx == slot)
-    x = model.embed[token.to(dev)[:, None]].to(cfg.dtype)
+    x = lookup_rows(model.embed, token.to(dev)[:, None]).to(cfg.dtype)
+    if x.shape[0] > 1:
+        x = constrain(x, cfg)
     positions = torch.full((1,), pos, dtype=torch.int32, device=dev)
     for i, layer in enumerate(model.layers):
         x = layer.decode(x, {k: c[i] for k, c in cache.items()}, slot, live, positions)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
-    return torch.matmul(x[:, 0], model.lm_head).float(), cache
+    return head_logits(x[:, 0], model.lm_head), cache

@@ -23,6 +23,8 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.launch.mesh import has_region
+
 from .tree import like, tensors
 
 # elements a foreach update takes at once: its float32 temporaries (a few
@@ -77,13 +79,16 @@ def global_norm(tree) -> torch.Tensor:
                           for g in tensors(tree)))
 
 
+@has_region
 def _pieces(columns: list[list[torch.Tensor]], chunk: int):
     """Aligned flat views of the tensors in ``columns`` (one list per role,
     the same shapes row by row), grouped so that a group holds at most
-    ``chunk`` elements, a tensor past ``chunk`` cut into slices."""
+    ``chunk`` elements, a tensor past ``chunk`` cut into slices.  Each is
+    a ``view`` (which raises on a tensor that is not contiguous): the
+    update writes through them."""
     group, size = [[] for _ in columns], 0
     for row in zip(*columns):
-        flat = [t.reshape(-1) for t in row]
+        flat = [t.view(-1) for t in row]
         n = flat[0].numel()
         for lo in range(0, n, chunk):
             hi = min(n, lo + chunk)
@@ -95,6 +100,11 @@ def _pieces(columns: list[list[torch.Tensor]], chunk: int):
             size += hi - lo
     if size:
         yield group
+
+
+@has_region
+def _copy_pieces(dst: list[torch.Tensor], src: list[torch.Tensor]) -> None:
+    torch._foreach_copy_(dst, src)
 
 
 def apply_updates(params, grads, state: dict, cfg: OptimizerConfig):
@@ -112,13 +122,12 @@ def apply_updates(params, grads, state: dict, cfg: OptimizerConfig):
     stepf = step.to(torch.float32)
     bc1 = 1 - cfg.b1 ** stepf
     bc2 = 1 - cfg.b2 ** stepf
-    # params and moments are written through views: each must be contiguous
-    # (``view`` raises otherwise); a gradient is only read
+    # params and moments are written through views, and a gradient is only
+    # read: one that is not contiguous is read from a copy
     ps, ms, vs = tensors(params), tensors(state["m"]), tensors(state["v"])
-    for t in ps + ms + vs:
-        t.view(-1)
+    gs = [g.contiguous() for g in tensors(grads)]
     with torch.no_grad():
-        for p, g, m, v in _pieces([ps, tensors(grads), ms, vs], UPDATE_CHUNK):
+        for p, g, m, v in _pieces([ps, gs, ms, vs], UPDATE_CHUNK):
             g = torch._foreach_mul([x.to(torch.float32) for x in g], scale)
             torch._foreach_mul_(m, cfg.b1)
             torch._foreach_add_(m, torch._foreach_mul(g, 1 - cfg.b1))
@@ -137,7 +146,7 @@ def apply_updates(params, grads, state: dict, cfg: OptimizerConfig):
             p32 = [x.to(torch.float32) for x in p]
             torch._foreach_add_(delta, torch._foreach_mul(p32, cfg.weight_decay))
             torch._foreach_mul_(delta, lr)
-            torch._foreach_copy_(p, torch._foreach_sub(p32, delta))
+            _copy_pieces(p, torch._foreach_sub(p32, delta))
     new_state = {"m": state["m"], "v": state["v"], "step": step}
     return params, new_state, {"lr": lr, "grad_norm": gn}
 

@@ -15,6 +15,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch.launch.mesh import has_region
+
 from .optimizer import OptimizerConfig, apply_updates, init_state
 from .tree import Stacked, like, named_leaves, tensors
 
@@ -27,9 +29,16 @@ def value_and_grad(loss_fn: Callable, params, batch):
     with torch.enable_grad():
         loss, metrics = loss_fn(params, batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    grads = [torch.zeros_like(p) if g is None else _placed_as(g, p)
+             for p, g in zip(leaves, grads)]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             like(params, grads))
+
+
+@has_region
+def _placed_as(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A gradient as its parameter lies (a layout only: ``launch.regions``)."""
+    return g
 
 
 def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig):
@@ -43,6 +52,14 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig):
         return params, opt_state, {"loss": loss, **metrics, **opt_metrics}
 
     return step
+
+
+@has_region
+def _microbatch(x: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``n`` of a batch tensor: its rows in ``n``
+    blocks, in order."""
+    m = x.shape[0] // n
+    return x[i * m:(i + 1) * m]
 
 
 def make_train_step_accum(loss_fn: Callable, opt_cfg: OptimizerConfig,
@@ -60,12 +77,10 @@ def make_train_step_accum(loss_fn: Callable, opt_cfg: OptimizerConfig,
     """
 
     def step(params, opt_state, batch):
-        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for p in tensors(params)]
+        acc = [torch.zeros_like(p, dtype=torch.float32) for p in tensors(params)]
         loss_sum = None
         for i in range(n_micro):
-            mb = {k: x[i * (x.shape[0] // n_micro):(i + 1) * (x.shape[0] // n_micro)]
-                  for k, x in batch.items()}
+            mb = {k: _microbatch(x, i, n_micro) for k, x in batch.items()}
             loss, _, grads = value_and_grad(loss_fn, params, mb)
             torch._foreach_add_(acc, [g.to(torch.float32) for g in tensors(grads)])
             del grads

@@ -376,10 +376,11 @@ def test_init_params_and_cache_have_repro_layout(arch):
 # ----------------------------------------------------------------- registry
 def assert_same_config(cfg, jcfg):
     assert port_cfg(jcfg) == cfg
-    # shard_activations annotates a TPU mesh and scan_layers chooses how
-    # repro compiles its layers: neither changes what a forward computes.
-    # remat is compared: the port recomputes each block in its backward too.
-    compile_only = {"shard_activations", "scan_layers"}
+    # scan_layers chooses how repro compiles its layers: it does not change
+    # what a forward computes.  remat is compared: the port recomputes each
+    # block in its backward too; so is shard_activations, which places the
+    # activations of the port's dry run.
+    compile_only = {"scan_layers"}
     assert {f.name for f in dataclasses.fields(jcfg)} - compile_only == \
         {f.name for f in dataclasses.fields(cfg)}
     if jcfg.moe is not None:
@@ -408,8 +409,8 @@ def test_registry_matches_repro_field_by_field(arch):
 
 def test_registry_holds_the_lm_archs_and_names_the_rest():
     """The LM archs are ``repro``'s, with their cells; every other arch
-    ``repro`` registers is the port's too, of the same family, or named in
-    ``NOT_PORTED`` with its family."""
+    ``repro`` registers is the port's too, of the same family, the n-gram
+    job's dry-run cells included, so ``NOT_PORTED`` is empty."""
     lm = sorted(a for a in jconfigs.all_archs() if jconfigs.get(a).family == "lm")
     assert sorted(a for a in configs.all_archs()
                   if configs.get(a).family == "lm") == lm == sorted(LM_ARCHS)
@@ -417,11 +418,9 @@ def test_registry_holds_the_lm_archs_and_names_the_rest():
         [c for c in jconfigs.all_cells() if c[0] in lm]
     rest = {a: jconfigs.get(a).family for a in jconfigs.all_archs() if a not in lm}
     ported = {a: configs.get(a).family for a in configs.all_archs() if a not in lm}
-    assert ported.keys().isdisjoint(configs.NOT_PORTED)
-    assert ported | configs.NOT_PORTED == rest
-    for arch in configs.NOT_PORTED:
-        with pytest.raises(KeyError, match="unknown arch"):
-            configs.get(arch)
+    assert configs.NOT_PORTED == {}
+    assert ported == rest
+    assert all(configs.get(a).build_cell is not None for a in configs.all_archs())
     with pytest.raises(ValueError):
         base.lm_model_flops(configs.get("llama3.2-1b").make(), "serve", 1, 1)
 
