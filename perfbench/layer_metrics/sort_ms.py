@@ -1,0 +1,13 @@
+"""sort_ms: milliseconds a job spends in the stage core's sort, the
+program's ``stage.sort`` spans (synchronized at their close) inside each
+``plan.run``, median over the window's jobs."""
+from perfbench.span_groups import job_median_ms
+
+LAYER = "stage core (pipeline/executor._stage_core_impl)"
+UNIT = "ms"
+MOVES = "job_terms_per_s"
+SOURCE = "program_span"
+
+
+def value(record):
+    return job_median_ms(record.get("spans") or [], "stage.sort")

@@ -14,9 +14,15 @@ allocation, no clock read, no device sync.  Enabled, a span records a host
 ``perf_counter_ns`` interval; a span given CUDA tensors through ``sp.sync``
 synchronizes the device at its close, so its duration covers the device work
 it launched instead of the asynchronous launch alone.
+
+Every finished event carries ``args.id``, a number unique within its tracer,
+and ``args.parent``, the id of the span that was open on the same thread when
+it opened (None at a root): a span's self time is its duration less the
+children that name it.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import threading
 import time
@@ -62,7 +68,7 @@ def _on_cuda(x) -> bool:
 class Span:
     """One live span; closes (and optionally device-syncs) on ``__exit__``."""
 
-    __slots__ = ("_tracer", "name", "args", "t0", "t1", "tid", "_sync")
+    __slots__ = ("_tracer", "name", "args", "t0", "t1", "tid", "_sync", "id", "parent")
 
     def __init__(self, tracer: "Tracer", name: str, args: dict | None):
         self._tracer = tracer
@@ -72,6 +78,8 @@ class Span:
         self.t1 = 0
         self.tid = threading.get_ident() & 0xFFFF
         self._sync = False
+        self.id = 0
+        self.parent = None
 
     def __bool__(self) -> bool:
         return True
@@ -87,6 +95,10 @@ class Span:
         self._sync = self._sync or _on_cuda(x)
 
     def __enter__(self) -> "Span":
+        stack = self._tracer._open_spans()
+        self.parent = stack[-1].id if stack else None
+        self.id = next(self._tracer._ids)
+        stack.append(self)
         self.t0 = time.perf_counter_ns()
         return self
 
@@ -94,6 +106,7 @@ class Span:
         if self._sync:
             torch.cuda.synchronize()
         self.t1 = time.perf_counter_ns()
+        self._tracer._open_spans().remove(self)
         self._tracer._finish(self)
         return False
 
@@ -104,9 +117,18 @@ class Tracer:
     def __init__(self):
         self.events: list[dict] = []
         self._t_origin = time.perf_counter_ns()
+        self._ids = itertools.count(1)      # next() is atomic under the GIL
+        self._local = threading.local()
 
     def span(self, name: str, **args) -> Span:
         return Span(self, name, args or None)
+
+    def _open_spans(self) -> list:
+        """The calling thread's open spans, outermost first."""
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
 
     def _finish(self, sp: Span) -> None:
         ev = {
@@ -118,8 +140,10 @@ class Tracer:
             "pid": 0,
             "tid": sp.tid,
         }
-        if sp.args:
-            ev["args"] = {k: _jsonable(v) for k, v in sp.args.items()}
+        args = {k: _jsonable(v) for k, v in sp.args.items()} if sp.args else {}
+        args["id"] = sp.id
+        args["parent"] = sp.parent
+        ev["args"] = args
         self.events.append(ev)
 
     def export(self) -> dict:

@@ -36,11 +36,13 @@ has no use here.
 
 Spans ``plan.run`` and ``round.{emit,stages,materialize}`` mark the
 monolithic job's phases; ``round.materialize`` also covers the next round's
-carry.  PyTorch launches asynchronously, so with tracing on these spans
-synchronize the card at their close: their durations then cover the device
-work they launched.  The wave spans (``wave.run``, ``wave.window.pad``,
-``wave.window.h2d``, ``wave.submit`` with one ``round.stages`` a wave,
-``wave.collect``, ``wave.fold``, ``wave.finalize``; on a mesh
+carry, ``stage.{combine,partition,sort,reduce}`` split ``round.stages``,
+and ``stages.canonical`` is the host finish.  PyTorch launches
+asynchronously, so with tracing on these spans synchronize the card at
+their close: their durations then cover the device work they launched.  The
+wave spans (``wave.run``, ``wave.window.pad``, ``wave.window.h2d``,
+``wave.submit`` with one ``round.stages`` a wave and the stage spans of its
+rounds inside, ``wave.collect``, ``wave.fold``, ``wave.finalize``; on a mesh
 ``wave.mesh.dispatch``, ``wave.mesh.retry`` and ``wave.mesh.collect`` for
 the submit and collect) do not: a wave's dispatch must not wait for the
 card, and its collect waits by itself.
@@ -68,10 +70,19 @@ from repro_torch.pipeline.plan import JobPlan, plan_for
 _SKEW_BUCKETS = 64   # nominal reducer count for the shuffle-skew counter
 
 
+def _stage_span(name: str, records):
+    """A stage span of the stage core, carrying the records it takes in."""
+    sp = obs_trace.span(name)
+    if sp:
+        sp.set(rows=records.shape[0])
+    return sp
+
+
 def _stage_core_impl(records, valid, *, n_lanes: int, has_bucket: bool,
                      combine_route: str | None, sigma: int, lane_vocab: int,
                      shuffle_key: str, reduce_kind: str,
-                     with_positions: bool = False, n_buckets: int = 0):
+                     with_positions: bool = False, n_buckets: int = 0,
+                     sync: bool = False):
     """combine -> shuffle-key -> sort -> reduce over one round's records.
 
     ``has_bucket``: the records end with a time-series bucket lane, which the
@@ -83,25 +94,42 @@ def _stage_core_impl(records, valid, *, n_lanes: int, has_bucket: bool,
     counts stay device tensors until the caller's materialize.  The dense
     outputs of the ``"exact"`` reducer with ``with_positions`` end with the
     run total of every position.
+
+    Each stage runs in a span (``stage.combine``, ``stage.partition``,
+    ``stage.sort``, ``stage.reduce``) with the rows it takes in.  ``sync``:
+    the spans synchronize the device at their close (the single job's
+    rounds); the wave engine enqueues a whole wave and leaves it False.
     """
-    map_rec = valid.sum()
-    if combine_route is not None:
-        records = stages.combine(records, n_lanes, has_bucket,
-                                 route=combine_route)
-    live = records[:, n_lanes] > 0
-    shuffled = live.sum()
-    key = stages.partition_keys(records, n_lanes, kind=shuffle_key,
-                                vocab_size=lane_vocab)
-    # the real partitioner's bucketing (hash_u32 % P, invalid -> P), so the
-    # skew counter measures realized reducer load, not raw-key spread
-    _, hist = kops.hash_partition(key, live, n_parts=_SKEW_BUCKETS)
-    rec = stages.sort_stage(records, n_keys=n_lanes)
-    if reduce_kind == "suffix":
-        dense = stages.reduce_suffix(rec, sigma=sigma, vocab_size=lane_vocab,
-                                     n_buckets=n_buckets)
-    else:
-        dense = stages.reduce_exact(rec, sigma=sigma, vocab_size=lane_vocab,
-                                    with_positions=with_positions)
+    with _stage_span("stage.combine", records) as sp:
+        map_rec = valid.sum()
+        if combine_route is not None:
+            records = stages.combine(records, n_lanes, has_bucket,
+                                     route=combine_route)
+        if sync:
+            sp.sync(records)
+    with _stage_span("stage.partition", records) as sp:
+        live = records[:, n_lanes] > 0
+        shuffled = live.sum()
+        key = stages.partition_keys(records, n_lanes, kind=shuffle_key,
+                                    vocab_size=lane_vocab)
+        # the real partitioner's bucketing (hash_u32 % P, invalid -> P), so the
+        # skew counter measures realized reducer load, not raw-key spread
+        _, hist = kops.hash_partition(key, live, n_parts=_SKEW_BUCKETS)
+        if sync:
+            sp.sync(hist)
+    with _stage_span("stage.sort", records) as sp:
+        rec = stages.sort_stage(records, n_keys=n_lanes)
+        if sync:
+            sp.sync(rec)
+    with _stage_span("stage.reduce", rec) as sp:
+        if reduce_kind == "suffix":
+            dense = stages.reduce_suffix(rec, sigma=sigma, vocab_size=lane_vocab,
+                                         n_buckets=n_buckets)
+        else:
+            dense = stages.reduce_exact(rec, sigma=sigma, vocab_size=lane_vocab,
+                                        with_positions=with_positions)
+        if sync:
+            sp.sync(dense)
     return dense, map_rec, shuffled, hist, rec[:, :n_lanes]
 
 
@@ -154,7 +182,7 @@ def _run_rounds(tok_ext, aux_ext, n_live: int, cfg, plan: JobPlan,
                 sigma=cfg.sigma, lane_vocab=lane_vocab,
                 shuffle_key=plan.shuffle.key, reduce_kind=plan.reduce.kind,
                 with_positions=plan.reduce.with_positions,
-                n_buckets=cfg.n_buckets)
+                n_buckets=cfg.n_buckets, sync=True)
             del records, valid
             if sp:
                 sp.set(round=k)
@@ -219,7 +247,10 @@ def run_plan(tokens: torch.Tensor, cfg, bucket_ids=None,
         out = _run_rounds(tokens, aux, int(tokens.shape[0]), cfg, plan,
                           cfg.tau, counters)
         out.counters = obs_metrics.normalize_counters(out.counters)
-        return stages.canonical_stats(out)
+        with obs_trace.span("stages.canonical") as sp:
+            if sp:
+                sp.set(rows=len(out))
+            return stages.canonical_stats(out)
 
 
 # ------------------------------------------------------------------ wave engine

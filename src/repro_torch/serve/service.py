@@ -12,7 +12,13 @@
 plus the split ``_submit_lookup`` / ``_collect_lookup`` pair that
 ``lookup_pipelined`` and the continuous batcher (``serve.batcher``) drive
 double-buffered.  Cache hits never touch the device; the miss rows of a
-batch go to the index in one dispatch.  Answers
+batch go to the index in one dispatch.  Spans: ``svc.ingest``,
+``svc.lookup`` and ``svc.continuations``, and inside them (and inside the
+split pair) ``svc.cache`` for the keys and the cache's consult (``rows``,
+``hits``: only these carry ``rows``, so a sum counts each row once) or its
+puts (``puts``), and ``svc.search`` for the miss rows' trip to the index
+and back; each carries ``gen``, the index generation it read or wrote,
+which the spans of one delta share.  Answers
 come back as host numpy int64 arrays of uint32 values.  With
 ``wave_tokens`` an ingest streams through the wave engine
 (``pipeline.WaveExecutor``), so a delta larger than device memory ingests
@@ -127,7 +133,7 @@ class StreamingNGramService:
                           waves=stats.counters.get("waves", 1))
             if sp:
                 sp.set(tokens=len(tokens), rows=report["ingested_rows"],
-                       waves=report["waves"])
+                       waves=report["waves"], gen=self.gen.generation)
         return report
 
     def _cached(self, keys: list, out: np.ndarray, gen_id: int) -> list:
@@ -141,6 +147,15 @@ class StreamingNGramService:
                 out[i] = v
         return miss
 
+    def _install(self, keys: list, miss: list, values, gen_id: int) -> None:
+        """Put the answers of the miss rows, in a ``svc.cache`` span that
+        counts the puts (and no rows: the consult counted them)."""
+        with obs_trace.span("svc.cache") as sp:
+            for i, v in zip(miss, values):
+                self.cache.put(keys[i], gen_id, v)
+            if sp:
+                sp.set(puts=len(miss), gen=gen_id)
+
     def _submit_lookup(self, grams, lengths) -> dict:
         """Cache consult + device dispatch of the miss rows.  The record holds
         the per-segment answers unread: pairing ``_submit_lookup`` of batch
@@ -150,16 +165,22 @@ class StreamingNGramService:
         g = np.asarray(grams, np.int32)
         ln = np.asarray(lengths, np.int32)
         gen_id = self.gen.generation
-        keys = [self.lookup_key(g[i], int(ln[i])) for i in range(g.shape[0])]
-        out = np.zeros((g.shape[0],), np.int64)
-        miss = self._cached(keys, out, gen_id)
+        with obs_trace.span("svc.cache") as sp:
+            keys = [self.lookup_key(g[i], int(ln[i])) for i in range(g.shape[0])]
+            out = np.zeros((g.shape[0],), np.int64)
+            miss = self._cached(keys, out, gen_id)
+            if sp:
+                sp.set(rows=len(keys), hits=len(keys) - len(miss), gen=gen_id)
         parts = None
         if miss:
-            q = [torch.as_tensor(x[miss]) for x in (g, ln)]
-            if self.gen.device.type == "cuda":  # a pinned copy does not wait
-                q = [x.pin_memory().to(self.gen.device, non_blocking=True)
-                     for x in q]
-            parts = lookup_deferred(self.gen, *q)
+            with obs_trace.span("svc.search") as sp:
+                if sp:
+                    sp.set(gen=gen_id)
+                q = [torch.as_tensor(x[miss]) for x in (g, ln)]
+                if self.gen.device.type == "cuda":  # a pinned copy does not wait
+                    q = [x.pin_memory().to(self.gen.device, non_blocking=True)
+                         for x in q]
+                parts = lookup_deferred(self.gen, *q)
         return {"out": out, "miss": miss, "keys": keys, "parts": parts,
                 "gen": gen_id}
 
@@ -167,16 +188,22 @@ class StreamingNGramService:
         from repro_torch.index.query import collect_lookup
         miss = rec["miss"]
         if miss:
-            cf = (collect_lookup(rec["parts"], len(miss)).cpu().numpy()
-                  if rec["parts"] else np.zeros(len(miss), np.int64))
-            rec["out"][miss] = cf
-            for i, v in zip(miss, cf.tolist()):
-                self.cache.put(rec["keys"][i], rec["gen"], v)
+            with obs_trace.span("svc.search") as sp:
+                if sp:
+                    sp.set(gen=rec["gen"])
+                cf = (collect_lookup(rec["parts"], len(miss)).cpu().numpy()
+                      if rec["parts"] else np.zeros(len(miss), np.int64))
+                rec["out"][miss] = cf
+            self._install(rec["keys"], miss, cf.tolist(), rec["gen"])
         return rec["out"]
 
     def lookup(self, grams, lengths) -> np.ndarray:
         """Point counts [B] int64; cache hits never touch the device."""
-        return self._collect_lookup(self._submit_lookup(grams, lengths))
+        with obs_trace.span("svc.lookup") as sp:
+            rec = self._submit_lookup(grams, lengths)
+            if sp:
+                sp.set(gen=rec["gen"])
+            return self._collect_lookup(rec)
 
     def lookup_pipelined(self, batches) -> list:
         """Answer (grams, lengths) batches double-buffered: batch i + 1 is
@@ -205,20 +232,28 @@ class StreamingNGramService:
     def continuations(self, prefixes, p_len, *, k: int = 8) -> np.ndarray:
         """Top-k completion rows [B, 2+2k] int64 (nd | total | terms | cfs)."""
         from repro_torch.index.query import continuations as idx_cont
-        pg = np.asarray(prefixes, np.int32)
-        pl = np.asarray(p_len, np.int32)
-        gen_id = self.gen.generation
-        keys = [self.continuation_key(pg[i], int(pl[i]), k)
-                for i in range(pg.shape[0])]
-        out = np.zeros((pg.shape[0], 2 + 2 * k), np.int64)
-        miss = self._cached(keys, out, gen_id)
-        if miss:
-            nd, tot, terms, cfs = (x.cpu().numpy() for x in
-                                   idx_cont(self.gen, pg[miss], pl[miss], k=k))
-            rows = np.concatenate([nd[:, None], tot[:, None], terms, cfs], axis=1)
-            out[miss] = rows
-            for j, i in enumerate(miss):
-                self.cache.put(keys[i], gen_id, rows[j])
+        with obs_trace.span("svc.continuations") as root:
+            pg = np.asarray(prefixes, np.int32)
+            pl = np.asarray(p_len, np.int32)
+            gen_id = self.gen.generation
+            if root:
+                root.set(gen=gen_id)
+            with obs_trace.span("svc.cache") as sp:
+                keys = [self.continuation_key(pg[i], int(pl[i]), k)
+                        for i in range(pg.shape[0])]
+                out = np.zeros((pg.shape[0], 2 + 2 * k), np.int64)
+                miss = self._cached(keys, out, gen_id)
+                if sp:
+                    sp.set(rows=len(keys), hits=len(keys) - len(miss), gen=gen_id)
+            if miss:
+                with obs_trace.span("svc.search") as sp:
+                    if sp:
+                        sp.set(gen=gen_id)
+                    nd, tot, terms, cfs = (x.cpu().numpy() for x in
+                                           idx_cont(self.gen, pg[miss], pl[miss], k=k))
+                    rows = np.concatenate([nd[:, None], tot[:, None], terms, cfs], axis=1)
+                    out[miss] = rows
+                self._install(keys, miss, rows, gen_id)
         return out
 
 

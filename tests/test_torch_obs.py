@@ -399,3 +399,171 @@ def test_span_coverage_merges_overlaps():
                            ev("c", 90, 50), ev("root", 5, 1)]}
     assert trace.span_coverage(obj, "root") == 0.4
     assert trace.span_coverage(obj, "root", ("a",)) == 0.2
+
+
+# ------------------------------------------------- span ids, stage and service spans
+
+STAGES = ("stage.combine", "stage.partition", "stage.sort", "stage.reduce")
+
+
+def _traced(fn):
+    tracer = trace.enable_tracing()
+    try:
+        out = fn()
+    finally:
+        trace.disable_tracing()
+    return out, tracer.events
+
+
+def _children(events, parent, name=None):
+    return [e for e in events if e["args"]["parent"] == parent["args"]["id"]
+            and (name is None or e["name"] == name)]
+
+
+def test_disabled_span_is_the_shared_null_span():
+    from repro_torch.pipeline.executor import _stage_span
+    assert trace.get_tracer() is None
+    assert trace.span("svc.lookup") is trace.NULL_SPAN
+    assert _stage_span("stage.sort", torch.zeros((3, 2))) is trace.NULL_SPAN
+    assert not trace.NULL_SPAN
+
+
+def test_span_ids_unique_and_parents_per_thread():
+    """Every event names its own id and the span open on its own thread when
+    it opened: a span on another thread is a root there."""
+    import threading
+
+    def worker():
+        with trace.span("t.other"):
+            with trace.span("t.other_child"):
+                pass
+
+    def body():
+        with trace.span("t.root"):
+            with trace.span("t.child"):
+                th = threading.Thread(target=worker)
+                th.start()
+                th.join(timeout=30)
+                assert not th.is_alive()
+                with trace.span("t.grandchild"):
+                    pass
+            with trace.span("t.sibling"):
+                pass
+
+    _, events = _traced(body)
+    by = {e["name"]: e["args"] for e in events}
+    assert len({a["id"] for a in by.values()}) == len(events) == 6
+    assert by["t.root"]["parent"] is None and by["t.other"]["parent"] is None
+    assert by["t.child"]["parent"] == by["t.sibling"]["parent"] == by["t.root"]["id"]
+    assert by["t.grandchild"]["parent"] == by["t.child"]["id"]
+    assert by["t.other_child"]["parent"] == by["t.other"]["id"]
+    assert report.validate_trace({"traceEvents": events}) == []
+
+
+@pytest.mark.parametrize("method,combine", [("suffix_sigma", "sort"),
+                                            ("suffix_sigma", "hash"),
+                                            ("apriori_scan", "sort")])
+def test_job_stage_spans_nest_in_every_round(method, combine):
+    """One of each stage span inside every ``round.stages``, with the rows
+    it takes in, and one ``stages.canonical`` inside ``plan.run``."""
+    from repro_torch.core import run_job
+    toks = make_corpus(3000, VOCAB, "zipf", 4)
+    cfg = NGramConfig(sigma=4, tau=2, vocab_size=VOCAB, method=method,
+                      combine_route=combine)
+    stats, events = _traced(lambda: run_job(toks, cfg, device="cpu"))
+    plan = [e for e in events if e["name"] == "plan.run"]
+    assert len(plan) == 1
+    rounds = _children(events, plan[0], "round.stages")
+    assert len(rounds) == sum(e["name"] == "round.stages" for e in events) >= 1
+    if method == "apriori_scan":
+        assert len(rounds) > 1
+    for r in rounds:
+        kids = _children(events, r)
+        assert sorted(e["name"] for e in kids) == sorted(STAGES)
+        rows = {e["name"]: e["args"]["rows"] for e in kids}
+        assert rows["stage.partition"] == rows["stage.sort"] == rows["stage.reduce"] > 0
+        assert rows["stage.combine"] >= rows["stage.sort"]
+        for e in kids:
+            assert r["ts"] <= e["ts"] and e["ts"] + e["dur"] <= r["ts"] + r["dur"]
+    assert sum(e["name"] in STAGES for e in events) == 4 * len(rounds)
+    canon = [e for e in events if e["name"] == "stages.canonical"]
+    assert len(canon) == 1 and canon[0]["args"]["parent"] == plan[0]["args"]["id"]
+    assert canon[0]["args"]["rows"] == len(stats)
+
+
+def test_stage_spans_sync_on_the_job_path_only(monkeypatch):
+    """The single job's stage spans ask for a device sync at their close;
+    the wave engine's, inside ``wave.submit``, never do (a wave is enqueued
+    whole).  Every tensor reads as a card's here, and the sync is counted."""
+    from repro_torch.core import run_job
+    flags, syncs = [], []
+    finish = trace.Tracer._finish
+
+    def spy(self, sp):
+        flags.append((sp.name, sp._sync))
+        finish(self, sp)
+
+    monkeypatch.setattr(trace, "_on_cuda", lambda x: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: syncs.append(1))
+    monkeypatch.setattr(trace.Tracer, "_finish", spy)
+    toks = make_corpus(2000, VOCAB, "zipf", 6)
+    cfg = NGramConfig(sigma=3, tau=2, vocab_size=VOCAB)
+    want, _ = _traced(lambda: run_job(toks, cfg, device="cpu"))
+    job = [s for n, s in flags if n in STAGES]
+    assert len(job) == 4 and all(job) and len(syncs) >= 4
+    flags.clear()
+    syncs.clear()
+    got, _ = _traced(lambda: WaveExecutor(cfg, wave_tokens=500, device="cpu").run(toks))
+    wave = [s for n, s in flags if n in STAGES]
+    assert len(wave) == 4 * 4 and not any(wave)
+    assert syncs == []
+    assert np.array_equal(got.counts, want.counts)
+
+
+
+def test_service_spans_count_rows_hits_and_generation():
+    """``svc.lookup`` and ``svc.continuations`` hold a consulting
+    ``svc.cache`` (rows, hits), a ``svc.search`` for the misses and a
+    ``svc.cache`` of puts; the same batch twice under one generation hits on
+    the second call, and a batch after an ingest hits nothing."""
+    toks = make_corpus(2400, VOCAB, "zipf", 8)
+    svc = StreamingNGramService(NGramConfig(sigma=SIGMA, tau=1, vocab_size=VOCAB),
+                                device="cpu")
+    _, ev_ingest = _traced(lambda: svc.ingest(toks[:1200]))
+    ing = [e for e in ev_ingest if e["name"] == "svc.ingest"]
+    assert len(ing) == 1 and ing[0]["args"]["gen"] == svc.gen.generation
+    rng = np.random.default_rng(3)
+    g = rng.integers(1, VOCAB + 1, (24, SIGMA)).astype(np.int32)
+    ln = rng.integers(1, SIGMA + 1, 24).astype(np.int32)
+    g[12:] = g[:12]
+    ln[12:] = ln[:12]            # repeated within the batch: still misses
+
+    def shape(events, root_name):
+        root = [e for e in events if e["name"] == root_name]
+        assert len(root) == 1
+        kids = _children(events, root[0])
+        assert all(e["args"]["gen"] == svc.gen.generation for e in [root[0], *kids])
+        return [(e["name"], {k: v for k, v in e["args"].items()
+                             if k in ("rows", "hits", "puts")}) for e in kids]
+
+    first, ev1 = _traced(lambda: svc.lookup(g, ln))
+    assert shape(ev1, "svc.lookup") == [
+        ("svc.cache", {"rows": 24, "hits": 0}), ("svc.search", {}),
+        ("svc.search", {}), ("svc.cache", {"puts": 24})]
+    again, ev2 = _traced(lambda: svc.lookup(g, ln))
+    assert shape(ev2, "svc.lookup") == [("svc.cache", {"rows": 24, "hits": 24})]
+    assert np.array_equal(first, again)
+    pg, pl = g, np.minimum(ln, SIGMA - 1)
+    c1, ev3 = _traced(lambda: svc.continuations(pg, pl, k=3))
+    assert shape(ev3, "svc.continuations") == [
+        ("svc.cache", {"rows": 24, "hits": 0}), ("svc.search", {}),
+        ("svc.cache", {"puts": 24})]
+    c2, ev4 = _traced(lambda: svc.continuations(pg, pl, k=3))
+    assert shape(ev4, "svc.continuations") == [("svc.cache", {"rows": 24, "hits": 24})]
+    assert np.array_equal(c1, c2)
+    svc.ingest(toks[1200:])
+    _, ev5 = _traced(lambda: svc.lookup(g, ln))
+    assert shape(ev5, "svc.lookup")[0] == ("svc.cache", {"rows": 24, "hits": 0})
+    _, ev6 = _traced(lambda: svc.lookup_pipelined([(g, ln), (g[:5], ln[:5])]))
+    cache = [e["args"] for e in ev6 if e["name"] == "svc.cache" and "rows" in e["args"]]
+    assert [(a["rows"], a["hits"]) for a in cache] == [(24, 24), (5, 5)]
