@@ -1973,7 +1973,7 @@ def phase_waves(dev, main: dict, stream: dict, corpora) -> dict:
     cfg1 = NGramConfig(sigma=SIGMA, tau=1, vocab_size=vocab)
     rng = np.random.default_rng(8)
     t0 = time.perf_counter()
-    rows1 = pipeline_executor._run_rounds(tokens, None, n, cfg1, plan_for(cfg1), 1, {})
+    rows1, _ = pipeline_executor._run_rounds(tokens, None, n, cfg1, plan_for(cfg1), 1, {})
     flat = build_index(rows1, vocab_size=vocab, device=dev)
     sync()
     t_flat = time.perf_counter() - t0

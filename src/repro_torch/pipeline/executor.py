@@ -7,8 +7,12 @@ whole corpus at once, on the device the tokens lie on: every round's map
 emit, then the stage core (combine -> shuffle key and skew histogram -> sort
 -> reduce), then a host materialize into ``NGramStats``.  Output rows are in
 canonical order (``stages.canonical_stats``) and the counters are exactly
-``repro``'s.  The multi-round plans (APRIORI-SCAN/-INDEX) hand each round's
-carry to the next here.
+``repro``'s.  A one-round plan puts its kept cells in length-major order
+on the device (``materialize_canonical``), which is that order already,
+and checks so there; a job that passes skips the host sort.  The multi-round plans
+(APRIORI-SCAN/-INDEX) hand each round's carry to the next here, take each
+round's cells row-major (``materialize``) and sort their merged rows on the
+host, as do the wave engine's collect and the mesh rows.
 
 ``WaveExecutor`` streams a host-resident corpus through the device in
 fixed-size waves, each with a sigma - 1 token halo, at ``tau = 1``, and
@@ -37,7 +41,8 @@ has no use here.
 Spans ``plan.run`` and ``round.{emit,stages,materialize}`` mark the
 monolithic job's phases; ``round.materialize`` also covers the next round's
 carry, ``stage.{combine,partition,sort,reduce}`` split ``round.stages``,
-and ``stages.canonical`` is the host finish.  PyTorch launches
+and ``stages.canonical`` is the host finish (counting ``rows`` and
+``presorted``, 1 when the host sort was skipped).  PyTorch launches
 asynchronously, so with tracing on these spans synchronize the card at
 their close: their durations then cover the device work they launched.  The
 wave spans (``wave.run``, ``wave.window.pad``, ``wave.window.h2d``,
@@ -133,30 +138,71 @@ def _stage_core_impl(records, valid, *, n_lanes: int, has_bucket: bool,
     return dense, map_rec, shuffled, hist, rec[:, :n_lanes]
 
 
-def materialize(dense, tau: int):
-    """Dense reducer output -> host ``NGramStats``.
-
-    ``NGramStats.from_dense`` computed on the device, so that only the kept
-    (flag, cf >= tau) cells leave it: each cell's row of terms, cut to its
-    length, and its count, in ``from_dense``'s row-major order.  Series
-    counts [N, sigma, B] are kept by their sum over the buckets, taken in
-    int32 as the cells are: an int64 sum would first copy the whole
-    [N, sigma, B] tensor to int64.
-    """
-    from repro_torch.core.stats import NGramStats
+def _kept_rows(dense, tau: int):
+    """``NGramStats.from_dense`` on the device: the kept (flag, cf >= tau)
+    cells of a dense reducer output as (grams int32 cut to their lengths,
+    lengths int32, counts int64), in ``from_dense``'s row-major order
+    (sorted reducer row, then length).
+    Series counts [N, sigma, B] are kept by their sum over the buckets,
+    taken in int32 as the cells are: an int64 sum would first copy the
+    whole [N, sigma, B] tensor to int64."""
     terms, flags, counts = dense
-    total = counts.sum(dim=-1, dtype=torch.int32) if counts.dim() == 3 else counts
-    rows, lens0 = (flags & (total >= tau)).nonzero().unbind(1)
+    keep = (counts.sum(dim=-1, dtype=torch.int32) if counts.dim() == 3
+            else counts) >= tau
+    keep &= flags
+    rows, lens0 = keep.nonzero().unbind(1)
+    del keep
     lengths = (lens0 + 1).to(torch.int32)
     grams = terms[rows] * (torch.arange(terms.shape[1], device=terms.device)
                            < lengths[:, None])
-    return NGramStats(grams.to(torch.int32).cpu().numpy(), lengths.cpu().numpy(),
-                      counts[rows, lens0].to(torch.int64).cpu().numpy())
+    return grams.to(torch.int32), lengths, counts[rows, lens0].to(torch.int64)
+
+
+def _to_host(grams, lengths, counts):
+    from repro_torch.core.stats import NGramStats
+    return NGramStats(grams.cpu().numpy(), lengths.cpu().numpy(),
+                      counts.cpu().numpy())
+
+
+def materialize(dense, tau: int):
+    """Dense reducer output -> host ``NGramStats``: only the kept cells
+    leave the device (:func:`_kept_rows`), in ``from_dense``'s row-major
+    order.  The wave collect, the mesh rows and the extensions' callers
+    take this order and sort or fold it afterwards."""
+    return _to_host(*_kept_rows(dense, tau))
+
+
+def materialize_canonical(dense, tau: int):
+    """:func:`materialize` with the kept cells in length-major order
+    (length, then sorted reducer row) -> (``NGramStats``, presorted).
+
+    A reducer's rows are sorted on their key lanes, packed most significant
+    term first, and a flag marks each distinct prefix once, so within a
+    length the kept rows come out distinct and ascending: the (length,
+    terms) order of ``stages.canonical_stats``.  ``presorted`` is
+    ``stages.rows_ascending`` of the rows, checked on the device and read
+    back after the copies: when it holds, the rows are exactly what
+    ``canonical_stats`` would return.
+    """
+    grams, lengths, counts = _kept_rows(dense, tau)
+    # a stable sort of the R kept cells by length keeps the row order within
+    # a length; a [sigma, N] keep mask, read through the [N, sigma] tensors'
+    # transposed strides, cost 7 % of a sigma-100 job of 2**23 positions on
+    # an H100
+    order = torch.argsort(lengths, stable=True)
+    grams, lengths, counts = grams[order], lengths[order], counts[order]
+    ascending = stages.rows_ascending(grams, lengths)
+    return _to_host(grams, lengths, counts), bool(ascending)
 
 
 def _run_rounds(tok_ext, aux_ext, n_live: int, cfg, plan: JobPlan,
                 tau_eff: int, counters: dict):
-    """All of a plan's rounds over one token window -> merged ``NGramStats``."""
+    """All of a plan's rounds over one token window -> (merged
+    ``NGramStats``, presorted).
+
+    A one-round plan materializes length-major and ``presorted`` is its
+    device check (:func:`materialize_canonical`); the rounds of a
+    multi-round plan are merged on the host, so it is False there."""
     from repro_torch.core.stats import add_counters
 
     lane_vocab = plan.effective_lane_vocab(cfg)
@@ -168,6 +214,7 @@ def _run_rounds(tok_ext, aux_ext, n_live: int, cfg, plan: JobPlan,
 
     out = None
     carry = None
+    presorted = False
     for k in range(1, plan.rounds + 1):
         with obs_trace.span("round.emit") as sp:
             records, valid, emit_extras = plan.map.emit(
@@ -190,7 +237,10 @@ def _run_rounds(tok_ext, aux_ext, n_live: int, cfg, plan: JobPlan,
         with obs_trace.span("round.materialize") as sp:
             if sp:
                 sp.set(round=k)
-            stats_k = materialize(dense[:3], tau_eff)
+            if plan.rounds == 1:
+                stats_k, presorted = materialize_canonical(dense[:3], tau_eff)
+            else:
+                stats_k = materialize(dense[:3], tau_eff)
             reduce_extras = ({"totals_pos": dense[3]}
                              if plan.reduce.with_positions else {})
             del dense
@@ -217,7 +267,7 @@ def _run_rounds(tok_ext, aux_ext, n_live: int, cfg, plan: JobPlan,
         if last:
             break
     out.counters = counters
-    return out
+    return out, presorted
 
 
 def run_plan(tokens: torch.Tensor, cfg, bucket_ids=None,
@@ -228,7 +278,10 @@ def run_plan(tokens: torch.Tensor, cfg, bucket_ids=None,
     ``bucket_ids``: one time-series bucket a position (SSVI-B), read as
     uint32 as ``repro`` reads them; with ``cfg.n_buckets > 0`` the counts
     are per-bucket series.  Output rows are in canonical segment order,
-    counters as ``repro``'s ``run_plan``.
+    counters as ``repro``'s ``run_plan``: a one-round job whose rows came
+    off the device already in that order (``presorted``, a count of the
+    ``stages.canonical`` span) returns them as they are; any other output
+    goes through ``stages.canonical_stats``.
     """
     plan = plan or plan_for(cfg)
     with obs_trace.span("plan.run") as sp:
@@ -244,12 +297,14 @@ def run_plan(tokens: torch.Tensor, cfg, bucket_ids=None,
             ("jobs", "map_records", "shuffle_records", "shuffle_bytes",
              "retries", "overflow"), 0)
         counters["shuffle_skew"] = 0.0
-        out = _run_rounds(tokens, aux, int(tokens.shape[0]), cfg, plan,
-                          cfg.tau, counters)
+        out, presorted = _run_rounds(tokens, aux, int(tokens.shape[0]), cfg,
+                                     plan, cfg.tau, counters)
         out.counters = obs_metrics.normalize_counters(out.counters)
         with obs_trace.span("stages.canonical") as sp:
             if sp:
-                sp.set(rows=len(out))
+                sp.set(rows=len(out), presorted=int(presorted))
+            if presorted:
+                return out
             return stages.canonical_stats(out)
 
 

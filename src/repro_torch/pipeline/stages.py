@@ -200,10 +200,30 @@ def segment_candidates(flags: torch.Tensor, counts: torch.Tensor,
 
 
 # ----------------------------------------------------------- canonical output
+def rows_ascending(grams: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """0-d bool tensor on the rows' device: the rows are strictly ascending
+    in (length, then terms lexicographic), each compared with the one before
+    it.  Exactly the rows :func:`canonical_stats` returns unchanged: nothing
+    to reorder and no repeat to sum.  True for fewer than two rows.
+
+    grams: [R, sigma] int32 right-padded with PAD; lengths: [R] int32.
+    """
+    if grams.shape[0] < 2:
+        return torch.ones((), dtype=torch.bool, device=grams.device)
+    key = torch.cat([lengths[:, None].to(grams.dtype), grams], dim=1)
+    diff = key[1:] - key[:-1]           # ids and lengths are >= 0: no overflow
+    first = (diff != 0).to(torch.uint8).argmax(dim=1)   # first differing column
+    return (diff.gather(1, first[:, None]) > 0).all()
+
+
 def canonical_stats(stats):
     """Canonical row order + dedup of a job output: sort by (length, terms
     lexicographic) and sum counts of identical grams -- the order an
-    ``IndexSegment`` stores.  Host-side numpy, as in ``repro``."""
+    ``IndexSegment`` stores.  Host-side numpy, as in ``repro``.
+
+    ``executor.run_plan`` skips it for a one-round job whose rows
+    :func:`rows_ascending` passed on the device (``materialize_canonical``):
+    those rows are already what it would return."""
     from repro_torch.core.stats import NGramStats
     grams = np.asarray(stats.grams, np.int32)
     lengths = np.asarray(stats.lengths, np.int32)

@@ -95,6 +95,30 @@ def test_cuda_methods_match_cpu(cuda_device, method):
 
 
 @pytest.mark.cuda
+def test_cuda_job_rows_come_off_the_card_presorted(cuda_device):
+    """An NYT-profile SUFFIX-sigma job at 2**20 positions and tau 10 skips
+    the host sort (``presorted`` 1 on its ``stages.canonical`` span), and
+    its rows equal a host lexsort of themselves, repeats summed."""
+    from repro_torch.obs import trace
+    from repro_torch.pipeline import canonical_stats
+    toks = draw(1 << 20, 11)
+    cfg = NGramConfig(sigma=SIGMA, tau=10, vocab_size=VOCAB)
+    tracer = trace.enable_tracing()
+    try:
+        got = run_job(toks, cfg, device=cuda_device)
+    finally:
+        trace.disable_tracing()
+    (span,) = [e["args"] for e in tracer.events if e["name"] == "stages.canonical"]
+    assert span["presorted"] == 1 and span["rows"] == len(got) > 10_000
+    order = np.lexsort(tuple(got.grams[:, i] for i in range(SIGMA - 1, -1, -1))
+                       + (got.lengths,))
+    np.testing.assert_array_equal(order, np.arange(len(got)))
+    assert_same_stats(canonical_stats(got), got)
+    assert (got.grams.dtype, got.lengths.dtype, got.counts.dtype) == \
+        (np.int32, np.int32, np.int64)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("block_size", [4, 16])
 def test_cuda_decode_segment_matches_cpu(cuda_device, block_size):
     stats = cpu_stats(30_000, 5)
